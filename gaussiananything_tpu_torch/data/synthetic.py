@@ -1,0 +1,80 @@
+"""Procedural surfel objects and their renders (port of the parts of
+`gaussiananything_tpu/data/synthetic.py` sampling uses): the demo
+conditioning image of `cli/sample.py` and the kernel check's scene."""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from gaussiananything_tpu_torch.render import cameras
+from gaussiananything_tpu_torch.render.renderer import render_multiview
+from gaussiananything_tpu_torch.utils.image import resize
+
+
+def make_object(seed: int, n: int = 1024, kind: str | None = None,
+                device="cpu") -> torch.Tensor:
+    """Random surfel object (N, 13) fp32: a sphere / ellipsoid / torus shell
+    with smooth position-derived colours (`synthetic.py:31`, same draws)."""
+    rng = np.random.default_rng(seed)
+    kind = kind or rng.choice(["sphere", "ellipsoid", "torus"])
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    if kind == "sphere":
+        xyz = 0.35 * d
+        nrm = d
+    elif kind == "ellipsoid":
+        ax = rng.uniform(0.15, 0.4, 3)
+        xyz = d * ax
+        nrm = d / ax
+        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    else:
+        theta = rng.uniform(0, 2 * np.pi, n)
+        phi = rng.uniform(0, 2 * np.pi, n)
+        R, r = 0.28, 0.12
+        xyz = np.stack([(R + r * np.cos(phi)) * np.cos(theta),
+                        (R + r * np.cos(phi)) * np.sin(theta),
+                        r * np.sin(phi)], 1)
+        nrm = np.stack([np.cos(phi) * np.cos(theta),
+                        np.cos(phi) * np.sin(theta), np.sin(phi)], 1)
+    # quaternion rotating +z to nrm
+    z = np.array([0.0, 0, 1])
+    v = np.cross(z, nrm)
+    c = nrm @ z
+    q = np.concatenate([(1 + c)[:, None], v], 1)
+    q_norm = np.linalg.norm(q, axis=1, keepdims=True)
+    q[q_norm[:, 0] < 1e-6] = np.array([0.0, 1, 0, 0])
+    q /= np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-8)
+    base = rng.uniform(0.2, 1.0, 3)
+    rgb = np.clip(base[None] * (0.6 + 0.4 * (xyz / 0.4 + 1) / 2), 0, 1)
+    scale = np.full((n, 2), 2.2 * np.sqrt(1.0 / n) * 0.6)
+    g = np.concatenate([xyz, np.full((n, 1), 0.95), scale, q, rgb], 1)
+    return torch.as_tensor(g.astype(np.float32), device=device)
+
+
+def render_scene_views(gaussians: torch.Tensor, poses25: np.ndarray,
+                       res: int = 128) -> Dict[str, torch.Tensor]:
+    """Render (V, 25) poses → channel-first maps (V leading), on the
+    gaussians' device (`synthetic.py:77`).
+
+    A `res` that is not a multiple of 16 (the DINOv2 size 518) is rendered
+    at the nearest multiple and resized: bicubic for the image (the
+    conditioning consumer), linear for the geometry maps, as the reference's
+    render-512 → resize-518 path (`sgm/modules/encoders/modules.py:863-875`).
+    """
+    rres = max(16, int(round(res / 16)) * 16)
+    dev = gaussians.device
+    cam = cameras.pose_to_gs_camera(poses25, device=dev)
+    V = poses25.shape[0]
+    out = render_multiview(
+        gaussians[None], cam["cam_view"][None], cam["cam_view_proj"][None],
+        torch.ones((1, V, 3), device=dev), rres, tile=16, max_per_tile=512,
+        chunk=128)
+    out = {k: v[0] for k, v in out.items()}
+    if rres != res:
+        out = {k: resize(v, (res, res),
+                         "cubic" if k == "image" else "linear")
+               for k, v in out.items()}
+        out["alpha"] = torch.clamp(out["alpha"], 0.0, 1.0)
+    return out

@@ -1,0 +1,255 @@
+"""Shared building blocks (port of `gaussiananything_tpu/models/layers.py`).
+
+Parameter names follow the reference's torch modules, so the state dicts of
+the release checkpoints map onto them name for name:
+
+  * `Attention`: packed `qkv` (+ `q_norm`/`k_norm`), `proj` (vit/xformers
+    `Attention`, DINOv2's attention, the DiT self-attention);
+  * `CrossAttention`: separate `to_q`/`to_k`/`to_v`, `to_out.0`
+    (ldm `MemoryEfficientCrossAttention`);
+  * `Mlp`: `fc1`/`fc2` (timm; xformers' FusedMLP layout is converted to it
+    by `gaussiananything_tpu/utils/param_io._norm_fused_mlp`);
+  * `TransformerBlock`: `0.norm`, `0.fn.*`, `1.norm`, `1.fn.*` (one layer of
+    `nsr/srt/layers.py:146` Transformer).
+
+Attention is plain PyTorch, the same math as the JAX package's XLA path
+(`layers.py:32-68`): matmul, fp32 softmax, matmul, computed in query blocks
+once the score matrix would exceed 4096² elements.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+_SCORES_BLOCK_THRESHOLD = 4096 * 4096
+_QUERY_BLOCK = 2048
+
+
+def approx_gelu(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximated GELU (flax's `nn.gelu` default)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def exact_gelu(x: torch.Tensor) -> torch.Tensor:
+    """erf GELU (`sd_encoder.exact_gelu`; torch's `nn.GELU` default)."""
+    return F.gelu(x)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+            ) -> torch.Tensor:
+    """q (B,H,T,D), k/v (B,H,S,D) → (B,H,T,D); fp32 scores and softmax."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+        * (1.0 / math.sqrt(q.shape[-1]))
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(v.dtype), v)
+
+
+def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                  ) -> torch.Tensor:
+    """Exact softmax attention, q (B,T,H,D), k/v (B,S,H,D) → (B,T,H,D).
+
+    Above 4096² scores per (batch, head) the queries run in blocks of 2048,
+    which bounds the score memory and changes no value.
+    """
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    T, S = q.shape[2], k.shape[2]
+    if T * S > _SCORES_BLOCK_THRESHOLD:
+        out = torch.cat([_attend(q[:, :, i:i + _QUERY_BLOCK], k, v)
+                         for i in range(0, T, _QUERY_BLOCK)], dim=2)
+    else:
+        out = _attend(q, k, v)
+    return out.transpose(1, 2)
+
+
+class RMSNorm(nn.Module):
+    """x · rsqrt(mean(x²) + eps) · weight (`dit/norm.py:12`, eps 1e-5)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        ms = (x * x).mean(-1, keepdim=True)
+        return x * torch.rsqrt(ms + self.eps) * self.weight
+
+
+class Mlp(nn.Module):
+    def __init__(self, d_in: int, hidden: int, d_out: Optional[int] = None,
+                 act: Callable = approx_gelu):
+        super().__init__()
+        self.act = act
+        self.fc1 = nn.Linear(d_in, hidden)
+        self.fc2 = nn.Linear(hidden, d_out or d_in)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.act(self.fc1(x)))
+
+
+class Attention(nn.Module):
+    """Self-attention with a packed qkv projection and optional head-dim
+    RMSNorm on q and k (the JAX `Attention` with `context=None`)."""
+
+    def __init__(self, dim: int, heads: int, qk_norm: bool = False,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.heads = heads
+        dh = dim // heads
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.q_norm = RMSNorm(dh) if qk_norm else None
+        self.k_norm = RMSNorm(dh) if qk_norm else None
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, T, D = x.shape
+        qkv = self.qkv(x).reshape(B, T, 3, self.heads, D // self.heads)
+        q, k, v = qkv.unbind(2)
+        if self.q_norm is not None:
+            q, k = self.q_norm(q), self.k_norm(k)
+        o = dot_attention(q, k, v).reshape(B, T, D)
+        return self.proj(o)
+
+
+class CrossAttention(nn.Module):
+    """Attention of `x` over `context` with separate q/k/v projections
+    (the JAX `Attention` with a context)."""
+
+    def __init__(self, dim: int, context_dim: int, heads: int,
+                 dim_head: Optional[int] = None, qk_norm: bool = False,
+                 qkv_bias: bool = False):
+        super().__init__()
+        self.heads = heads
+        dh = dim_head or dim // heads
+        inner = dh * heads
+        self.to_q = nn.Linear(dim, inner, bias=qkv_bias)
+        self.to_k = nn.Linear(context_dim, inner, bias=qkv_bias)
+        self.to_v = nn.Linear(context_dim, inner, bias=qkv_bias)
+        self.q_norm = RMSNorm(dh) if qk_norm else None
+        self.k_norm = RMSNorm(dh) if qk_norm else None
+        self.to_out = nn.Sequential(nn.Linear(inner, dim))
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor
+                ) -> torch.Tensor:
+        def split(t):
+            return t.reshape(t.shape[:-1] + (self.heads, -1))
+
+        q = split(self.to_q(x))
+        k = split(self.to_k(context))
+        v = split(self.to_v(context))
+        if self.q_norm is not None:
+            q, k = self.q_norm(q), self.k_norm(k)
+        o = dot_attention(q, k, v)
+        return self.to_out(o.reshape(o.shape[:-2] + (-1,)))
+
+
+class PreNorm(nn.Module):
+    def __init__(self, dim: int, fn: nn.Module, eps: float = 1e-5):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim, eps=eps)
+        self.fn = fn
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(self.norm(x))
+
+
+class TransformerBlock(nn.ModuleList):
+    """Pre-norm self-attention block (`nsr/srt/layers.py:146`):
+    x + attn(LN(x)), then + mlp(LN(x)); LayerNorm eps 1e-5."""
+
+    def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0,
+                 qk_norm: bool = False, act: Callable = approx_gelu):
+        super().__init__([
+            PreNorm(dim, Attention(dim, heads, qk_norm=qk_norm)),
+            PreNorm(dim, Mlp(dim, int(dim * mlp_ratio), dim, act=act)),
+        ])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self[0](x)
+        return x + self[1](x)
+
+
+class Transformer(nn.Module):
+    """A stack of `TransformerBlock`s under `layers.{i}`."""
+
+    def __init__(self, dim: int, depth: int, heads: int, **kw):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            [TransformerBlock(dim, heads, **kw) for _ in range(depth)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+
+class CrossAttentionBlock(nn.Module):
+    """Pre-norm cross-attention + MLP (`nsr/srt/encoder.py:475-494`): the
+    queries attend to LN(kv tokens) with q/k RMSNorm and biased q/k/v."""
+
+    def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0,
+                 qk_norm: bool = True):
+        super().__init__()
+        self.norm_q = nn.LayerNorm(dim, eps=1e-5)
+        self.norm_kv = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = CrossAttention(dim, dim, heads, qk_norm=qk_norm,
+                                   qkv_bias=True)
+        self.norm_mlp = nn.LayerNorm(dim, eps=1e-5)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+
+    def forward(self, q_tokens: torch.Tensor, kv_tokens: torch.Tensor
+                ) -> torch.Tensor:
+        q_tokens = q_tokens + self.attn(self.norm_q(q_tokens),
+                                        self.norm_kv(kv_tokens))
+        return q_tokens + self.mlp(self.norm_mlp(q_tokens))
+
+
+def fourier_embed(x: torch.Tensor, multires: int = 10,
+                  include_input: bool = True) -> torch.Tensor:
+    """NeRF encoding [x, sin(x·2⁰), cos(x·2⁰), sin(x·2¹), …]
+    (`vit/vit_triplane.py:187-230`)."""
+    freqs = 2.0 ** torch.arange(multires, dtype=torch.float32,
+                                device=x.device)
+    xb = x[..., None, :] * freqs[:, None]               # (..., L, D)
+    enc = torch.cat([torch.sin(xb), torch.cos(xb)], dim=-1)
+    enc = enc.reshape(x.shape[:-1] + (-1,))
+    return torch.cat([x, enc], dim=-1) if include_input else enc
+
+
+class XYZPosEmbed(nn.Module):
+    """Fourier-encode xyz, then a linear projection (`xyz_projection`)."""
+
+    def __init__(self, dim: int, multires: int = 10):
+        super().__init__()
+        self.multires = multires
+        self.xyz_projection = nn.Linear(3 * (2 * multires + 1), dim)
+
+    def forward(self, xyz: torch.Tensor) -> torch.Tensor:
+        return self.xyz_projection(fourier_embed(xyz.float(), self.multires))
+
+
+class TimestepEmbedder(nn.Module):
+    """Sinusoidal (cos first, 256 frequencies) embedding + 2-layer SiLU MLP
+    (`dit/dit_models_xformers.py:88`)."""
+
+    def __init__(self, hidden: int, freq_dim: int = 256):
+        super().__init__()
+        self.freq_dim = freq_dim
+        self.mlp = nn.Sequential(nn.Linear(freq_dim, hidden), nn.SiLU(),
+                                 nn.Linear(hidden, hidden))
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        half = self.freq_dim // 2
+        freqs = torch.exp(-math.log(10000) * torch.arange(
+            half, dtype=torch.float32, device=t.device) / half)
+        args = t.float()[..., None] * freqs
+        return self.mlp(torch.cat([torch.cos(args), torch.sin(args)], -1))
+
+
+def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor
+             ) -> torch.Tensor:
+    return x * (1 + scale) + shift

@@ -1,0 +1,45 @@
+"""Cascaded gaussian upsampler in its release form (port of the
+`release_parity=True` path of `gaussiananything_tpu/models/upsampler.py`).
+
+`GS_Adaptive_Read_Write_CA_adaptive_2dgs` (`vit/vit_triplane.py:426-1065`):
+each parent's feature and f learned query tokens form an (f+1)-token group
+that runs through a small pre-norm transformer (heads D/64, qk-norm, exact
+GELU); a pre-norm linear head gives the 13-channel residual, and the
+children's raw parameters are the parent's, repeated f times, plus it.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+
+from gaussiananything_tpu_torch.models.layers import (PreNorm, Transformer,
+                                                      exact_gelu)
+
+
+class GaussianUpsampler(nn.Module):
+    def __init__(self, dim: int, factor: int, depth: int = 1):
+        super().__init__()
+        self.factor = factor
+        self.latent_embedding = nn.Parameter(
+            torch.randn(1, factor, dim) * 0.02)
+        self.transformer = Transformer(dim, depth, dim // 64, qk_norm=True,
+                                       act=exact_gelu)
+        self.gaussian_residual_pred = PreNorm(dim, nn.Linear(dim, 13))
+
+    def forward(self, feat: torch.Tensor, raw_gaussians: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """feat (B, N, D) parent features; raw_gaussians (B, N, 13) parent
+        pre-activations → (child_feat (B, N·f, D), child_raw (B, N·f, 13),
+        residual (B, N·f, 13)); the caller forms child positions from the
+        residual alone (`vit/vit_triplane.py:1044-1049`)."""
+        B, N, D = feat.shape
+        f = self.factor
+        grp = torch.cat([feat.reshape(B * N, 1, D),
+                         self.latent_embedding.expand(B * N, -1, -1)], dim=1)
+        child_feat = self.transformer(grp)[:, 1:].reshape(B, N * f, D)
+        residual = self.gaussian_residual_pred(child_feat)
+        child_raw = torch.repeat_interleave(raw_gaussians, f, dim=1) \
+            + residual
+        return child_feat, child_raw, residual

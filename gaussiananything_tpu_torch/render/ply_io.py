@@ -1,0 +1,114 @@
+"""PLY / GLB writers (the port's own copy of the writers in
+`gaussiananything_tpu/render/ply_io.py` that sampling uses).
+
+  * `save_2dgs_ply` (parity with `nsr/gs_surfel.py:206`, with the inverse
+    activations of `compatible=True`: logit opacity, log scales, SH-DC
+    color (rgb-0.5)/C0);
+  * plain xyz[+rgb] point-cloud ply (stage-1 sample export,
+    `nsr/lsgm/flow_matching_trainer.py:1742-1753`);
+  * minimal GLB (glTF 2.0) point-cloud writer.
+"""
+from __future__ import annotations
+
+import json
+import struct
+from typing import Dict, Optional
+
+import numpy as np
+
+SH_C0 = 0.28209479177387814
+
+
+# ---------------------------------------------------------------- PLY core
+
+def write_ply(path: str, fields: Dict[str, np.ndarray]):
+    """fields: name -> (N,) float32 arrays, written in insertion order as a
+    binary little-endian vertex list."""
+    names = list(fields)
+    n = len(fields[names[0]])
+    cols = [np.asarray(fields[k], dtype=np.float32).reshape(n) for k in names]
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}"]
+    header += [f"property float {k}" for k in names]
+    header.append("end_header")
+    data = np.stack(cols, axis=1)
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode())
+        f.write(data.astype("<f4").tobytes())
+
+
+# ------------------------------------------------------------ 2DGS ply IO
+
+def save_2dgs_ply(path: str, gaussians: np.ndarray):
+    """gaussians (N, 13) activated; writes the 2DGS-standard vertex layout
+    with its inverse activations (logit opacity, log scales, SH-DC rgb)."""
+    g = np.asarray(gaussians, dtype=np.float32)
+    if g.ndim != 2 or g.shape[1] != 13:
+        raise ValueError(f"expected (N, 13) gaussians, got {g.shape}")
+    xyz, op, sc, rot, rgb = g[:, :3], g[:, 3:4], g[:, 4:6], g[:, 6:10], g[:, 10:13]
+    opc = np.clip(op, 1e-6, 1 - 1e-6)
+    op = np.log(opc) - np.log1p(-opc)
+    sc = np.log(sc + 1e-8)
+    rgb = (rgb - 0.5) / SH_C0
+    fields = {"x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
+              "nx": np.zeros(len(g), np.float32),
+              "ny": np.zeros(len(g), np.float32),
+              "nz": np.zeros(len(g), np.float32)}
+    for i in range(3):
+        fields[f"f_dc_{i}"] = rgb[:, i]
+    fields["opacity"] = op[:, 0]
+    for i in range(2):
+        fields[f"scale_{i}"] = sc[:, i]
+    for i in range(4):
+        fields[f"rot_{i}"] = rot[:, i]
+    write_ply(path, fields)
+
+
+def save_pointcloud_ply(path: str, xyz: np.ndarray,
+                        rgb: Optional[np.ndarray] = None):
+    fields = {"x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2]}
+    if rgb is not None:
+        for i, k in enumerate(["red", "green", "blue"]):
+            fields[k] = rgb[:, i]
+    write_ply(path, fields)
+
+
+# ------------------------------------------------------------------ GLB
+
+def save_pointcloud_glb(path: str, xyz: np.ndarray,
+                        rgb: Optional[np.ndarray] = None):
+    """Minimal glTF 2.0 binary point-cloud (mode=0 POINTS)."""
+    xyz = np.asarray(xyz, np.float32)
+    buffers = [xyz.tobytes()]
+    attributes = {"POSITION": 0}
+    accessors = [{
+        "bufferView": 0, "componentType": 5126, "count": int(len(xyz)),
+        "type": "VEC3", "min": xyz.min(0).tolist(), "max": xyz.max(0).tolist(),
+    }]
+    views = [{"buffer": 0, "byteOffset": 0, "byteLength": len(buffers[0])}]
+    if rgb is not None:
+        rgb = np.asarray(rgb, np.float32)
+        off = sum(len(b) for b in buffers)
+        buffers.append(rgb.tobytes())
+        views.append({"buffer": 0, "byteOffset": off, "byteLength": len(buffers[-1])})
+        accessors.append({"bufferView": 1, "componentType": 5126,
+                          "count": int(len(rgb)), "type": "VEC3"})
+        attributes["COLOR_0"] = 1
+    bin_blob = b"".join(buffers)
+    pad = (-len(bin_blob)) % 4
+    bin_blob += b"\x00" * pad
+    gltf = {
+        "asset": {"version": "2.0", "generator": "gaussiananything_tpu_torch"},
+        "scene": 0, "scenes": [{"nodes": [0]}], "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{"attributes": attributes, "mode": 0}]}],
+        "buffers": [{"byteLength": len(bin_blob)}],
+        "bufferViews": views, "accessors": accessors,
+    }
+    js = json.dumps(gltf).encode()
+    js += b" " * ((-len(js)) % 4)
+    total = 12 + 8 + len(js) + 8 + len(bin_blob)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, total))
+        f.write(struct.pack("<II", len(js), 0x4E4F534A))
+        f.write(js)
+        f.write(struct.pack("<II", len(bin_blob), 0x004E4942))
+        f.write(bin_blob)

@@ -1,0 +1,77 @@
+"""The port stands alone: no file of `gaussiananything_tpu_torch/` or
+`chip_smoke.py` imports JAX, flax, optax or the JAX package, and the entry
+points run on `cuda` unless the caller asks for the CPU."""
+from __future__ import annotations
+
+import ast
+import inspect
+import os
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "gaussiananything_tpu"}
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT,
+                                            "gaussiananything_tpu_torch")):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", None)) in (
+                    "__import__", "import_module") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_files_found():
+    files = _port_files()
+    assert len(files) > 20
+    assert any(f.endswith("rasterize_cuda.py") for f in files)
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_imports(path):
+    bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_cli_defaults_to_cuda_and_refuses_without_it(monkeypatch):
+    from gaussiananything_tpu_torch.cli import sample
+    from gaussiananything_tpu_torch.utils import device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert inspect.signature(device.resolve_device).parameters[
+        "device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sample.main(["--release", "--full", "--num", "0"])
+    assert device.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_resolve_device_pins_fp32_products():
+    from gaussiananything_tpu_torch.utils.device import resolve_device
+    resolve_device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_cli_runs_only_the_ported_path():
+    from gaussiananything_tpu_torch.cli import sample
+    with pytest.raises(SystemExit):
+        sample.main(["--device", "cpu", "--num", "0"])
