@@ -6,19 +6,38 @@
 Phases, in order; any failure exits non-zero:
 
 1. device: require CUDA; print the card's name and power limit;
-2. build: compile every kernel of the sampling path from `csrc/` with nvcc;
-3. kernels: hold each kernel against its plain PyTorch version on the card,
-   at every shape the main path gives it and on a scene that makes each
-   output channel checkable, and time both;
+2. build: compile every kernel from `csrc/` with nvcc, the sources in
+   parallel, and print what ptxas says of each;
+3. kernels: hold each kernel (K1 forward, K2a forward with entry states,
+   K2b backward) against its plain PyTorch version on the card, at every
+   shape the main paths give it and on a scene that makes each output
+   channel checkable, and time both; K2b twice, bit-equal;
 4. small cascade: the sampling pipeline at small widths on the card
    against the same weights and noise on the CPU;
 5. cascade: two release-width image-to-3D requests through the port's
    `cli/sample.py` on seeded random weights (a depth cut: 10 Heun steps),
    checking the outputs and that every kernel of the path was launched;
-6. report: one JSON line of kernel records, the kernels launched, the
+6. small train: three VAE training steps at small widths on the card
+   against the same weights, batch and draws on the CPU;
+7. train: three training steps at the `vae-release` preset's full width
+   through the port's `cli/train_vae.py` on seeded random weights (the
+   batch cut to TRAIN_BATCH), checking losses, the step count, that
+   parameters and EMA moved, the kernels' launch counts, and timing the
+   step's stages;
+8. report: one JSON line of kernel records, the kernels launched, the
    card's name and power limit, then the `{"ok": true, ...}` line last.
 
 It imports nothing of JAX; the port's package must sit beside this file.
+
+    python3 chip_smoke.py --probe-batch [batch ...]     (default: 8 4 2 1)
+
+runs none of the phases: it looks for the largest batch of the
+release-width training step that the card holds. Each batch runs two steps
+of `cli/train_vae.py --preset vae-release` in a process of its own (so a
+failed allocation leaves nothing behind), largest first, stopping at the
+first that fits, and prints one JSON line per batch: whether the allocation
+failed, `torch.cuda.max_memory_allocated()`, the second step's seconds by
+stage.
 """
 from __future__ import annotations
 
@@ -37,6 +56,21 @@ H100_HBM_BYTES_S = 3.35e12
 # evaluation, divide, rho, window, exp, clamp, tests); kept pairs add ~33
 # more, so this count gives a least time
 K1_OPS_PER_STEP = 43
+# What the backward needs, whatever its design: the same 43 once for every
+# executed step (the keep test must be recomputed), and for every step that
+# blends with a weight above zero (`rasterize.active_steps`) the adjoints,
+# counted from `chunk_backward` as K2b's second pass writes them out: the
+# transmittance products and the median crossing 8, the weight and mapped
+# depth 7, the weight cotangent 19, the alpha chain 12, the depth chain 15,
+# the opacity/window/rho chain 18, the ray-plane chain 14, the 22 products
+# of the pixel basis and the features 24, and 22 additions into the sums
+# over the pixels. (K2b itself evaluates the 43 twice.)
+K2B_ADJOINT_OPS = 8 + 7 + 19 + 12 + 15 + 18 + 14 + 24 + 22
+# the batch of the release-width training phase: the preset's 8 does not
+# fit 80 GB in fp32 without activation checkpointing; see PERF.md for the
+# measured peaks
+TRAIN_BATCH = 2
+TRAIN_STEPS = 3
 
 GOLDEN_TOL = {"image": 2e-3, "alpha": 2e-3, "normal_view": 2e-3,
               "dist": 2e-3, "depth_expected": 5e-3, "depth_median": 5e-3}
@@ -86,11 +120,14 @@ def device_phase():
 def build_phase():
     from gaussiananything_tpu_torch.ops import rasterize_cuda
     t0 = time.perf_counter()
-    rasterize_cuda._library()
+    rasterize_cuda._library("fwd")
     dt = time.perf_counter() - t0
-    print(f"[build] K1 {rasterize_cuda.SOURCE}: {dt:.2f}s", flush=True)
+    print(f"[build] K1+K2a {rasterize_cuda.SOURCES['fwd']}, K2b "
+          f"{rasterize_cuda.SOURCES['bwd']}, in parallel: {dt:.2f}s",
+          flush=True)
     for line in rasterize_cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if any(w in line for w in ("Compiling entry", "registers", "spill",
+                                   "smem")):
             print(f"[build]   {line.strip()}", flush=True)
 
 
@@ -126,6 +163,10 @@ K1_CASES = {
     "turntable": (0, 73728, "sphere", None, 1.8, (20, 45), 512, 2048, 256),
     # the demo conditioning view (cli/sample.py demo_condition_image)
     "demo view": (7, 512, None, None, 1.8, (20, 30), 512, 512, 128),
+    # a ground-truth view of the trainer's batches (`make_batch` through
+    # `render_scene_views`: the object of seed 1's first item, 4096 splats of
+    # a drawn kind, one pose of its elevation and azimuth ranges)
+    "ground truth": (131, 4096, None, None, 1.8, (35, 200), 512, 512, 128),
     # dist is built from squared gaps of the mapped depth m(z), dm/dz =
     # 0.01/z², so on the two scenes above it is ~1e-7, under its fp32 floor;
     # translucent shells seen from close range lift it to ~2e-4, and chunk
@@ -247,6 +288,282 @@ def k1_phase(dev):
     }
 
 
+# K2a/K2b's cases: the trainer's render call (`render_lods`: max_per_tile
+# 1024, chunk 128) at each of the four LoDs of the ladder (768 splats at
+# 128², 6,144 at 256², 24,576 at 384² with a 24 x 24 tile grid that is no
+# power of two, 73,728 at 512²), on K1's scene; the dist scene with chunk
+# 32; and a small shape held to rtol/atol.
+# name: (seed, n, kind, opacity, radius, pose, image size, max_per_tile,
+# chunk)
+K2_CASES = {
+    "train 512": (0, 73728, "sphere", None, 1.8, (20, 45), 512, 1024, 128),
+    "train 384": (0, 24576, "sphere", None, 1.8, (20, 45), 384, 1024, 128),
+    "train 256": (0, 6144, "sphere", None, 1.8, (20, 45), 256, 1024, 128),
+    "train 128": (0, 768, "sphere", None, 1.8, (20, 45), 128, 1024, 128),
+    "dist scene": (0, 73728, "sphere", 0.2, 0.6, (20, 45), 512, 1024, 32),
+    "small": (0, 1024, "sphere", None, 1.8, (20, 45), 64, 256, 64),
+}
+GRAD_REL = 2e-3            # of max|g| per surfel channel
+DIST_WEIGHT = 100.0        # the trainer's weight on the dist map
+DIST_GRAD_SHARE = 1e-3
+
+
+def _executed_steps(counts, n_exec, chunk):
+    """(tile, pair) steps of the chunks the forward executed."""
+    import torch
+    return int(torch.minimum(counts, n_exec * chunk).sum())
+
+
+def k2a_phase(dev):
+    """K2a against `composite_plain(return_entries=True)` on the card in
+    every K2_CASES case: the buffer to the golden criteria (and equal to
+    K1's bit for bit), the entry states to atol 2e-5 / rtol 1e-4, the
+    executed chunk counts exactly. Timed at "train 512"."""
+    import torch
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+
+    max_err = 0.0
+    for name, (*scene, chunk) in K2_CASES.items():
+        args = _k1_inputs(dev, *scene)
+        buf, off, entries, n_exec = rasterize_cuda.composite_entries(
+            *args, chunk=chunk)
+        k1 = rasterize_cuda.composite(*args, chunk=chunk)
+        rbuf, rentries, rn_exec = rz.composite_plain(
+            *args, chunk=chunk, return_entries=True)
+        torch.cuda.synchronize()
+        ok, errs = _golden_errors(rz.split_outputs(buf),
+                                  rz.split_outputs(rbuf), GOLDEN_TOL)
+        e_err = float((entries - rentries).abs().max())
+        e_ok = bool(((entries - rentries).abs()
+                     <= 2e-5 + 1e-4 * rentries.abs()).all())
+        print(f"[K2a] {name} ({scene[1]} splats, {scene[6]}², max_per_tile "
+              f"{scene[7]}, chunk {chunk}) vs plain: "
+              f"{json.dumps(errs, sort_keys=True)}; entries max_abs "
+              f"{e_err:.3g} over {int(off[-1])} rows, "
+              f"{int(n_exec.sum())} executed", flush=True)
+        if not torch.equal(buf, k1):
+            fail(f"K2a's buffer is not K1's ({name})")
+        if not (ok and e_ok and torch.isfinite(entries).all()):
+            fail(f"K2a disagrees with its plain version ({name})")
+        if not torch.equal(n_exec, rn_exec):
+            fail(f"K2a executed other chunks than its plain version ({name})")
+        max_err = max(max_err, e_err, *(r["max_abs"] for r in errs.values()))
+        if name == "train 512":
+            timed, t_exec, t_rows = args, n_exec, int(off[-1])
+
+    tab, _, _, counts, _, res, _ = timed
+    chunk, tile = K2_CASES["train 512"][-1], 16
+    ms = time_cuda(lambda: rasterize_cuda.composite_entries(
+        *timed, chunk=chunk), reps=50)
+    plain_ms = time_cuda(lambda: rz.composite_plain(
+        *timed, chunk=chunk, return_entries=True), reps=5, warmup=1)
+    steps = _executed_steps(counts, t_exec, chunk)
+    n_tiles = (res // tile) ** 2
+    n_bytes = (tab.numel() * 4 + int(counts.sum()) * 4 + 4 * n_tiles * 4
+               + 3 * 4 + rz.N_OUT * res * res * 4
+               + int(t_exec.sum()) * 4 * tile * tile * 4)
+    n_ops = steps * tile * tile * K1_OPS_PER_STEP
+    t_bytes = n_bytes / H100_HBM_BYTES_S * 1e3
+    t_ops = n_ops / H100_FP32_FLOPS * 1e3
+    print(f"[K2a] train 512: {ms:.4f} ms (median of 50), plain "
+          f"{plain_ms:.2f} ms; pair steps {steps}, entry rows {t_rows}, "
+          f"bytes {n_bytes}, ops {n_ops}", flush=True)
+    return {
+        "name": "K2a", "route": "cuda",
+        "source": "gaussiananything_tpu_torch/csrc/rasterize_v4.cu",
+        "replaces": "gaussiananything_tpu/ops/rasterize_pallas.py:1280",
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+
+
+def _surfel_gradient(dev, scene, chunk, impl, dist_weight=1.0,
+                     only_dist=False):
+    """d(Σ_map Σ map · cotangent)/d(surfels) of one view through
+    `rasterize_tiled(impl=...)`: a seeded N(0, 1) cotangent on every
+    output map, dist's scaled by `dist_weight`."""
+    import torch
+    from gaussiananything_tpu_torch.data.synthetic import make_object
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.render import cameras
+    seed, n, kind, opacity, radius, pose, res, mpt = scene
+    g = make_object(seed, n=n, kind=kind, device=dev)
+    if opacity is not None:
+        g[:, 3] = opacity
+    g.requires_grad_(True)
+    cam = cameras.pose_to_gs_camera(
+        cameras.generate_input_camera(radius, [pose])[0], device=dev)
+    out = rz.rasterize_tiled(g, cam["cam_view"], cam["cam_view_proj"],
+                             torch.ones(3, device=dev), res, res,
+                             max_per_tile=mpt, chunk=chunk, impl=impl)
+    gen = torch.Generator().manual_seed(5)
+    loss = 0.0
+    for k in sorted(out):
+        ct = torch.randn(out[k].shape, generator=gen).to(dev)
+        if k == "dist":
+            ct = ct * dist_weight
+        elif only_dist:
+            continue
+        loss = loss + (out[k] * ct).sum()
+    return torch.autograd.grad(loss, g)[0]
+
+
+def _grad_rel(got, ref) -> float:
+    """Largest error over the surfel channels, each as a share of the
+    channel's largest reference gradient."""
+    return float(((got - ref).abs().amax(0)
+                  / ref.abs().amax(0).clamp(min=1e-30)).max())
+
+
+def _float64_witness(dev, scene, chunk):
+    """The cotangent of the splat table under a seeded N(0, 1) cotangent of
+    the buffer's dist channel alone (a cotangent on the other maps would
+    add the discrete median and keep decisions, which differ between
+    float32 and float64): K2b and the plain version in float32, each
+    against the plain version walked in float64 on the same float32
+    inputs. Largest error over the table's columns, each as a share of the
+    column's largest float64 value."""
+    import torch
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+    tab, pairs, starts, counts, bg, res, _ = args = _k1_inputs(dev, *scene)
+    ct = torch.zeros((rz.N_OUT, res, res), device=dev)
+    ct[6] = torch.randn((res, res),
+                        generator=torch.Generator().manual_seed(6)).to(dev)
+    _, off, entries, n_exec = rasterize_cuda.composite_entries(
+        *args, chunk=chunk)
+    order, seg = rasterize_cuda.splat_order(pairs, starts, counts,
+                                            tab.shape[0])
+    kernel = rasterize_cuda.composite_backward(
+        tab, pairs, starts, counts, bg, ct, off, entries, n_exec, order, seg,
+        res, res, chunk=chunk)
+    plain = rz.composite_plain_backward(tab, pairs, starts, counts, bg, ct,
+                                        res, res, chunk=chunk)
+    exact = rz.composite_plain_backward(tab.double(), pairs, starts, counts,
+                                        bg, ct.double(), res, res,
+                                        chunk=chunk)[:, :rz.PACKED_F]
+    return {name: float(f"{_grad_rel(got[:, :rz.PACKED_F], exact):.3g}")
+            for name, got in (("kernel", kernel), ("plain float32", plain))}
+
+
+def k2b_phase(dev):
+    """K2b (through the autograd Function, K2a in front) against the plain
+    pair on the card: the gradient with respect to the 13-channel surfels
+    under a random cotangent on every output map, dist's carrying the
+    trainer's DIST_WEIGHT, per channel within GRAD_REL of the channel's
+    largest gradient; rtol 2e-3 / atol 2e-4 of the largest gradient at the
+    small shape. On the dist scene the gradient through dist alone must be
+    a visible share of the total and is held to the plain version on its
+    own, to DIST_REL of its largest value per channel: the plain version in
+    float32 is itself some 2e-3 from its float64 walk there, which the
+    phase prints. (On the other scenes dist is a difference of sums that
+    cancel to its fp32 floor, and its true gradient is under the rounding
+    of either version.) Every kernel gradient is taken twice and must be
+    bit-equal. Timed at "train 512"."""
+    import torch
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+
+    max_err = 0.0
+    for name, (*scene, chunk) in K2_CASES.items():
+        got = _surfel_gradient(dev, scene, chunk, "cuda", DIST_WEIGHT)
+        again = _surfel_gradient(dev, scene, chunk, "cuda", DIST_WEIGHT)
+        ref = _surfel_gradient(dev, scene, chunk, "plain", DIST_WEIGHT)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().amax(0)
+        peak = ref.abs().amax(0)
+        rel = (err / peak.clamp(min=1e-30)).tolist()
+        print(f"[K2b] {name} ({scene[1]} splats, {scene[6]}², chunk "
+              f"{chunk}): surfel-gradient error / max|g| per channel "
+              f"{json.dumps([float(f'{r:.3g}') for r in rel])}; max|g| "
+              f"{float(peak.max()):.4g}", flush=True)
+        if not torch.isfinite(got).all():
+            fail(f"K2b's gradient is not finite ({name})")
+        if not torch.equal(got, again):
+            fail(f"K2b's gradient differs between two runs ({name})")
+        if not (err <= GRAD_REL * peak).all():
+            fail(f"K2b disagrees with its plain version beyond {GRAD_REL} "
+                 f"of max|g| ({name})")
+        if name == "small" and not torch.allclose(
+                got, ref, rtol=2e-3, atol=2e-4 * float(peak.max())):
+            fail("K2b disagrees with its plain version at the small shape")
+        if name == "dist scene":
+            d_got = _surfel_gradient(dev, scene, chunk, "cuda", DIST_WEIGHT,
+                                     True)
+            d_ref = _surfel_gradient(dev, scene, chunk, "plain", DIST_WEIGHT,
+                                     True)
+            share = float(d_ref.norm() / ref.norm())
+            d_rel = _grad_rel(d_got, d_ref)
+            print(f"[K2b] dist scene: |g through dist| / |g| {share:.4g}, "
+                  f"its error / max|g| {d_rel:.3g}", flush=True)
+            if share < DIST_GRAD_SHARE:
+                fail(f"the gradient through dist is {share:.3g} of the "
+                     f"total: the check says nothing about it")
+            # dist is a difference of sums that nearly cancel, so alone it
+            # is held as its forward is: to DIST_REL of its largest value
+            if d_rel > DIST_REL:
+                fail("K2b's gradient through dist disagrees with its "
+                     "plain version")
+        if name in ("train 256", "dist scene"):
+            # what fp32 rounding alone does to the gradient through dist:
+            # on the dist scene it says how sharp DIST_REL is, on an opaque
+            # one that dist's gradient is under fp32's resolution
+            print(f"[K2b] {name}: table-cotangent error / max|g| through "
+                  f"dist alone against the plain version in float64 "
+                  f"(reported, not held): "
+                  f"{json.dumps(_float64_witness(dev, scene, chunk))}",
+                  flush=True)
+        max_err = max(max_err, float(err.max()))
+
+    *scene, chunk = K2_CASES["train 512"]
+    tab, pairs, starts, counts, bg, res, _ = args = _k1_inputs(dev, *scene)
+    ct = torch.randn((rz.N_OUT, res, res),
+                     generator=torch.Generator().manual_seed(6)).to(dev)
+    _, off, entries, n_exec = rasterize_cuda.composite_entries(
+        *args, chunk=chunk)
+    order, seg = rasterize_cuda.splat_order(pairs, starts, counts,
+                                            tab.shape[0])
+    ms = time_cuda(lambda: rasterize_cuda.composite_backward(
+        tab, pairs, starts, counts, bg, ct, off, entries, n_exec, order,
+        seg, res, res, chunk=chunk), reps=30)
+    plain_ms = time_cuda(lambda: rz.composite_plain_backward(
+        tab, pairs, starts, counts, bg, ct, res, res, chunk=chunk),
+        reps=3, warmup=1)
+    tile = 16
+    steps = _executed_steps(counts, n_exec, chunk)
+    active = rz.active_steps(tab, pairs, starts, counts, res, res,
+                             chunk=chunk)
+    live = int(counts.sum())
+    n_tiles = (res // tile) ** 2
+    # inputs once, the output once; the 96-byte row per pair that K2b writes
+    # and reads back between its two kernels is its own design, not counted
+    n_bytes = (tab.numel() * 4                      # table read
+               + live * 4 + 5 * n_tiles * 4 + 3 * 4  # pair ids, tile ints, bg
+               + int(n_exec.sum()) * 4 * tile * tile * 4    # entries read
+               + rz.N_OUT * res * res * 4           # cotangent maps
+               + live * 4 + (tab.shape[0] + 1) * 4  # order, seg
+               + tab.numel() * 4)                   # table cotangent
+    n_ops = steps * tile * tile * K1_OPS_PER_STEP + active * K2B_ADJOINT_OPS
+    t_bytes = n_bytes / H100_HBM_BYTES_S * 1e3
+    t_ops = n_ops / H100_FP32_FLOPS * 1e3
+    print(f"[K2b] train 512: {ms:.4f} ms (median of 30), plain "
+          f"{plain_ms:.2f} ms; pair steps {steps}, (pixel, pair) steps "
+          f"{steps * tile * tile} of which {active} blend, live pairs "
+          f"{live}, bytes {n_bytes}, ops {n_ops}", flush=True)
+    return {
+        "name": "K2b", "route": "cuda",
+        "source": "gaussiananything_tpu_torch/csrc/rasterize_v4_bwd.cu",
+        "replaces": "gaussiananything_tpu/ops/rasterize_pallas.py:1306",
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+
+
 def _small_models(device):
     from gaussiananything_tpu_torch.cli.sample import ReleaseModels
     from gaussiananything_tpu_torch.models.conditioner import \
@@ -337,7 +654,7 @@ def _cascade_run(dev, num, steps, out_dir):
     import torch
     from gaussiananything_tpu_torch.cli import sample
     from gaussiananything_tpu_torch.ops import rasterize_cuda
-    rasterize_cuda.composite.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     results = sample.main(["--release", "--full", "--num", str(num),
                            "--steps", str(steps), "--seed", "0",
@@ -380,18 +697,226 @@ def _cascade_run(dev, num, steps, out_dir):
     return launches
 
 
+def _reset_launches():
+    from gaussiananything_tpu_torch.ops import rasterize_cuda as rc
+    for fn in (rc.composite, rc.composite_entries, rc.composite_backward):
+        fn.launches = 0
+
+
+def _read_launches():
+    from gaussiananything_tpu_torch.ops import rasterize_cuda as rc
+    return {"K1": rc.composite.launches,
+            "K2a": rc.composite_entries.launches,
+            "K2b": rc.composite_backward.launches}
+
+
+def small_train_phase(dev):
+    """Three training steps at small widths (`vae-small`'s layout, cut) on
+    the card against the same weights, batch and draws on the CPU, which
+    runs the plain rasterizer pair. Per step: total loss within 2e-3,
+    grad norm within 1e-2 (the first step; 2e-2 after it, once the
+    parameters have drifted within tolerance)."""
+    import copy
+    import torch
+    from gaussiananything_tpu_torch.data.synthetic import make_batch
+    from gaussiananything_tpu_torch.models.vae import PointVAE
+    from gaussiananything_tpu_torch.train.state import (TrainState,
+                                                        TrainStateConfig)
+    from gaussiananything_tpu_torch.train.vae_trainer import (
+        VAELossConfig, make_train_step)
+    torch.manual_seed(0)
+    K, ZC = 48, 8
+    cpu_model = PointVAE(latent_num=K, z_channels=ZC, encoder_width=96,
+                         decoder_width=128, decoder_depth=2, decoder_heads=2,
+                         up_factors=(8,), up_depths=(1,),
+                         release_parity=False, with_encoder=True)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    batch = make_batch(seed=0, batch=2, n_views_in=2, n_views_sup=2, res=64,
+                       n_pts=256, n_splats=512)
+    batch.pop("gt_gaussians")
+    loss_cfg = VAELossConfig(lod_resolutions=(32, 64), normal_start_step=0,
+                             dist_start_step=0, kl_anneal_steps=2)
+    tx_cfg = TrainStateConfig(lr=1e-3, warmup_steps=1)
+    gen = torch.Generator().manual_seed(1)
+    draws = [{"noise": torch.randn((2, K, ZC), generator=gen),
+              "lpips_lod": i % 2} for i in range(3)]
+    logs = {}
+    for name, model, device in (("cpu", cpu_model, torch.device("cpu")),
+                                ("card", card_model, dev)):
+        step = make_train_step(model, loss_cfg, tx_cfg)
+        state = TrainState.create(model)
+        b = {k: v.to(device) for k, v in batch.items()}
+        logs[name] = [step(state, b, draws={
+            "noise": d["noise"].to(device), "lpips_lod": d["lpips_lod"]})
+            for d in draws]
+    rows = []
+    ok = True
+    for i, (c, r) in enumerate(zip(logs["card"], logs["cpu"])):
+        row = {k: [float(c[k]), float(r[k])] for k in ("total", "grad_norm")}
+        rows.append(row)
+        rel = {k: abs(a - b) / max(abs(b), 1e-30) for k, (a, b) in
+               row.items()}
+        ok &= rel["total"] <= 2e-3 and rel["grad_norm"] <= (1e-2 if i == 0
+                                                           else 2e-2)
+    print(f"[small train] [card, CPU] per step: {json.dumps(rows)}",
+          flush=True)
+    if not ok:
+        fail("the small training steps on the card disagree with the CPU")
+
+
+def train_phase(dev):
+    """TRAIN_STEPS steps at the `vae-release` preset's full width through
+    the port's training CLI on seeded random weights: encoder width 256,
+    768 latents x 10 channels, the DiT2 768 x 12 decoder, upsamplers to
+    73,728 surfels, 4 + 4 views at 512², the (128, 256, 384, 512) ladder.
+    The batch is cut to TRAIN_BATCH and the warm-up to 1 step (through a
+    `--config` file, the preset otherwise unchanged). Launch
+    counts are set to 0 just before and read just after."""
+    with tempfile.TemporaryDirectory() as logdir:
+        return _train_run(dev, logdir)
+
+
+def _train_run(dev, logdir):
+    import torch
+    from gaussiananything_tpu_torch.cli import train_vae
+    from gaussiananything_tpu_torch.config import preset
+    from gaussiananything_tpu_torch.models.vae import PointVAE
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+
+    cfg = preset("vae-release")
+    cfg.optim.warmup_steps = 1      # step 0 runs at lr 0, steps 1-2 at lr
+    cfg_path = os.path.join(logdir, "vae-release.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    rasterize_cuda.event_log = []       # device time of every launch
+    timers = []
+    t0 = time.perf_counter()
+    try:
+        res = train_vae.main(
+            ["--config", cfg_path, "--steps", str(TRAIN_STEPS), "--batch",
+             str(TRAIN_BATCH), "--logdir", os.path.join(logdir, "run"),
+             "--device", str(dev)], timers=timers)
+        torch.cuda.synchronize()
+        events = rasterize_cuda.event_log
+    finally:
+        rasterize_cuda.event_log = None
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    kernel_s = {k: sum(a.elapsed_time(b) for n, a, b in events if n == k)
+                / 1e3 for k in ("K1", "K2a", "K2b")}
+    print(f"[train] vae-release width, batch {TRAIN_BATCH}, {TRAIN_STEPS} "
+          f"steps, wall {wall:.2f}s (model build included); peak memory "
+          f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)}",
+          flush=True)
+    for i, (lg, tm) in enumerate(zip(res["logs"], timers)):
+        print(f"[train] step {i}: total {lg['total']:.6g}, grad_norm "
+              f"{lg['grad_norm']:.6g}; seconds by stage "
+              f"{json.dumps({k: round(v, 4) for k, v in tm.items()})}",
+              flush=True)
+    print(f"[train] kernel seconds over the {TRAIN_STEPS} steps (K1 in data, "
+          f"K2a in render, K2b in backward): "
+          f"{json.dumps({k: round(v, 5) for k, v in kernel_s.items()})}",
+          flush=True)
+
+    expect = {"K1": TRAIN_BATCH * 8 * TRAIN_STEPS,
+              "K2a": TRAIN_BATCH * 4 * 4 * TRAIN_STEPS,
+              "K2b": TRAIN_BATCH * 4 * 4 * TRAIN_STEPS}
+    if launches != expect:
+        fail(f"launches {launches}, expected {expect}")
+    state, model = res["state"], res["model"]
+    if state.step != TRAIN_STEPS or len(res["logs"]) != TRAIN_STEPS:
+        fail(f"the step counter is {state.step}")
+    for lg in res["logs"]:
+        for k, v in lg.items():
+            if not (v == v and abs(v) != float("inf")):
+                fail(f"{k} is not finite")
+    torch.manual_seed(cfg.seed)
+    with torch.device(dev), torch.no_grad():
+        init = PointVAE.from_config(cfg.vae, with_encoder=True)
+    moved = max(float((p.detach() - q.detach()).abs().max()) for p, q in
+                zip(model.parameters(), init.parameters()))
+    ema_gap = max(float((state.ema[k] - q.detach()).abs().max())
+                  for (k, _), q in zip(model.named_parameters(),
+                                       init.parameters()))
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f"[train] {n_par / 1e6:.1f}M parameters; max |param - init| "
+          f"{moved:.3g}, max |EMA - init| {ema_gap:.3g}", flush=True)
+    if not (moved > 0 and ema_gap > 0):
+        fail("parameters or EMA did not move")
+    shapes = {"encoder_width": cfg.vae.encoder_width,
+              "latent": [cfg.vae.latent_num, cfg.vae.z_channels],
+              "lods": list(cfg.render.lod_resolutions)}
+    if shapes != {"encoder_width": 256, "latent": [768, 10],
+                  "lods": [128, 256, 384, 512]}:
+        fail(f"the preset is not the release's: {shapes}")
+    return launches
+
+
+def probe_one(batch: int):
+    import torch
+    from gaussiananything_tpu_torch.cli import train_vae
+    timers = []
+    out = {"batch": batch, "oom": False}
+    with tempfile.TemporaryDirectory() as logdir:
+        try:
+            train_vae.main(["--preset", "vae-release", "--steps", "2",
+                            "--batch", str(batch), "--logdir", logdir],
+                           timers=timers)
+            out["step_seconds"] = {k: round(v, 4)
+                                   for k, v in timers[-1].items()}
+        except torch.OutOfMemoryError:      # the answer the probe is after
+            out["oom"] = True
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_gib"] = round(out["peak_bytes"] / 2 ** 30, 2)
+    out["device"] = torch.cuda.get_device_name(0)
+    print("PROBE " + json.dumps(out), flush=True)
+
+
+def probe_batches(batches):
+    _, smi_line = device_phase()
+    for batch in batches or [8, 4, 2, 1]:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--probe-one", str(batch)],
+                             capture_output=True, text=True)
+        lines = [ln for ln in res.stdout.splitlines()
+                 if ln.startswith("PROBE ")]
+        if not lines:
+            print(res.stdout[-2000:], res.stderr[-4000:], sep="\n")
+            fail(f"batch {batch}: the run failed")
+        print(lines[-1][6:], flush=True)
+        if not json.loads(lines[-1][6:])["oom"]:
+            break
+    print(smi_line, flush=True)
+
+
 def main():
+    if sys.argv[1:2] == ["--probe-one"]:
+        return probe_one(int(sys.argv[2]))
+    if sys.argv[1:2] == ["--probe-batch"]:
+        return probe_batches([int(a) for a in sys.argv[2:]])
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "gaussiananything_tpu_torch")):
         fail("gaussiananything_tpu_torch/ is missing beside chip_smoke.py")
     dev, smi_line = device_phase()
     build_phase()
-    k1 = k1_phase(dev)
+    k1, k2a, k2b = k1_phase(dev), k2a_phase(dev), k2b_phase(dev)
     small_cascade_phase(dev)
-    launches = cascade_phase(dev)
-    k1["launches"] = launches["K1"]
-    print(json.dumps({"kernels": [k1]}), flush=True)
-    print(f"kernels: {json.dumps(sorted(launches))}", flush=True)
+    sampling = cascade_phase(dev)
+    small_train_phase(dev)
+    training = train_phase(dev)
+    # K1 runs on both main paths (turntables; the trainer's ground truth)
+    k1["launches"] = sampling["K1"] + training["K1"]
+    k2a["launches"] = training["K2a"]
+    k2b["launches"] = training["K2b"]
+    for rec in (k1, k2a, k2b):
+        if rec["launches"] < 1:
+            fail(f"{rec['name']} was not launched on the main path")
+    print(json.dumps({"kernels": [k1, k2a, k2b]}), flush=True)
+    print(f"kernels launched: sampling {json.dumps(sampling)}, training "
+          f"{json.dumps(training)}", flush=True)
     print(smi_line, flush=True)
     import torch
     print(json.dumps({"ok": True, "device": {

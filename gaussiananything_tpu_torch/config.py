@@ -10,6 +10,7 @@ presets mirroring the 5 BASELINE.json configs.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -110,6 +111,28 @@ class RunConfig:
     data: DataConfig = field(default_factory=DataConfig)
     mesh_data: int = 0               # 0 = all devices
     mesh_tile: int = 1
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, s: str) -> "RunConfig":
+        def build(tp, d):
+            kw = {}
+            for f in dataclasses.fields(tp):
+                if f.name not in d:
+                    continue
+                v = d[f.name]
+                sub = getattr(tp(), f.name)
+                if dataclasses.is_dataclass(sub):
+                    v = build(type(sub), v)
+                elif isinstance(v, list):
+                    v = tuple(tuple(x) if isinstance(x, list) else x
+                              for x in v)
+                kw[f.name] = v
+            return tp(**kw)
+
+        return build(cls, json.loads(s))
 
 
 # ------------------------------------------------------------------ presets

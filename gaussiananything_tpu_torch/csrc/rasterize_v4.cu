@@ -1,4 +1,7 @@
-// K1: the 2DGS forward compositor for Hopper (sm_90a).
+// K1 and K2a: the 2DGS forward compositor for Hopper (sm_90a), and the same
+// compositor keeping what the backward kernel needs.
+//
+// K1 (`composite_v4_kernel<false>`):
 //
 // Replaces the TPU kernel `_make_v4_kernel(dma=False)` of
 // gaussiananything_tpu/ops/rasterize_pallas.py:806, driven there by
@@ -37,6 +40,19 @@
 // uses the chunk sums with the entry-state cross terms
 // (rasterize_pallas.py:926-940); the final T <= 1e-4 flush precedes the
 // bg blend (:942-943, :1133).
+//
+// K2a (`composite_v4_kernel<true>`, `ga_composite_v4_train`) replaces the
+// TPU kernel `_v4_fwd_entries_kernel` (rasterize_pallas.py:1280, driven by
+// `rasterize_tiled_v4_train`, :1559). It is the same template, so its
+// outputs are K1's bit for bit; in addition, before each chunk it executes,
+// every pixel stores its entry state (T, Σw, D = Σw·m, D2 = Σw·m²,
+// :1297-1300) at row `chunk_off[tile] + chunk index` of the entries buffer
+// ((rows, 4, 256) floats, coalesced over the pixels), and the tile records
+// how many chunks it executed before its saturation exit. The backward
+// kernel (rasterize_v4_bwd.cu) reads only those rows, so it walks exactly
+// the chunks the forward ran. The extra cost is 4 KB written per executed
+// (tile, chunk): still bound by operations. K1's instantiation compiles
+// the stores away.
 
 #include <cuda_runtime.h>
 
@@ -59,13 +75,16 @@ constexpr float kZNear = 0.01f;
 constexpr float kZFar = 100.0f;
 constexpr float kZRange = (float)(100.0 - 0.01);
 
+template <bool kEntries>
 __global__ void __launch_bounds__(kPix)
 composite_v4_kernel(const float4* __restrict__ tab,
                     const int* __restrict__ pairs,
                     const int* __restrict__ starts,
                     const int* __restrict__ counts,
                     const float* __restrict__ bg, int tiles_x, int img_h,
-                    int img_w, int chunk, float* __restrict__ out) {
+                    int img_w, int chunk, float* __restrict__ out,
+                    const int* __restrict__ chunk_off,
+                    float* __restrict__ entries, int* __restrict__ n_exec) {
   __shared__ float4 rows[kMaxChunk * kRowF4];
 
   const int t = blockIdx.x;
@@ -81,9 +100,18 @@ composite_v4_kernel(const float4* __restrict__ tab,
   float cr = 0.0f, cg = 0.0f, cb = 0.0f, n0 = 0.0f, n1 = 0.0f, n2 = 0.0f;
   float dexp = 0.0f, dmed = 0.0f;
 
+  int executed = 0;
   for (int c0 = 0; c0 < count; c0 += chunk) {
     // barrier for the previous chunk's readers and the saturation exit
     if (!__syncthreads_or(T > kTEps)) break;
+    if constexpr (kEntries) {
+      float* e = entries + (size_t)(chunk_off[t] + executed) * (4 * kPix) + lid;
+      e[0 * kPix] = T;
+      e[1 * kPix] = A;
+      e[2 * kPix] = D;
+      e[3 * kPix] = D2;
+    }
+    ++executed;
     const int n = min(chunk, count - c0);
     for (int j = lid; j < n; j += kPix) {
       const float4* src = tab + (size_t)pairs[start + c0 + j] * kRowF4;
@@ -165,6 +193,10 @@ composite_v4_kernel(const float4* __restrict__ tab,
     T = t_raw > kTEps ? t_raw : 0.0f;
   }
 
+  if constexpr (kEntries) {
+    if (lid == 0) n_exec[t] = executed;
+  }
+
   const size_t plane = (size_t)img_h * img_w;
   float* o = out + (size_t)y * img_w + x;
   o[0 * plane] = cr + T * bg[0];
@@ -189,9 +221,28 @@ extern "C" int ga_composite_v4(const void* tab, const void* pairs,
                                int chunk, void* out, void* stream) {
   if (chunk < 1 || chunk > kMaxChunk) return (int)cudaErrorInvalidValue;
   dim3 grid(tiles_x * tiles_y);
-  composite_v4_kernel<<<grid, kPix, 0, (cudaStream_t)stream>>>(
+  composite_v4_kernel<false><<<grid, kPix, 0, (cudaStream_t)stream>>>(
       (const float4*)tab, (const int*)pairs, (const int*)starts,
       (const int*)counts, (const float*)bg, tiles_x, tiles_y * kTile,
-      tiles_x * kTile, chunk, (float*)out);
+      tiles_x * kTile, chunk, (float*)out, nullptr, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// K2a: as above, plus the entry states (`entries`, rows indexed by the
+// exclusive cumsum `chunk_off` of ceil(counts / chunk)) and the executed
+// chunk count of every tile (`n_exec`).
+extern "C" int ga_composite_v4_train(const void* tab, const void* pairs,
+                                     const void* starts, const void* counts,
+                                     const void* bg, int tiles_x, int tiles_y,
+                                     int chunk, void* out,
+                                     const void* chunk_off, void* entries,
+                                     void* n_exec, void* stream) {
+  if (chunk < 1 || chunk > kMaxChunk) return (int)cudaErrorInvalidValue;
+  dim3 grid(tiles_x * tiles_y);
+  composite_v4_kernel<true><<<grid, kPix, 0, (cudaStream_t)stream>>>(
+      (const float4*)tab, (const int*)pairs, (const int*)starts,
+      (const int*)counts, (const float*)bg, tiles_x, tiles_y * kTile,
+      tiles_x * kTile, chunk, (float*)out, (const int*)chunk_off,
+      (float*)entries, (int*)n_exec);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,8 @@
-"""Procedural surfel objects and their renders (port of the parts of
-`gaussiananything_tpu/data/synthetic.py` sampling uses): the demo
-conditioning image of `cli/sample.py` and the kernel check's scene."""
+"""Procedural multi-view data (port of
+`gaussiananything_tpu/data/synthetic.py`): random surfel objects rendered
+with the port's own rasterizer, in the training-batch schema of the real
+g-buffer pipeline. Serves the demo conditioning image of `cli/sample.py`,
+the kernel checks' scenes and the batches of `cli/train_vae.py`."""
 from __future__ import annotations
 
 from typing import Dict
@@ -8,6 +10,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from gaussiananything_tpu_torch.data.postprocess import \
+    assemble_encoder_input
 from gaussiananything_tpu_torch.render import cameras
 from gaussiananything_tpu_torch.render.renderer import render_multiview
 from gaussiananything_tpu_torch.utils.image import resize
@@ -77,4 +81,47 @@ def render_scene_views(gaussians: torch.Tensor, poses25: np.ndarray,
                          "cubic" if k == "image" else "linear")
                for k, v in out.items()}
         out["alpha"] = torch.clamp(out["alpha"], 0.0, 1.0)
+    return out
+
+
+def make_batch(seed: int, batch: int = 1, n_views_in: int = 4,
+               n_views_sup: int = 4, res: int = 128, n_pts: int = 1024,
+               n_splats: int = 1024, device="cpu") -> Dict[str, torch.Tensor]:
+    """A full VAE-trainer batch for `vae_loss_fn`, plus the ground-truth
+    gaussians (`synthetic.py:108`, the same numpy draws, so both packages
+    make the same batch from a seed). The ground-truth views render
+    through the forward-only rasterizer."""
+    rng = np.random.default_rng(seed)
+    items = []
+    for b in range(batch):
+        g = make_object(seed * 131 + b, n=n_splats, device=device)
+        elevs = rng.uniform(-30, 60, n_views_in + n_views_sup)
+        azis = rng.uniform(0, 360, n_views_in + n_views_sup)
+        poses = cameras.generate_input_camera(1.8, list(zip(elevs, azis)))
+        maps = render_scene_views(g, poses, res)
+        poses_t = torch.as_tensor(poses, device=device)
+        imgs_in = assemble_encoder_input(
+            maps["image"][None, :n_views_in],
+            maps["rend_normal"][None, :n_views_in],
+            maps["depth"][None, :n_views_in],
+            maps["alpha"][None, :n_views_in], poses_t[None, :n_views_in])
+        sup = slice(n_views_in, n_views_in + n_views_sup)
+        cam = cameras.pose_to_gs_camera(poses[sup], device=device)
+        # surface point cloud = splat centres (stands in for the FPS file)
+        idx = rng.choice(g.shape[0], n_pts, replace=n_pts > g.shape[0])
+        items.append({
+            "images_in": imgs_in[0],
+            "pcd": g[torch.as_tensor(idx, device=device), :3],
+            "cam_view": cam["cam_view"],
+            "cam_view_proj": cam["cam_view_proj"],
+            "cam_pos": cam["cam_pos"],
+            "images_sup": maps["image"][sup],
+            "alpha_sup": maps["alpha"][sup],
+            "depth_sup": maps["depth"][sup],
+            "gt_gaussians": g,
+        })
+    out = {k: torch.stack([it[k] for it in items]) for k in items[0]}
+    out["tanfov"] = cameras.pose_to_gs_camera(
+        cameras.generate_input_camera(1.8, [(0, 0)])[0],
+        device=device)["tanfov"]
     return out

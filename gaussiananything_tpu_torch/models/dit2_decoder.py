@@ -1,5 +1,5 @@
-"""DiT2, the VAE decoder's backbone, in its release form (port of the
-`release_parity=True` path of `gaussiananything_tpu/models/dit2_decoder.py`).
+"""DiT2, the VAE decoder's backbone (port of
+`gaussiananything_tpu/models/dit2_decoder.py`).
 
 The input sequence starts as a learned query table (`pos_embed`, 1×K×D);
 each projected latent token modulates its own query token through a
@@ -7,6 +7,8 @@ per-token adaLN (`dit/dit_decoder.py:15-35`). Release semantics
 (`dit/dit_decoder.py:103-160`, roll_out, plane_n = 3, in-plane attention):
 EVEN blocks attend within each of the 3 contiguous K/3-token groups, ODD
 blocks globally; attention is qk-normed, MLPs use exact GELU, and no norm
+follows the last block. Without `release_parity` every block attends
+globally, without qk-norm and with the tanh GELU, and a LayerNorm (`norm`)
 follows the last block.
 """
 from __future__ import annotations
@@ -15,16 +17,19 @@ import torch
 import torch.nn as nn
 
 from gaussiananything_tpu_torch.models.layers import (Attention, Mlp,
-                                                      exact_gelu, modulate)
+                                                      approx_gelu, exact_gelu,
+                                                      modulate)
 
 
 class DiTBlock2(nn.Module):
-    def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0,
+                 release_parity: bool = True):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, elementwise_affine=False, eps=1e-6)
         self.norm2 = nn.LayerNorm(dim, elementwise_affine=False, eps=1e-6)
-        self.attn = Attention(dim, heads, qk_norm=True)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, act=exact_gelu)
+        self.attn = Attention(dim, heads, qk_norm=release_parity)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim,
+                       act=exact_gelu if release_parity else approx_gelu)
         self.adaLN_modulation = nn.Sequential(nn.SiLU(),
                                               nn.Linear(dim, 6 * dim))
 
@@ -38,16 +43,20 @@ class DiTBlock2(nn.Module):
 
 class DiT2(nn.Module):
     def __init__(self, num_tokens: int = 768, width: int = 768,
-                 depth: int = 12, heads: int = 12, plane_n: int = 3):
+                 depth: int = 12, heads: int = 12, plane_n: int = 3,
+                 release_parity: bool = True):
         super().__init__()
-        if num_tokens % plane_n:
+        self.release_parity = release_parity
+        if release_parity and num_tokens % plane_n:
             raise ValueError(f"{num_tokens} tokens do not split into "
                              f"{plane_n} planes")
         self.plane_n = plane_n
         self.pos_embed = nn.Parameter(
             torch.randn(1, num_tokens, width) * 0.02)
-        self.blocks = nn.ModuleList([DiTBlock2(width, heads)
-                                     for _ in range(depth)])
+        self.blocks = nn.ModuleList(
+            [DiTBlock2(width, heads, release_parity=release_parity)
+             for _ in range(depth)])
+        self.norm = None if release_parity else nn.LayerNorm(width, eps=1e-6)
 
     def forward(self, c: torch.Tensor) -> torch.Tensor:
         """c (B, K, D) projected latent tokens → (B, K, D)."""
@@ -55,9 +64,9 @@ class DiT2(nn.Module):
         n = self.plane_n
         x = self.pos_embed.expand(B, -1, -1)
         for i, blk in enumerate(self.blocks):
-            if i % 2 == 0:
+            if self.release_parity and i % 2 == 0:
                 x = blk(x.reshape(B * n, K // n, D),
                         c.reshape(B * n, K // n, D)).reshape(B, K, D)
             else:
                 x = blk(x, c)
-        return x
+        return x if self.norm is None else self.norm(x)

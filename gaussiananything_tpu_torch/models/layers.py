@@ -10,7 +10,10 @@ the release checkpoints map onto them name for name:
   * `Mlp`: `fc1`/`fc2` (timm; xformers' FusedMLP layout is converted to it
     by `gaussiananything_tpu/utils/param_io._norm_fused_mlp`);
   * `TransformerBlock`: `0.norm`, `0.fn.*`, `1.norm`, `1.fn.*` (one layer of
-    `nsr/srt/layers.py:146` Transformer).
+    `nsr/srt/layers.py:146` Transformer);
+  * `ResBlock`: `norm1`, `conv1`, `norm2`, `conv2`, `nin_shortcut` (ldm
+    `ResnetBlock`). Convolutions run NCHW; the JAX package's NHWC kernels
+    are transposed by `utils/param_io.from_jax_params`.
 
 Attention is plain PyTorch, the same math as the JAX package's XLA path
 (`layers.py:32-68`): matmul, fp32 softmax, matmul, computed in query blocks
@@ -24,6 +27,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 _SCORES_BLOCK_THRESHOLD = 4096 * 4096
 _QUERY_BLOCK = 2048
@@ -53,12 +57,23 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """Exact softmax attention, q (B,T,H,D), k/v (B,S,H,D) → (B,T,H,D).
 
     Above 4096² scores per (batch, head) the queries run in blocks of 2048,
-    which bounds the score memory and changes no value.
+    which bounds the score memory and changes no value; under autograd
+    each block is checkpointed (its scores are recomputed in the backward,
+    as the JAX package's `_blocked_attention` does), or the 16k-token
+    joint-view attention of the 512² encoder would keep 8 GB of
+    probabilities per batch element.
     """
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     T, S = q.shape[2], k.shape[2]
     if T * S > _SCORES_BLOCK_THRESHOLD:
-        out = torch.cat([_attend(q[:, :, i:i + _QUERY_BLOCK], k, v)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            def block(qb):
+                return checkpoint(_attend, qb, k, v, use_reentrant=False)
+        else:
+            def block(qb):
+                return _attend(qb, k, v)
+        out = torch.cat([block(q[:, :, i:i + _QUERY_BLOCK])
                          for i in range(0, T, _QUERY_BLOCK)], dim=2)
     else:
         out = _attend(q, k, v)
@@ -248,6 +263,59 @@ class TimestepEmbedder(nn.Module):
             half, dtype=torch.float32, device=t.device) / half)
         args = t.float()[..., None] * freqs
         return self.mlp(torch.cat([torch.cos(args), torch.sin(args)], -1))
+
+
+class SameConv2d(nn.Conv2d):
+    """Conv2d with flax's "SAME" padding on NCHW input: the output is
+    ceil(size / stride), the total padding split with the extra pixel at
+    the bottom/right (torch's own padding is symmetric, which differs for a
+    stride-2 kernel on an even size)."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int, stride: int = 1):
+        super().__init__(c_in, c_out, kernel, stride=stride, padding=0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, s = self.kernel_size[0], self.stride[0]
+        pads = []
+        for size in (x.shape[-1], x.shape[-2]):         # F.pad: W first
+            total = max((-(-size // s) - 1) * s + k - size, 0)
+            pads += [total // 2, total - total // 2]
+        return super().forward(F.pad(x, pads))
+
+
+class GroupNorm32(nn.GroupNorm):
+    """GroupNorm over min(32, C) groups, fp32, eps 1e-6 (flax's default,
+    which the JAX package's `GroupNorm32` keeps)."""
+
+    def __init__(self, channels: int, groups: int = 32):
+        super().__init__(min(groups, channels), channels, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())
+
+
+class ResBlock(nn.Module):
+    """SD-encoder residual conv block on NCHW: GN + SiLU + 3x3 conv, twice,
+    with a 1x1 shortcut conv when the channels change. Serves both the JAX
+    package's `ResBlock` and `SDResnetBlock` (`ldm/modules/
+    diffusionmodules/model.py:469` with temb_channels=0, dropout=0), whose
+    parameter names it takes."""
+
+    def __init__(self, c_in: int, c_out: int):
+        super().__init__()
+        self.norm1 = GroupNorm32(c_in)
+        self.conv1 = SameConv2d(c_in, c_out, 3)
+        self.norm2 = GroupNorm32(c_out)
+        self.conv2 = SameConv2d(c_out, c_out, 3)
+        self.nin_shortcut = SameConv2d(c_in, c_out, 1) \
+            if c_in != c_out else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.nin_shortcut is not None:
+            x = self.nin_shortcut(x)
+        return x + h
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor

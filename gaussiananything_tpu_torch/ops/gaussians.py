@@ -36,6 +36,19 @@ def pack_gaussians(s: GaussianSplats) -> torch.Tensor:
     return torch.cat([s.xyz, s.opacity, s.scale, s.rotation, s.rgb], dim=-1)
 
 
+def activate_gaussians(raw: torch.Tensor, anchor_xyz: torch.Tensor,
+                       skip_weight: float = 0.1,
+                       pos_bound: float = POS_BOUND) -> torch.Tensor:
+    """raw 13-channel head output + anchor positions → activated gaussians:
+    pos = clip(anchor + tanh(raw)·pos_bound·0.5·skip_weight, ±pos_bound)
+    (`vit/vit_triplane.py:1289,1303-1313`), the rest as
+    `activate_gaussians_at`. Always fp32."""
+    offset = torch.tanh(raw[..., 0:3].float()) \
+        * (pos_bound * 0.5 * skip_weight)
+    xyz = torch.clamp(anchor_xyz.float() + offset, -pos_bound, pos_bound)
+    return activate_gaussians_at(xyz, raw)
+
+
 def activate_gaussians_at(pos: torch.Tensor, raw: torch.Tensor
                           ) -> torch.Tensor:
     """Activate opacity/scale/rot/rgb from `raw` with the position given

@@ -8,15 +8,18 @@ to back in depth order (Huang et al. 2024, `nsr/gs_surfel.py:85-142`).
 The forward frame pipeline of one view:
 
   preprocess_splats → build_tile_pairs → pack_splat_render/splat_table →
-  composite (plain version here; the CUDA kernel K1 in `rasterize_cuda.py`)
+  composite (plain versions here; the CUDA kernels K1, K2a and K2b in
+  `rasterize_cuda.py`)
 
-`composite_plain` computes exactly what K1 computes, with the expression
-order of the JAX package's `composite_chunk_grouped` (`rasterize.py:360`):
-an independently ordered expression differs in the last ulp, which flips
-the discrete `alpha >= ALPHA_EPS` keep decision and shows up as 1/255
-speckle. It is the reference the CPU tests hold against JAX and that
-`chip_smoke.py` holds the kernel against; nothing on the card's main path
-calls it.
+`composite_plain` computes exactly what K1 and K2a compute, with the
+expression order of the JAX package's `composite_chunk_grouped`
+(`rasterize.py:360`): an independently ordered expression differs in the
+last ulp, which flips the discrete `alpha >= ALPHA_EPS` keep decision and
+shows up as 1/255 speckle. `composite_plain_backward` is the function K2b
+computes: the reverse walk of `_composite_frame_bwd` (`rasterize.py:996`)
+with the analytic chunk adjoints of `chunk_backward`. They are the
+references the CPU tests hold against JAX and that `chip_smoke.py` holds
+the kernels against; nothing on the card's main path calls them.
 
 Output channels of the (10, H, W) composite buffer (`OUT_CHANNELS`):
 image (3, rgb blended over bg), alpha, depth_expected (premultiplied by
@@ -327,13 +330,12 @@ class PixelState(NamedTuple):
     dist_d2: torch.Tensor    # Σ w·m²
 
 
-def _init_state(G: int, P: int, device) -> PixelState:
-    z = torch.zeros((G, P), dtype=torch.float32, device=device)
-    return PixelState(rgb=torch.zeros((G, P, 3), device=device),
-                      trans=torch.ones((G, P), device=device),
-                      alpha_acc=z, depth_exp=z, depth_med=z,
-                      normal=torch.zeros((G, P, 3), device=device),
-                      dist=z, dist_d=z, dist_d2=z)
+def _init_state(G: int, P: int, device, dtype=torch.float32) -> PixelState:
+    z = torch.zeros((G, P), dtype=dtype, device=device)
+    z3 = torch.zeros((G, P, 3), dtype=dtype, device=device)
+    return PixelState(rgb=z3, trans=torch.ones_like(z), alpha_acc=z,
+                      depth_exp=z, depth_med=z, normal=z3, dist=z, dist_d=z,
+                      dist_d2=z)
 
 
 def _mapped_depth(z: torch.Tensor) -> torch.Tensor:
@@ -342,10 +344,11 @@ def _mapped_depth(z: torch.Tensor) -> torch.Tensor:
 
 
 def composite_chunk(state: PixelState, px: torch.Tensor, py: torch.Tensor,
-                    data: torch.Tensor) -> PixelState:
+                    data: torch.Tensor, return_weights: bool = False):
     """Composite one depth-sorted chunk for G tiles × P pixels
     (`composite_chunk_grouped`, `rasterize.py:360`, expression for
-    expression). px, py: (G, P); data: (PACKED_F, G, K)."""
+    expression). px, py: (G, P); data: (PACKED_F, G, K). Returns the new
+    state; with `return_weights` also the (G, P, K) blend weights w."""
     a0, a1, a2 = data[0][:, None], data[1][:, None], data[2][:, None]
     b0, b1, b2 = data[3][:, None], data[4][:, None], data[5][:, None]
     c0, c1, c2 = data[6][:, None], data[7][:, None], data[8][:, None]
@@ -409,66 +412,441 @@ def composite_chunk(state: PixelState, px: torch.Tensor, py: torch.Tensor,
     trans_raw = state.trans * t_incl[..., -1]
     trans_out = torch.where(trans_raw > T_EPS, trans_raw,
                             torch.zeros_like(trans_raw))
-    return PixelState(
+    out = PixelState(
         rgb=state.rgb + acc[..., 0:3], trans=trans_out,
         alpha_acc=state.alpha_acc + s_w, depth_exp=depth_exp,
         depth_med=depth_med, normal=state.normal + acc[..., 3:6],
         dist=dist, dist_d=state.dist_d + s_wm,
         dist_d2=state.dist_d2 + s_wm2)
+    return (out, w) if return_weights else out
+
+
+def chunk_backward(state: PixelState, px: torch.Tensor, py: torch.Tensor,
+                   data: torch.Tensor, ct: PixelState
+                   ) -> Tuple[PixelState, torch.Tensor]:
+    """Analytic VJP of `composite_chunk` with respect to (state, data)
+    (`_chunk_backward`, `rasterize.py:475`, expression for expression).
+
+    `ct` holds the cotangents of the output state. The per-splat forward
+    quantities are recomputed from the chunk's entry state with the
+    forward's expression order, then the adjoints are applied; gates
+    (`where`, comparisons) route cotangents to the selected branch.
+    Returns (cotangent of the entry state, cotangent of data (22, G, K)).
+    """
+    a0, a1, a2 = data[0][:, None], data[1][:, None], data[2][:, None]
+    b0, b1, b2 = data[3][:, None], data[4][:, None], data[5][:, None]
+    c0, c1, c2 = data[6][:, None], data[7][:, None], data[8][:, None]
+    tz0b, tz1b, tz2b = data[9][:, None], data[10][:, None], data[11][:, None]
+    tz0, tz1, tz2 = data[9], data[10], data[11]             # (G, K)
+    cx, cy = data[12][:, None], data[13][:, None]
+    cz, op = data[14][:, None], data[15][:, None]
+
+    # ---- recompute (the forward's expressions) ----------------------------
+    pxe = px[..., None]
+    pye = py[..., None]
+    p0 = pxe * a0 + pye * b0 + c0
+    p1 = pxe * a1 + pye * b1 + c1
+    p2 = pxe * a2 + pye * b2 + c2
+    tiny = p2.abs() < 1e-9
+    safe = torch.where(tiny, torch.full_like(p2, 1e-9), p2)
+    inv = 1.0 / safe
+    u = p0 * inv
+    v = p1 * inv
+    rho3d = u * u + v * v
+    dx = pxe - cx
+    dy = pye - cy
+    rho2d = FILTER_INV_SQUARE * (dx * dx + dy * dy)
+    use3d = rho3d <= rho2d
+    rho = torch.minimum(rho3d, rho2d)
+    depth = torch.where(use3d, u * tz0b + v * tz1b + tz2b, cz.expand_as(u))
+    expw = torch.exp(-0.5 * rho)
+    win = _rho_window(rho)
+    g = expw * win
+    og = op * g
+    alpha_raw = torch.clamp(og, max=ALPHA_MAX)
+    keep = (alpha_raw >= ALPHA_EPS) & (depth > NEAR_CULL)
+    zero = torch.zeros_like(og)
+    alpha = torch.where(keep, alpha_raw, zero)
+    depth = torch.where(keep, depth, zero)
+    t_incl = torch.cumprod(1.0 - alpha, dim=-1)
+    t_excl = torch.cat([torch.ones_like(t_incl[..., :1]),
+                        t_incl[..., :-1]], dim=-1)
+    tau = state.trans[..., None]
+    t_in = tau * t_excl
+    below = t_in <= T_EPS
+    w = torch.where(below, zero, tau * alpha * t_excl)
+    t_after = tau * t_incl
+    crossed = (t_in > 0.5) & (t_after <= 0.5)
+    m = _mapped_depth(depth)
+    wm = w * m
+    s_w = w.sum(-1)
+    s_wm = wm.sum(-1)
+    s_wm2 = (wm * m).sum(-1)
+
+    # ---- state-in cotangents ----------------------------------------------
+    ct_A = ct.alpha_acc + ct.dist * s_wm2
+    ct_Dw = ct.dist_d - 2.0 * ct.dist * s_wm
+    ct_Dw2 = ct.dist_d2 + ct.dist * s_w
+    # chunk-sum cotangents (the dist cross terms use the ENTRY accumulators)
+    ct_s_w = ct.alpha_acc + ct.dist * (state.dist_d2 + s_wm2)
+    ct_s_wm = ct.dist_d - 2.0 * ct.dist * (state.dist_d + s_wm)
+    ct_s_wm2 = ct.dist_d2 + ct.dist * (state.alpha_acc + s_w)
+
+    # ---- per-(pixel, splat) weight cotangent ------------------------------
+    feats6 = torch.stack([data[16], data[17], data[18],
+                          data[19], data[20], data[21]], dim=-1)  # (G, K, 6)
+    ct_acc6 = torch.cat([ct.rgb, ct.normal], dim=-1)              # (G, P, 6)
+    cw = torch.bmm(ct_acc6, feats6.transpose(1, 2))               # (G, P, K)
+    cw = cw + ct_s_w[..., None] \
+        + ct.depth_exp[..., None] * depth \
+        + ct_s_wm[..., None] * m + ct_s_wm2[..., None] * (m * m)
+    cw = torch.where(below, zero, cw)
+
+    # ---- alpha / transmittance chain --------------------------------------
+    # w_j = τ α_j t_excl_j with t_excl_j = Π_{i<j}(1−α_i):
+    #   ∂w_k/∂α_k = τ t_excl_k,   ∂w_j/∂α_k = −w_j/(1−α_k) for j>k,
+    #   ∂τ'/∂α_k = −τ'/(1−α_k)  (τ' = τ·t_incl_K).
+    q = cw * w
+    incl = torch.cumsum(q, dim=-1)
+    suffix = incl[..., -1:] - incl                                # Σ_{j>k}
+    trans_raw = state.trans * t_incl[..., -1]
+    # no cotangent flows through a transmittance flushed to zero
+    flushed = trans_raw <= T_EPS
+    zero_p = torch.zeros_like(trans_raw)
+    ct_trans_out = torch.where(flushed, zero_p, ct.trans)
+    trans_out = torch.where(flushed, zero_p, trans_raw)
+    bracket = suffix + (ct_trans_out * trans_out)[..., None]
+    ct_alpha = cw * tau * t_excl - bracket / (1.0 - alpha)
+    ct_trans = (cw * alpha * t_excl).sum(-1) + ct_trans_out * t_incl[..., -1]
+
+    # ---- depth / mapped-depth chain ---------------------------------------
+    ct_m = ct_s_wm[..., None] * w + ct_s_wm2[..., None] * (2.0 * w * m)
+    zc = torch.clamp(depth, min=ZNEAR)
+    dm_dz = torch.where(depth >= ZNEAR,
+                        (ZFAR * ZNEAR / (ZFAR - ZNEAR)) / (zc * zc), zero)
+    ct_depth = ct.depth_exp[..., None] * w \
+        + ct.depth_med[..., None] * crossed + ct_m * dm_dz
+    ct_depth = torch.where(keep, ct_depth, zero)
+    k3 = keep & use3d
+    ct_depth3 = torch.where(k3, ct_depth, zero)
+    # the adjoint treats depth as (p0·tz0 + p1·tz1 + p2·tz2)·inv, equal to
+    # the forward's u·tz0 + v·tz1 + tz2 up to rounding, so the depth chain
+    # joins the coefficient product below as a fourth numerator column
+    ct_num = ct_depth3 * inv
+    ct_cz = torch.where(keep & ~use3d, ct_depth, zero).sum(1)
+
+    # ---- opacity / gaussian-weight chain ----------------------------------
+    ct_og = torch.where(keep & (og < ALPHA_MAX), ct_alpha, zero)
+    ct_op = (ct_og * g).sum(1)
+    ct_g = ct_og * op
+    ramp = RHO_CUT - rho
+    dwin = torch.where((ramp > 0.0) & (ramp < RHO_RAMP),
+                       torch.full_like(ramp, -1.0 / RHO_RAMP), zero)
+    ct_rho = ct_g * (expw * dwin - 0.5 * expw * win)
+    ct_rho3d = torch.where(use3d, ct_rho, zero)
+    ct_rho2d = torch.where(use3d, zero, ct_rho)
+    ct_u = 2.0 * u * ct_rho3d
+    ct_v = 2.0 * v * ct_rho3d
+    ct_dx = ct_rho2d * FILTER_INV_SQUARE * 2.0 * dx
+    ct_dy = ct_rho2d * FILTER_INV_SQUARE * 2.0 * dy
+    ct_cx = -ct_dx.sum(1)
+    ct_cy = -ct_dy.sum(1)
+
+    # ---- projective ray-plane chain ---------------------------------------
+    ct_p0 = ct_u * inv
+    ct_p1 = ct_v * inv
+    ct_inv = ct_u * p0 + ct_v * p1 + ct_depth3 * (depth * safe)
+    ct_safe = -(inv * inv) * ct_inv
+    ct_p2 = torch.where(tiny, zero, ct_safe)
+
+    # coefficient adjoints: one product over the pixel basis [px, py, 1],
+    # columns o = [p0, p1, p2, depth numerator]
+    G, P, K = u.shape
+    basis = torch.stack([px, py, torch.ones_like(px)], dim=1)     # (G, 3, P)
+    ct_lin = torch.stack([ct_p0, ct_p1, ct_p2, ct_num], dim=2)    # (G,P,4,K)
+    ct_coef = torch.bmm(basis, ct_lin.reshape(G, P, 4 * K)
+                        ).reshape(G, 3, 4, K)
+    ct_tza, ct_tzb, ct_tzc = ct_coef[:, 0, 3], ct_coef[:, 1, 3], \
+        ct_coef[:, 2, 3]
+    ca = [ct_coef[:, 0, i] + ct_tza * tz for i, tz in enumerate((tz0, tz1,
+                                                                 tz2))]
+    cb = [ct_coef[:, 1, i] + ct_tzb * tz for i, tz in enumerate((tz0, tz1,
+                                                                 tz2))]
+    cc = [ct_coef[:, 2, i] + ct_tzc * tz for i, tz in enumerate((tz0, tz1,
+                                                                 tz2))]
+    ct_tz = [ct_tza * data[i] + ct_tzb * data[3 + i] + ct_tzc * data[6 + i]
+             for i in range(3)]
+    ct_feats = torch.bmm(w.transpose(1, 2), ct_acc6)              # (G, K, 6)
+
+    ct_data = torch.stack([*ca, *cb, *cc, *ct_tz, ct_cx, ct_cy, ct_cz, ct_op,
+                           *ct_feats.unbind(-1)], dim=0)          # (22, G, K)
+    ct_state = PixelState(
+        rgb=ct.rgb, trans=ct_trans, alpha_acc=ct_A, depth_exp=ct.depth_exp,
+        depth_med=ct.depth_med, normal=ct.normal, dist=ct.dist,
+        dist_d=ct_Dw, dist_d2=ct_Dw2)
+    return ct_state, ct_data
+
+
+def chunk_offsets(counts: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(n_tiles + 1,) int32 exclusive cumsum of ceil(counts / chunk): tile
+    t's chunk c keeps its entry state at row `offsets[t] + c` of the
+    entries buffer; `offsets[-1]` is the buffer's length."""
+    n = (counts.long() + (chunk - 1)) // chunk
+    return torch.cat([n.new_zeros(1), torch.cumsum(n, 0)]).int()
+
+
+class _TileWalk:
+    """What the plain forward and backward share for a frame: the zero-row
+    padded table, pixel coordinates, and the tiles in groups of
+    `_TILE_GROUP` (a memory bound only: every chunk a saturated tile skips
+    contributes exactly zero, to outputs and to gradients). The walk runs
+    in the table's dtype: float32 is what the kernels compute; a float64
+    table makes the same functions their own higher-precision witness."""
+
+    def __init__(self, tab, pairs, starts, counts, img_h, img_w, tile,
+                 chunk):
+        dev = tab.device
+        self.dtype = tab.dtype
+        self.tile, self.chunk = tile, chunk
+        self.tiles_x, self.tiles_y = img_w // tile, img_h // tile
+        self.n_tiles, self.P = self.tiles_x * self.tiles_y, tile * tile
+        self.N = tab.shape[0]
+        # zero dummy row: masked slots read opacity 0 ⇒ alpha 0, factor 1.0
+        self.tab0 = torch.cat([tab[:, :PACKED_F],
+                               tab.new_zeros((1, PACKED_F))])
+        self.pairs, self.starts = pairs.long(), starts.long()
+        self.counts = counts.long()
+        lidx = torch.arange(self.P, device=dev)
+        self.local_x = (lidx % tile).to(self.dtype)
+        self.local_y = (lidx // tile).to(self.dtype)
+        self.j_chunk = torch.arange(chunk, device=dev)
+        self.counts_host = self.counts.cpu()
+        self.dev = dev
+
+    def groups(self):
+        """Yields (tiles, px, py, n_chunks) per tile group."""
+        for g0 in range(0, self.n_tiles, _TILE_GROUP):
+            tiles = torch.arange(g0, min(g0 + _TILE_GROUP, self.n_tiles),
+                                 device=self.dev)
+            px = self.local_x[None] \
+                + (tiles % self.tiles_x).to(self.dtype)[:, None] * self.tile
+            py = self.local_y[None] \
+                + (tiles // self.tiles_x).to(self.dtype)[:, None] * self.tile
+            gmax = int(self.counts_host[g0:g0 + len(tiles)].max())
+            yield tiles, px, py, math.ceil(gmax / self.chunk)
+
+    def chunk_ids(self, tiles, c):
+        """(G, K) splat ids of chunk c, N (the zero row) out of range."""
+        pos = c * self.chunk + self.j_chunk[None]
+        in_rng = pos < self.counts[tiles][:, None]
+        return torch.where(in_rng,
+                           self.pairs[self.starts[tiles][:, None] + pos],
+                           torch.full_like(pos, self.N))
+
+    def init_state(self, G: int) -> PixelState:
+        return _init_state(G, self.P, self.dev, self.dtype)
+
+    def chunk_data(self, ids):
+        return self.tab0[ids].permute(2, 0, 1)              # (22, G, K)
 
 
 def composite_plain(tab: torch.Tensor, pairs: torch.Tensor,
                     starts: torch.Tensor, counts: torch.Tensor,
                     bg: torch.Tensor, img_h: int, img_w: int,
-                    tile: int = 16, chunk: int = 256) -> torch.Tensor:
+                    tile: int = 16, chunk: int = 256,
+                    return_entries: bool = False):
     """The function K1 computes, in PyTorch: composite every tile's
     depth-ordered pair segment and return the (N_OUT, img_h, img_w) buffer
     (channels in `OUT_CHANNELS`, image blended over `bg`).
 
     tab: (N, TABLE_W) `splat_table`; pairs/starts/counts from
-    `build_tile_pairs`. Tiles run in groups of `_TILE_GROUP` (a memory bound
-    only: every chunk a saturated tile skips contributes exactly zero).
+    `build_tile_pairs`.
+
+    return_entries: also return what K2a adds to K1, `(entries, n_exec)`:
+    entries (`chunk_offsets(counts, chunk)[-1]`, 4, tile²) holds, for every
+    chunk a tile executes, each pixel's state on entry (T, Σw, Σw·m,
+    Σw·m²), zero elsewhere; n_exec (n_tiles,) int32 counts the chunks each
+    tile executes before all its pixels are at T <= T_EPS.
     """
     dev = tab.device
-    tiles_x, tiles_y = img_w // tile, img_h // tile
-    n_tiles, P = tiles_x * tiles_y, tile * tile
-    N = tab.shape[0]
-    # zero dummy row: masked slots read opacity 0 ⇒ alpha 0, factor 1.0
-    tab0 = torch.cat([tab[:, :PACKED_F].float(),
-                      tab.new_zeros((1, PACKED_F))])
-    pairs = pairs.long()
-    starts = starts.long()
-    counts = counts.long()
-    lidx = torch.arange(P, device=dev)
-    local_x = (lidx % tile).float()
-    local_y = (lidx // tile).float()
-    j_chunk = torch.arange(chunk, device=dev)
-    out = torch.empty((n_tiles, P, N_OUT), dtype=torch.float32, device=dev)
-    counts_host = counts.cpu()
-    for g0 in range(0, n_tiles, _TILE_GROUP):
-        tiles = torch.arange(g0, min(g0 + _TILE_GROUP, n_tiles), device=dev)
-        st, ct = starts[tiles], counts[tiles]
-        px = local_x[None] + (tiles % tiles_x).float()[:, None] * tile
-        py = local_y[None] + (tiles // tiles_x).float()[:, None] * tile
-        state = _init_state(len(tiles), P, dev)
-        gmax = int(counts_host[g0:g0 + len(tiles)].max())
-        for c in range(math.ceil(gmax / chunk)):
+    walk = _TileWalk(tab, pairs, starts, counts, img_h, img_w, tile, chunk)
+    n_tiles, P, tiles_x, tiles_y = walk.n_tiles, walk.P, walk.tiles_x, \
+        walk.tiles_y
+    out = torch.empty((n_tiles, P, N_OUT), dtype=tab.dtype, device=dev)
+    bg = bg.to(tab.dtype)
+    if return_entries:
+        offs = chunk_offsets(counts, chunk).long()
+        entries = torch.zeros((int(offs[-1]), 4, P), dtype=tab.dtype,
+                              device=dev)
+        n_exec = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    for tiles, px, py, n_chunks in walk.groups():
+        state = walk.init_state(len(tiles))
+        for c in range(n_chunks):
             live = (state.trans > T_EPS).any(dim=1)
             if not bool(live.any()):
                 break
-            pos = c * chunk + j_chunk[None]
-            in_rng = pos < ct[:, None]
-            ids = torch.where(in_rng, pairs[st[:, None] + pos],
-                              torch.full_like(pos, N))
-            data = tab0[ids].permute(2, 0, 1)               # (22, G, K)
-            state = composite_chunk(state, px, py, data)
-        rgb = state.rgb + state.trans[..., None] * bg.float()
-        out[g0:g0 + len(tiles)] = torch.cat([
+            if return_entries:
+                ran = live & (c * chunk < walk.counts[tiles])
+                entries[offs[tiles][ran] + c] = torch.stack(
+                    [state.trans, state.alpha_acc, state.dist_d,
+                     state.dist_d2], dim=1)[ran]
+                n_exec[tiles] += ran.int()
+            state = composite_chunk(
+                state, px, py, walk.chunk_data(walk.chunk_ids(tiles, c)))
+        rgb = state.rgb + state.trans[..., None] * bg
+        out[tiles] = torch.cat([
             rgb, state.alpha_acc[..., None], state.depth_exp[..., None],
             state.depth_med[..., None], state.dist[..., None],
             state.normal], dim=-1)
     out = out.reshape(tiles_y, tiles_x, tile, tile, N_OUT)
-    return out.permute(4, 0, 2, 1, 3).reshape(N_OUT, img_h, img_w)
+    buf = out.permute(4, 0, 2, 1, 3).reshape(N_OUT, img_h, img_w)
+    return (buf, entries, n_exec) if return_entries else buf
+
+
+def active_steps(tab: torch.Tensor, pairs: torch.Tensor,
+                 starts: torch.Tensor, counts: torch.Tensor, img_h: int,
+                 img_w: int, tile: int = 16, chunk: int = 128) -> int:
+    """How many (pixel, pair) steps of a frame blend with a weight above
+    zero: the pair is kept (alpha >= ALPHA_EPS, depth > NEAR_CULL) and the
+    pixel is entered at T > T_EPS. Only these carry a cotangent in the
+    backward, so their number sets its least work."""
+    walk = _TileWalk(tab, pairs, starts, counts, img_h, img_w, tile, chunk)
+    n = 0
+    for tiles, px, py, n_chunks in walk.groups():
+        state = walk.init_state(len(tiles))
+        for c in range(n_chunks):
+            if not bool((state.trans > T_EPS).any()):
+                break
+            state, w = composite_chunk(
+                state, px, py, walk.chunk_data(walk.chunk_ids(tiles, c)),
+                return_weights=True)
+            n += int((w > 0).sum())
+    return n
+
+
+def composite_plain_backward(tab: torch.Tensor, pairs: torch.Tensor,
+                             starts: torch.Tensor, counts: torch.Tensor,
+                             bg: torch.Tensor, ct_buf: torch.Tensor,
+                             img_h: int, img_w: int, tile: int = 16,
+                             chunk: int = 128) -> torch.Tensor:
+    """The function K2b computes, in PyTorch: the cotangent of `tab`
+    (N, TABLE_W) given the cotangent `ct_buf` (N_OUT, img_h, img_w) of
+    `composite_plain`'s buffer.
+
+    The reverse walk of `_composite_frame_bwd` (`rasterize.py:996`) over the
+    pair lists: each tile group runs forward keeping every chunk's entry
+    state, then walks its executed chunks back through `chunk_backward`,
+    adding each chunk's per-slot cotangents into the splat rows. The image
+    is blended over `bg` inside the buffer, so the final transmittance
+    receives Σ_c ct_image_c · bg_c.
+    """
+    dev = tab.device
+    walk = _TileWalk(tab, pairs, starts, counts, img_h, img_w, tile, chunk)
+    P = walk.P
+    bg = bg.to(tab.dtype)
+    ct = ct_buf.to(tab.dtype).reshape(N_OUT, walk.tiles_y, tile,
+                                      walk.tiles_x, tile)
+    ct = ct.permute(1, 3, 2, 4, 0).reshape(walk.n_tiles, P, N_OUT)
+    d_tab0 = torch.zeros((walk.N + 1, PACKED_F), dtype=tab.dtype,
+                         device=dev)
+    for tiles, px, py, n_chunks in walk.groups():
+        G = len(tiles)
+        state = walk.init_state(G)
+        steps = []
+        for c in range(n_chunks):
+            if not bool((state.trans > T_EPS).any()):
+                break
+            ids = walk.chunk_ids(tiles, c)
+            steps.append((state, ids))
+            state = composite_chunk(state, px, py, walk.chunk_data(ids))
+        c_g = ct[tiles]
+        z = torch.zeros((G, P), dtype=tab.dtype, device=dev)
+        ct_state = PixelState(
+            rgb=c_g[..., 0:3], trans=(c_g[..., 0:3] * bg).sum(-1),
+            alpha_acc=c_g[..., 3], depth_exp=c_g[..., 4],
+            depth_med=c_g[..., 5], normal=c_g[..., 7:10], dist=c_g[..., 6],
+            dist_d=z, dist_d2=z)
+        for s_in, ids in reversed(steps):
+            ct_state, ct_d = chunk_backward(s_in, px, py,
+                                            walk.chunk_data(ids), ct_state)
+            # out-of-range slots land on the dummy row N, dropped below
+            d_tab0.index_add_(0, ids.reshape(-1),
+                              ct_d.reshape(PACKED_F, -1).t())
+    d_tab = torch.zeros_like(tab)
+    d_tab[:, :PACKED_F] = d_tab0[:walk.N]
+    return d_tab
+
+
+class _CompositePlainTrain(torch.autograd.Function):
+    """`composite_plain` with `composite_plain_backward` as its gradient:
+    the analytic adjoints the backward kernel implements, on any device."""
+
+    @staticmethod
+    def forward(ctx, tab, pairs, starts, counts, bg, img_h, img_w, tile,
+                chunk):
+        ctx.save_for_backward(tab, pairs, starts, counts, bg)
+        ctx.frame = (img_h, img_w, tile, chunk)
+        return composite_plain(tab, pairs, starts, counts, bg, img_h, img_w,
+                               tile=tile, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, ct_buf):
+        img_h, img_w, tile, chunk = ctx.frame
+        d_tab = composite_plain_backward(*ctx.saved_tensors, ct_buf, img_h,
+                                         img_w, tile=tile, chunk=chunk)
+        return (d_tab,) + (None,) * 8
+
+
+def composite_plain_train(tab: torch.Tensor, pairs: torch.Tensor,
+                          starts: torch.Tensor, counts: torch.Tensor,
+                          bg: torch.Tensor, img_h: int, img_w: int,
+                          tile: int = 16, chunk: int = 128) -> torch.Tensor:
+    """The plain version of the training pair K2a + K2b: `composite_plain`,
+    differentiable in `tab` through `composite_plain_backward`."""
+    return _CompositePlainTrain.apply(tab, pairs, starts, counts, bg, img_h,
+                                      img_w, tile, chunk)
+
+
+def rasterize_naive(gaussians: torch.Tensor, cam_view: torch.Tensor,
+                    cam_view_proj: torch.Tensor, bg: torch.Tensor,
+                    img_h: int, img_w: int, chunk: int = 256,
+                    pixel_block: int = 8192) -> Dict[str, torch.Tensor]:
+    """The per-pixel oracle: every splat against every pixel
+    (`rasterize.py:242`). O(N·H·W), for tests and small scenes: no binning,
+    no footprint clamp, no per-tile cap, only the compositing semantics,
+    through the same `composite_chunk` so alpha and depth are bit-identical
+    per (pixel, splat) to the tiled path. Returns the maps of
+    `rasterize_tiled`.
+    """
+    sp = preprocess_splats(gaussians, cam_view, cam_view_proj, img_h, img_w)
+    key = torch.where(sp.valid, sp.center_z,
+                      torch.full_like(sp.center_z, float("inf")))
+    order = torch.sort(key, stable=True).indices
+    packed = pack_splat_render(SplatProj(*(a[order] for a in sp)))
+    N = packed.shape[1]
+    pad = (-N) % chunk
+    if pad:     # zero columns: opacity 0, no contribution
+        packed = torch.cat([packed, packed.new_zeros((PACKED_F, pad))], 1)
+    dev = packed.device
+    ys, xs = torch.meshgrid(
+        torch.arange(img_h, dtype=torch.float32, device=dev),
+        torch.arange(img_w, dtype=torch.float32, device=dev), indexing="ij")
+    px_all, py_all = xs.reshape(-1), ys.reshape(-1)
+    blocks = []
+    for p0 in range(0, img_h * img_w, pixel_block):
+        px = px_all[None, p0:p0 + pixel_block]
+        py = py_all[None, p0:p0 + pixel_block]
+        state = _init_state(1, px.shape[1], dev)
+        for c0 in range(0, packed.shape[1], chunk):
+            state = composite_chunk(state, px, py,
+                                    packed[:, None, c0:c0 + chunk])
+        rgb = state.rgb + state.trans[..., None] * bg.float()
+        blocks.append(torch.cat([
+            rgb, state.alpha_acc[..., None], state.depth_exp[..., None],
+            state.depth_med[..., None], state.dist[..., None],
+            state.normal], dim=-1)[0])
+    buf = torch.cat(blocks).t().reshape(N_OUT, img_h, img_w)
+    return split_outputs(buf)
 
 
 def split_outputs(buf: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -480,33 +858,44 @@ def rasterize_tiled(gaussians: torch.Tensor, cam_view: torch.Tensor,
                     cam_view_proj: torch.Tensor, bg: torch.Tensor,
                     img_h: int, img_w: int, tile: int = 16,
                     max_per_tile: int = 2048, chunk: int = 256,
-                    impl: str = "cuda_nograd"
+                    impl: str = "cuda"
                     ) -> Dict[str, torch.Tensor]:
     """One view, N splats → channel-first maps (image (3,H,W), alpha,
     depth_expected, depth_median, dist (1,H,W), normal_view (3,H,W)).
 
-    impl: "cuda_nograd" = the K1 wrapper (`rasterize_cuda.composite`),
-    which launches K1 for CUDA tensors and computes `composite_plain` for
-    CPU tensors; "plain" = `composite_plain` on any device, the reference
-    the kernel is checked against. Forward only: gradients through the
-    render arrive with the training kernels.
+    impl:
+      * "cuda" — the kernels' wrappers. Where autograd will ask for a
+        gradient (grad mode on and the splat table requires one) this is
+        `rasterize_cuda.composite_train`: K2a forward and K2b backward
+        for CUDA tensors, the plain pair (`composite_plain` /
+        `composite_plain_backward`) for CPU tensors. Otherwise it is the
+        forward-only `rasterize_cuda.composite`: K1 for CUDA tensors,
+        `composite_plain` for CPU tensors. Projection and packing stay
+        plain PyTorch under autograd; binning reads the projected splats
+        detached.
+      * "plain" — the plain pair on any device (`composite_plain_train`):
+        the reference the kernels are checked against.
     """
     if img_h % tile or img_w % tile:
         raise ValueError(f"image {img_h}x{img_w} is not a multiple of the "
                          f"tile {tile}")
     if max_per_tile % chunk:
         raise ValueError("max_per_tile must be a multiple of chunk")
-    sp = preprocess_splats(gaussians, cam_view, cam_view_proj, img_h, img_w)
-    pairs, starts, counts = build_tile_pairs(sp, img_h, img_w, tile,
-                                             max_per_tile)
-    tab = splat_table(pack_splat_render(sp))
-    if impl == "cuda_nograd":
-        from gaussiananything_tpu_torch.ops import rasterize_cuda
-        buf = rasterize_cuda.composite(tab, pairs, starts, counts, bg,
-                                       img_h, img_w, tile=tile, chunk=chunk)
-    elif impl == "plain":
-        buf = composite_plain(tab, pairs, starts, counts, bg, img_h, img_w,
-                              tile=tile, chunk=chunk)
-    else:
+    if impl not in ("cuda", "plain"):
         raise ValueError(f"unknown rasterizer impl {impl!r}")
+    sp = preprocess_splats(gaussians, cam_view, cam_view_proj, img_h, img_w)
+    with torch.no_grad():
+        pairs, starts, counts = build_tile_pairs(sp, img_h, img_w, tile,
+                                                 max_per_tile)
+    tab = splat_table(pack_splat_render(sp))
+    if impl == "plain":
+        buf = composite_plain_train(tab, pairs, starts, counts, bg, img_h,
+                                    img_w, tile=tile, chunk=chunk)
+    else:
+        from gaussiananything_tpu_torch.ops import rasterize_cuda
+        wants_grad = torch.is_grad_enabled() and tab.requires_grad
+        fn = rasterize_cuda.composite_train if wants_grad \
+            else rasterize_cuda.composite
+        buf = fn(tab, pairs, starts, counts, bg, img_h, img_w, tile=tile,
+                 chunk=chunk)
     return split_outputs(buf)

@@ -1,17 +1,29 @@
-"""K1, the hand-written Hopper forward compositor, and its wrapper.
+"""K1, K2a and K2b, the hand-written Hopper compositors, and their wrappers.
 
-Replaces the TPU kernel `_make_v4_kernel(dma=False)`
-(`gaussiananything_tpu/ops/rasterize_pallas.py:806`, driven by
-`rasterize_tiled_v4`). The CUDA source, with the design note on what bounds
-it, is `csrc/rasterize_v4.cu`. It is compiled with `nvcc` for `sm_90a` into
-a shared library with a plain C interface at first use (into
-`csrc/build/`, which git ignores) and loaded with ctypes.
+  * K1 (`composite`), forward only: replaces the TPU kernel
+    `_make_v4_kernel(dma=False)`
+    (`gaussiananything_tpu/ops/rasterize_pallas.py:806`, driven by
+    `rasterize_tiled_v4`). Source `csrc/rasterize_v4.cu`.
+  * K2a and K2b (`composite_train`, a `torch.autograd.Function`): the
+    training pair, replacing `_v4_fwd_entries_kernel` (`:1280`) and
+    `_v4_bwd_kernel` (`:1306`), driven there by `rasterize_tiled_v4_train`
+    (`:1559`). K2a is K1 plus each executed chunk's entry state (same
+    source, another instantiation); K2b (`csrc/rasterize_v4_bwd.cu`) walks
+    the executed chunks in reverse and returns the cotangent of the splat
+    table.
 
-`composite` takes the plain version (`rasterize.composite_plain`) only for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+The design notes on what bounds each kernel are in the CUDA sources. Each
+source is compiled with `nvcc` for `sm_90a` into a shared library with a
+plain C interface at first use (into `csrc/build/`, which git ignores) and
+loaded with ctypes; the sources build in parallel.
+
+The wrappers take the plain versions (`rasterize.composite_plain`,
+`rasterize.composite_plain_backward`) only for tensors on the CPU; for CUDA
+tensors they launch the kernels or raise.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,70 +31,96 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from typing import Dict
 
 import torch
 
 from gaussiananything_tpu_torch.ops import rasterize as rz
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-SOURCE = os.path.join(_CSRC, "rasterize_v4.cu")
+SOURCES = {"fwd": os.path.join(_CSRC, "rasterize_v4.cu"),       # K1, K2a
+           "bwd": os.path.join(_CSRC, "rasterize_v4_bwd.cu")}   # K2b
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+MAX_CHUNK = {"fwd": 256, "bwd": 128}     # rows a kernel stages per chunk
 
 _lock = threading.Lock()
-_lib = None
-build_log = ""          # nvcc's output of this process's build (ptxas -v)
+_libs: Dict[str, ctypes.CDLL] = {}
+build_log = ""          # nvcc's output of this process's builds (ptxas -v)
 
 
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: K1 is built from "
-                           f"{SOURCE} with the CUDA toolkit")
+        raise RuntimeError("nvcc not found: the kernels are built from "
+                           f"{_CSRC} with the CUDA toolkit")
     return path
 
 
-def build() -> str:
-    """Compile `csrc/rasterize_v4.cu` if no library of this source exists;
-    returns the library path. The file name carries the source hash, and
-    the library is written under a temporary name and renamed, so
-    concurrent builders never load a half-written file."""
+def build() -> Dict[str, str]:
+    """Compile every source of `SOURCES` that has no library yet, all at
+    once (one `nvcc` process each); returns {name: library path}. A file
+    name carries its source's hash, and a library is written under a
+    temporary name and renamed, so concurrent builds never load a
+    half-written file."""
     global build_log
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    lib_path = os.path.join(BUILD_DIR, f"librasterize_v4_{digest}.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                             capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCE}:\n{build_log}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
+    paths, running = {}, []
+    for name, source in SOURCES.items():
+        with open(source, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
+                                    ).hexdigest()[:16]
+        stem = os.path.splitext(os.path.basename(source))[0]
+        paths[name] = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+        if os.path.exists(paths[name]):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+        except OSError:     # nvcc did not start: leave nothing behind
             os.remove(tmp)
-    return lib_path
+            for _, _, other_tmp, other in running:
+                other.kill()
+                other.communicate()
+                os.remove(other_tmp)
+            raise
+        running.append((name, source, tmp, proc))
+    failed = []
+    for name, source, tmp, proc in running:
+        log = proc.communicate()[0]
+        build_log += log
+        if proc.returncode == 0:
+            os.replace(tmp, paths[name])
+        else:
+            os.remove(tmp)
+            failed.append(f"nvcc failed for {source}:\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
+def _library(name: str) -> ctypes.CDLL:
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            lib.ga_composite_v4.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                + [ctypes.c_void_p, ctypes.c_void_p])
-            lib.ga_composite_v4.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+        if not _libs:
+            ptr, i = ctypes.c_void_p, ctypes.c_int
+            paths = build()
+            fwd = ctypes.CDLL(paths["fwd"])
+            fwd.ga_composite_v4.argtypes = [ptr] * 5 + [i] * 3 + [ptr] * 2
+            fwd.ga_composite_v4.restype = i
+            fwd.ga_composite_v4_train.argtypes = \
+                [ptr] * 5 + [i] * 3 + [ptr] * 5
+            fwd.ga_composite_v4_train.restype = i
+            bwd = ctypes.CDLL(paths["bwd"])
+            bwd.ga_composite_v4_bwd.argtypes = \
+                [ptr] * 9 + [i] * 3 + [ptr] * 3 + [i] + [ptr] * 2
+            bwd.ga_composite_v4_bwd.restype = i
+            _libs.update(fwd=fwd, bwd=bwd)
+    return _libs[name]
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape=None):
@@ -97,24 +135,14 @@ def _check(t: torch.Tensor, name: str, dtype, shape=None):
         raise ValueError(f"{name} must be contiguous")
 
 
-def composite(tab: torch.Tensor, pairs: torch.Tensor, starts: torch.Tensor,
-              counts: torch.Tensor, bg: torch.Tensor, img_h: int, img_w: int,
-              tile: int = 16, chunk: int = 256) -> torch.Tensor:
-    """K1: composite every tile's depth-ordered pair segment; returns the
-    (N_OUT, img_h, img_w) buffer of `rasterize.OUT_CHANNELS`.
-
-    Inputs as for `rasterize.composite_plain`: tab (N, TABLE_W) float32
-    splat table, pairs/starts/counts int32 from `build_tile_pairs`, bg (3,)
-    float32. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (one block per 16×16 tile) and count one launch.
-    """
-    if tab.device.type == "cpu":
-        return rz.composite_plain(tab, pairs, starts, counts, bg, img_h,
-                                  img_w, tile=tile, chunk=chunk)
+def _check_frame(tab, pairs, starts, counts, bg, img_h, img_w, tile, chunk,
+                 kernel: str):
+    """Raise on what the kernels do not take; returns (tiles_x, tiles_y)."""
     if tile != 16:
-        raise ValueError(f"K1 runs 16x16 tiles, got tile={tile}")
-    if not 1 <= chunk <= 256:
-        raise ValueError(f"K1 stages at most 256 splats a chunk, got {chunk}")
+        raise ValueError(f"the kernels run 16x16 tiles, got tile={tile}")
+    if not 1 <= chunk <= MAX_CHUNK[kernel]:
+        raise ValueError(f"the kernel stages at most {MAX_CHUNK[kernel]} "
+                         f"splats a chunk, got {chunk}")
     if img_h % tile or img_w % tile:
         raise ValueError(f"image {img_h}x{img_w} is not a multiple of 16")
     tiles_x, tiles_y = img_w // tile, img_h // tile
@@ -130,17 +158,203 @@ def composite(tab: torch.Tensor, pairs: torch.Tensor, starts: torch.Tensor,
                     (bg, "bg")):
         if t.device != tab.device:
             raise ValueError(f"{name} is on {t.device}, tab on {tab.device}")
+    return tiles_x, tiles_y
+
+
+# When a list, every launch appends (kernel name, start event, end event),
+# CUDA events around the launch on the current stream: a caller sums
+# `start.elapsed_time(end)` after a synchronise for the kernels' device time
+# inside a larger run.
+event_log = None
+
+
+@contextlib.contextmanager
+def _logged(kernel: str):
+    log = event_log
+    if log is None:
+        yield
+        return
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield
+    end.record()
+    log.append((kernel, start, end))
+
+
+def _raise_on(err: int, kernel: str):
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+
+
+def composite(tab: torch.Tensor, pairs: torch.Tensor, starts: torch.Tensor,
+              counts: torch.Tensor, bg: torch.Tensor, img_h: int, img_w: int,
+              tile: int = 16, chunk: int = 256) -> torch.Tensor:
+    """K1: composite every tile's depth-ordered pair segment; returns the
+    (N_OUT, img_h, img_w) buffer of `rasterize.OUT_CHANNELS`.
+
+    Inputs as for `rasterize.composite_plain`: tab (N, TABLE_W) float32
+    splat table, pairs/starts/counts int32 from `build_tile_pairs`, bg (3,)
+    float32. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (one block per 16×16 tile) and count one launch. Forward only.
+    """
+    if tab.device.type == "cpu":
+        return rz.composite_plain(tab, pairs, starts, counts, bg, img_h,
+                                  img_w, tile=tile, chunk=chunk)
+    tab = tab.detach()
+    tiles_x, tiles_y = _check_frame(tab, pairs, starts, counts, bg, img_h,
+                                    img_w, tile, chunk, "fwd")
     out = torch.empty((rz.N_OUT, img_h, img_w), dtype=torch.float32,
                       device=tab.device)
     stream = torch.cuda.current_stream(tab.device).cuda_stream
-    err = _library().ga_composite_v4(
-        tab.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
-        counts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, chunk,
-        out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"K1 launch failed: cudaError {err}")
+    with _logged("K1"):
+        _raise_on(_library("fwd").ga_composite_v4(
+            tab.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
+            counts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, chunk,
+            out.data_ptr(), stream), "K1")
     composite.launches += 1
     return out
 
 
 composite.launches = 0
+
+
+def composite_entries(tab: torch.Tensor, pairs: torch.Tensor,
+                      starts: torch.Tensor, counts: torch.Tensor,
+                      bg: torch.Tensor, img_h: int, img_w: int,
+                      tile: int = 16, chunk: int = 128):
+    """K2a: K1's buffer, plus what the backward needs (CUDA tensors).
+    Returns (buf (N_OUT, img_h, img_w), chunk_off (n_tiles + 1,) int32,
+    entries (chunk_off[-1], 4, 256) float32, n_exec (n_tiles,) int32), as
+    `rasterize.chunk_offsets` and its plain version
+    `rasterize.composite_plain(..., return_entries=True)` define them.
+    Launches the kernel and counts one launch.
+    """
+    chunk_off = rz.chunk_offsets(counts, chunk)
+    tiles_x, tiles_y = _check_frame(tab, pairs, starts, counts, bg, img_h,
+                                    img_w, tile, chunk, "bwd")
+    dev = tab.device
+    out = torch.empty((rz.N_OUT, img_h, img_w), dtype=torch.float32,
+                      device=dev)
+    # zero: rows of chunks a saturated tile never reaches stay defined
+    entries = torch.zeros((int(chunk_off[-1]), 4, tile * tile),
+                          dtype=torch.float32, device=dev)
+    n_exec = torch.zeros(tiles_x * tiles_y, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with _logged("K2a"):
+        _raise_on(_library("fwd").ga_composite_v4_train(
+            tab.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
+            counts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, chunk,
+            out.data_ptr(), chunk_off.data_ptr(), entries.data_ptr(),
+            n_exec.data_ptr(), stream), "K2a")
+    composite_entries.launches += 1
+    return out, chunk_off, entries, n_exec
+
+
+composite_entries.launches = 0
+
+
+def splat_order(pairs: torch.Tensor, starts: torch.Tensor,
+                counts: torch.Tensor, n_splats: int):
+    """(order, seg) int32 for K2b's splat-space sum: the pair positions some
+    tile reads (`starts[t] <= i < starts[t] + counts[t]`), sorted stably by
+    splat id, and splat s's run `order[seg[s]:seg[s + 1]]`. Positions no
+    tile reads (padding, pairs beyond a tile's cap) sort behind the last
+    splat: the binning parks thousands of them on splat 0, whose serial
+    sum would otherwise take milliseconds."""
+    n = pairs.shape[0]
+    edge = torch.zeros(n + 1, dtype=torch.int32, device=pairs.device)
+    ones = torch.ones_like(starts)
+    edge.index_add_(0, starts.long(), ones)
+    edge.index_add_(0, (starts + counts).long(), -ones)
+    live = torch.cumsum(edge[:n], 0) > 0
+    key = torch.where(live, pairs, torch.full_like(pairs, n_splats))
+    sorted_ids, order = torch.sort(key, stable=True)
+    seg = torch.searchsorted(
+        sorted_ids, torch.arange(n_splats + 1, dtype=pairs.dtype,
+                                 device=pairs.device))
+    return order.int(), seg.int()
+
+
+def composite_backward(tab: torch.Tensor, pairs: torch.Tensor,
+                       starts: torch.Tensor, counts: torch.Tensor,
+                       bg: torch.Tensor, ct_buf: torch.Tensor,
+                       chunk_off: torch.Tensor, entries: torch.Tensor,
+                       n_exec: torch.Tensor, order: torch.Tensor,
+                       seg: torch.Tensor, img_h: int, img_w: int,
+                       tile: int = 16, chunk: int = 128) -> torch.Tensor:
+    """K2b: the cotangent of `tab` (N, TABLE_W) given the cotangent `ct_buf`
+    (N_OUT, img_h, img_w) of the forward's buffer, from what
+    `composite_entries` and `splat_order` returned for the same frame
+    (CUDA tensors). Launches the kernel (its two passes) and counts one
+    launch. No float atomics: equal inputs give bit-equal gradients. Its
+    plain version is `rasterize.composite_plain_backward`, which
+    `composite_train` takes for CPU tensors.
+    """
+    tiles_x, tiles_y = _check_frame(tab, pairs, starts, counts, bg, img_h,
+                                    img_w, tile, chunk, "bwd")
+    n_tiles, n_splats = tiles_x * tiles_y, tab.shape[0]
+    ct_buf = ct_buf.contiguous()
+    _check(ct_buf, "ct_buf", torch.float32, (rz.N_OUT, img_h, img_w))
+    _check(chunk_off, "chunk_off", torch.int32, (n_tiles + 1,))
+    _check(entries, "entries", torch.float32)
+    _check(n_exec, "n_exec", torch.int32, (n_tiles,))
+    _check(order, "order", torch.int32, tuple(pairs.shape))
+    _check(seg, "seg", torch.int32, (n_splats + 1,))
+    dev = tab.device
+    d_pairs = torch.zeros((pairs.shape[0], rz.TABLE_W), dtype=torch.float32,
+                          device=dev)
+    d_tab = torch.empty_like(tab)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with _logged("K2b"):
+        _raise_on(_library("bwd").ga_composite_v4_bwd(
+            tab.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
+            counts.data_ptr(), bg.data_ptr(), chunk_off.data_ptr(),
+            entries.data_ptr(), n_exec.data_ptr(), ct_buf.data_ptr(),
+            tiles_x, tiles_y, chunk, d_pairs.data_ptr(), order.data_ptr(),
+            seg.data_ptr(), n_splats, d_tab.data_ptr(), stream), "K2b")
+    composite_backward.launches += 1
+    return d_tab
+
+
+composite_backward.launches = 0
+
+
+class _CompositeTrain(torch.autograd.Function):
+    """K2a forward, K2b backward, for CUDA tensors. Differentiable in `tab`
+    only: the pair lists are indices and `bg` is a constant of the training
+    renders."""
+
+    @staticmethod
+    def forward(ctx, tab, pairs, starts, counts, bg, img_h, img_w, tile,
+                chunk):
+        tab = tab.contiguous()
+        buf, *extras = composite_entries(tab, pairs, starts, counts, bg,
+                                         img_h, img_w, tile=tile, chunk=chunk)
+        ctx.save_for_backward(tab, pairs, starts, counts, bg, *extras,
+                              *splat_order(pairs, starts, counts,
+                                           tab.shape[0]))
+        ctx.frame = (img_h, img_w, tile, chunk)
+        return buf
+
+    @staticmethod
+    def backward(ctx, ct_buf):
+        img_h, img_w, tile, chunk = ctx.frame
+        d_tab = composite_backward(*ctx.saved_tensors[:5], ct_buf,
+                                   *ctx.saved_tensors[5:], img_h, img_w,
+                                   tile=tile, chunk=chunk)
+        return (d_tab,) + (None,) * 8
+
+
+def composite_train(tab: torch.Tensor, pairs: torch.Tensor,
+                    starts: torch.Tensor, counts: torch.Tensor,
+                    bg: torch.Tensor, img_h: int, img_w: int, tile: int = 16,
+                    chunk: int = 128) -> torch.Tensor:
+    """`composite` for training: the same buffer, differentiable with
+    respect to `tab`. CUDA tensors launch K2a forward and K2b backward; CPU
+    tensors take the plain pair (`rasterize.composite_plain_train`)."""
+    if tab.device.type == "cpu":
+        return rz.composite_plain_train(tab, pairs, starts, counts, bg,
+                                        img_h, img_w, tile=tile, chunk=chunk)
+    return _CompositeTrain.apply(tab, pairs, starts, counts, bg, img_h,
+                                 img_w, tile, chunk)

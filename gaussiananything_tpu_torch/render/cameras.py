@@ -26,7 +26,7 @@ def pose_to_gs_camera(pose25, znear: float = ZNEAR, zfar: float = ZFAR,
     batch = pose25.shape[:-1]
     c2w = pose25[..., :16].reshape(batch + (4, 4))
     fx = pose25[..., 16]
-    fov = 2 * torch.atan2(torch.ones_like(fx), 2 * fx)
+    fov = focal2fov(fx)
     tanfov = torch.tan(fov / 2)
 
     cam_view = torch.linalg.inv(c2w).transpose(-1, -2)
@@ -47,6 +47,31 @@ def pose_to_gs_camera(pose25, znear: float = ZNEAR, zfar: float = ZFAR,
         "cam_pos": c2w[..., :3, 3],
         "tanfov": tanfov,
     }
+
+
+def focal2fov(focal, pixels: float = 1.0):
+    return 2 * torch.atan2(torch.full_like(focal, pixels), 2 * focal)
+
+
+def plucker_rays(c2w: torch.Tensor, K: torch.Tensor, h: int, w: int
+                 ) -> torch.Tensor:
+    """Per-pixel Plücker embedding (cross(o, d) ‖ d, 6 channels) from pose
+    and normalised intrinsics (`datasets/g_buffer_objaverse.py:189-226,
+    256-261`). c2w (..., 4, 4); K (..., 3, 3) with cx, cy in [0, 1].
+    Returns (..., 6, h, w)."""
+    dev = c2w.device
+    x = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
+    y = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h
+    yy, xx = torch.meshgrid(y, x, indexing="ij")            # (h, w)
+    fx, fy = K[..., 0, 0, None, None], K[..., 1, 1, None, None]
+    cx, cy = K[..., 0, 2, None, None], K[..., 1, 2, None, None]
+    dirs_cam = torch.stack([(xx - cx) / fx, (yy - cy) / fy,
+                            torch.ones_like(xx) * torch.ones_like(cx)], -1)
+    d = torch.einsum("...hwj,...ij->...hwi", dirs_cam, c2w[..., :3, :3])
+    d = d * torch.rsqrt((d * d).sum(-1, keepdim=True) + 1e-16)
+    o = c2w[..., None, None, :3, 3].expand_as(d)
+    plucker = torch.cat([torch.linalg.cross(o, d), d], dim=-1)
+    return plucker.movedim(-1, -3)
 
 
 def intrinsics_from_fov(fov_deg: float = 30.0) -> np.ndarray:

@@ -19,7 +19,7 @@ class GaussianRenderer2DGS:
 
     def __init__(self, output_size: int = 512, tile: int = 16,
                  max_per_tile: int = 1024, chunk: int = 256,
-                 bg_color=(1.0, 1.0, 1.0), impl: str = "cuda_nograd"):
+                 bg_color=(1.0, 1.0, 1.0), impl: str = "cuda"):
         self.output_size = output_size
         self.tile = tile
         self.max_per_tile = max_per_tile
@@ -45,16 +45,18 @@ class GaussianRenderer2DGS:
 def render_multiview(gaussians: torch.Tensor, cam_view: torch.Tensor,
                      cam_view_proj: torch.Tensor, bg: torch.Tensor,
                      out_size: int, tile: int = 16, max_per_tile: int = 2048,
-                     chunk: int = 256, impl: str = "cuda_nograd"
+                     chunk: int = 256, impl: str = "cuda"
                      ) -> Dict[str, torch.Tensor]:
     """Render B×V views, one rasterizer call per view (`renderer.py:70`).
 
     gaussians (B,N,13); cam_view/cam_view_proj (B,V,4,4); bg (B,V,3).
-    impl: as for `rasterize.rasterize_tiled`: "cuda_nograd" launches K1 for
-    CUDA tensors and computes its plain version for CPU tensors; "plain"
-    forces the plain version (the kernel's reference). The JAX renderer's
-    `tanfov` is
-    not taken: the projection matrix already carries the field of view.
+    impl: as for `rasterize.rasterize_tiled`: "cuda", the default, goes
+    through the kernels' wrappers (for CUDA tensors K2a forward and K2b
+    backward where a gradient will be asked for, as in training, and the
+    forward-only K1 otherwise, as in sampling; their plain versions for
+    CPU tensors); "plain" forces the plain
+    versions (the kernels' reference). The JAX renderer's `tanfov` is not
+    taken: the projection matrix already carries the field of view.
     """
     B, V = cam_view.shape[:2]
     views = []

@@ -6,8 +6,8 @@ dicts of numpy arrays, bare or wrapped in `{"params": ...}`) into the
 `gaussiananything_tpu/utils/param_io.py` (`convert_dinov2`,
 `convert_gaussiananything_dit`, `convert_gaussiananything_vae`): Dense
 kernels (in, out) become Linear weights (out, in), conv kernels HWIO become
-OIHW, and the separate q/k/v kernels of a packed attention are fused back
-into one `qkv` weight.
+OIHW (the port's convolutions run NCHW), and the separate q/k/v kernels of
+a packed attention are fused back into one `qkv` weight.
 """
 from __future__ import annotations
 
@@ -21,9 +21,13 @@ from gaussiananything_tpu_torch.models.conditioner import ImageConditioner
 from gaussiananything_tpu_torch.models.dinov2 import Dinov2ViT
 from gaussiananything_tpu_torch.models.dit import PointDiT
 from gaussiananything_tpu_torch.models.dit2_decoder import DiT2
+from gaussiananything_tpu_torch.models.encoder import (HybridPCDEncoder,
+                                                       MVConvEncoder)
 from gaussiananything_tpu_torch.models.layers import CrossAttentionBlock
+from gaussiananything_tpu_torch.models.sd_encoder import SDEncoderTrunk
 from gaussiananything_tpu_torch.models.upsampler import GaussianUpsampler
 from gaussiananything_tpu_torch.models.vae import PointVAE
+from gaussiananything_tpu_torch.train.losses import PerceptualNet
 
 Flat = Dict[str, np.ndarray]
 
@@ -54,6 +58,12 @@ class _Mapper:
         self.out[f"{tname}.weight"] = self.flat[f"{jname}/kernel"].T
         if f"{jname}/bias" in self.flat:
             self.out[f"{tname}.bias"] = self.flat[f"{jname}/bias"]
+
+    def conv(self, tname: str, jname: str):
+        """flax Conv (kernel HWIO, bias) → torch Conv2d (OIHW)."""
+        self.out[f"{tname}.weight"] = \
+            self.flat[f"{jname}/kernel"].transpose(3, 2, 0, 1)
+        self.out[f"{tname}.bias"] = self.flat[f"{jname}/bias"]
 
     def norm(self, tname: str, jname: str):
         """flax LayerNorm/RMSNorm (scale[, bias]) → weight[, bias]."""
@@ -139,6 +149,8 @@ def _point_dit(m: _Mapper, module: PointDiT):
 
 def _dit2(m: _Mapper, t: str, j: str, depth: int):
     m.copy(f"{t}pos_embed", f"{j}query_pos_embed")
+    if f"{j}LayerNorm_0/scale" in m.flat:          # the non-release layout
+        m.norm(f"{t}norm", f"{j}LayerNorm_0")
     for i in range(depth):
         tb, jb = f"{t}blocks.{i}.", f"{j}block_{i}/"
         m.packed_attention(tb + "attn", jb + "Attention_0")
@@ -148,6 +160,8 @@ def _dit2(m: _Mapper, t: str, j: str, depth: int):
 
 def _upsampler(m: _Mapper, t: str, j: str, module: GaussianUpsampler):
     m.out[f"{t}latent_embedding"] = m.flat[f"{j}latent_embedding"][0]
+    if module.xyz_embed is not None:
+        m.dense(f"{t}xyz_embed.xyz_projection", f"{j}XYZPosEmbed_0/Dense_0")
     for i in range(len(module.transformer.layers)):
         m.transformer_block(f"{t}transformer.layers.{i}", f"{j}tx_{i}")
     m.norm(f"{t}gaussian_residual_pred.norm", f"{j}LayerNorm_0")
@@ -164,14 +178,95 @@ def _point_vae(m: _Mapper, module: PointVAE):
         name = f"ada_CA_f4_{k + 1}"
         _upsampler(m, f"{sr}{name}.", f"upsamplers_{k}/",
                    module.decoder["superresolution"][name])
+    if not module.release_parity:
+        m.dense(sr + "anchor_pe.xyz_projection", "anchor_pe/Dense_0")
+    if module.encoder is not None:
+        m.mlp(sr + "quant_conv", "quant_mlp")
+        _hybrid_encoder(m, "encoder.", "encoder/", module.encoder)
 
 
-def _cross_attention_block(m: _Mapper):
-    m.norm("norm_q", "LayerNorm_0")
-    m.norm("norm_kv", "LayerNorm_1")
-    m.cross_attention("attn", "Attention_0")
-    m.norm("norm_mlp", "LayerNorm_2")
-    m.mlp("mlp", "Mlp_0")
+def _res_block(m: _Mapper, t: str, j: str, sd_names: bool):
+    """JAX `SDResnetBlock` (named children) or `ResBlock` (numbered)."""
+    n1, n2, c1, c2, sc = ("norm1", "norm2", "conv1", "conv2",
+                          "nin_shortcut") if sd_names else (
+        "GroupNorm32_0", "GroupNorm32_1", "Conv_0", "Conv_1", "Conv_2")
+    m.norm(f"{t}norm1", f"{j}{n1}/GroupNorm_0")
+    m.conv(f"{t}conv1", f"{j}{c1}")
+    m.norm(f"{t}norm2", f"{j}{n2}/GroupNorm_0")
+    m.conv(f"{t}conv2", f"{j}{c2}")
+    if f"{j}{sc}/kernel" in m.flat:
+        m.conv(f"{t}nin_shortcut", f"{j}{sc}")
+
+
+def _sd_trunk(m: _Mapper, t: str, j: str, module: SDEncoderTrunk):
+    m.conv(f"{t}conv_in", f"{j}conv_in")
+    for i, level in enumerate(module.down):
+        _res_block(m, f"{t}down.{i}.block.0.", f"{j}down_{i}_block_0/", True)
+        if hasattr(level, "downsample"):
+            m.conv(f"{t}down.{i}.downsample.conv",
+                   f"{j}down_{i}_downsample/conv")
+    _res_block(m, f"{t}mid.block_1.", f"{j}mid_block_1/", True)
+    _res_block(m, f"{t}mid.block_2.", f"{j}mid_block_2/", True)
+    ta, ja = f"{t}mid.attn_1.", f"{j}mid_attn_1/"
+    m.norm(ta + "norm", ja + "norm/GroupNorm_0")
+    m.dense(ta + "proj_in", ja + "proj_in")
+    for n in "123":
+        m.norm(ta + f"norm{n}", ja + f"norm{n}")
+    m.packed_attention(ta + "attn1", ja + "attn1")
+    m.packed_attention(ta + "attn2", ja + "attn2")
+    m.dense(ta + "ff.net.0.proj", ja + "ff/proj")
+    m.dense(ta + "ff.net.2", ja + "ff/out")
+    m.dense(ta + "proj_out", ja + "proj_out")
+    m.norm(f"{t}norm_out", f"{j}norm_out/GroupNorm_0")
+
+
+def _mv_conv_encoder(m: _Mapper, t: str, j: str, module: MVConvEncoder):
+    n = len(module.blocks)
+    m.conv(f"{t}conv_in", f"{j}Conv_0")
+    for i in range(n):
+        _res_block(m, f"{t}blocks.{i}.", f"{j}ResBlock_{i}/", False)
+    for i in range(len(module.downs)):
+        m.conv(f"{t}downs.{i}", f"{j}Conv_{i + 1}")
+    _res_block(m, f"{t}mid_block_1.", f"{j}ResBlock_{n}/", False)
+    m.norm(f"{t}mid_norm", f"{j}LayerNorm_0")
+    m.packed_attention(f"{t}mid_attn", f"{j}Attention_0")
+    _res_block(m, f"{t}mid_block_2.", f"{j}ResBlock_{n + 1}/", False)
+    m.norm(f"{t}norm_out", f"{j}GroupNorm32_0/GroupNorm_0")
+    m.conv(f"{t}conv_out", f"{j}Conv_{len(module.downs) + 1}")
+
+
+def _hybrid_encoder(m: _Mapper, t: str, j: str, module: HybridPCDEncoder):
+    if module.release_parity:
+        _sd_trunk(m, f"{t}sd_trunk.", f"{j}sd_trunk/", module.sd_trunk)
+        m.dense(f"{t}xyz_pos_embed.xyz_projection",
+                f"{j}xyz_pos_embed/Dense_0")
+        m.cross_attention(f"{t}agg_ca", f"{j}agg_ca")
+    else:
+        _mv_conv_encoder(m, f"{t}conv.", f"{j}MVConvEncoder_0/", module.conv)
+        m.dense(f"{t}token_proj", f"{j}Dense_0")
+        m.dense(f"{t}token_embed.xyz_projection",
+                f"{j}XYZPosEmbed_0/Dense_0")
+        m.dense(f"{t}anchor_embed.xyz_projection",
+                f"{j}anchor_embed/Dense_0")
+        _cross_attention_block(m, f"{t}agg_ca.", f"{j}agg_ca/")
+    for i in range(len(module.srt)):
+        m.transformer_block(f"{t}srt.{i}", f"{j}srt_{i}")
+    m.norm(f"{t}norm_out", f"{j}LayerNorm_0")
+    m.mlp(f"{t}mlp_out", f"{j}mlp_out")
+
+
+def _perceptual_net(m: _Mapper):
+    for i in range(4):
+        m.conv(f"conv{i}a", f"conv{i}a")
+        m.conv(f"conv{i}b", f"conv{i}b")
+
+
+def _cross_attention_block(m: _Mapper, t: str = "", j: str = ""):
+    m.norm(f"{t}norm_q", f"{j}LayerNorm_0")
+    m.norm(f"{t}norm_kv", f"{j}LayerNorm_1")
+    m.cross_attention(f"{t}attn", f"{j}Attention_0")
+    m.norm(f"{t}norm_mlp", f"{j}LayerNorm_2")
+    m.mlp(f"{t}mlp", f"{j}Mlp_0")
 
 
 _MAPPINGS: Dict[type, Callable[[_Mapper, nn.Module], None]] = {
@@ -183,6 +278,10 @@ _MAPPINGS: Dict[type, Callable[[_Mapper, nn.Module], None]] = {
     GaussianUpsampler: lambda m, mod: _upsampler(m, "", "", mod),
     PointVAE: _point_vae,
     CrossAttentionBlock: lambda m, mod: _cross_attention_block(m),
+    SDEncoderTrunk: lambda m, mod: _sd_trunk(m, "", "", mod),
+    MVConvEncoder: lambda m, mod: _mv_conv_encoder(m, "", "", mod),
+    HybridPCDEncoder: lambda m, mod: _hybrid_encoder(m, "", "", mod),
+    PerceptualNet: lambda m, mod: _perceptual_net(m),
 }
 
 
@@ -191,10 +290,12 @@ def from_jax_params(params_np: Mapping, module: nn.Module
     """JAX parameter tree → `module.state_dict()`-shaped dict of tensors.
 
     Covers `ImageConditioner`/`Dinov2ViT`, `PointDiT` (both release
-    stages), `PointVAE` (the release decoder; encoder and quant-MLP entries
-    of the tree are not read), `DiT2`, `GaussianUpsampler` and
-    `CrossAttentionBlock`. Raises if a port parameter is left without a
-    value or a shape disagrees.
+    stages), `PointVAE` (both layouts; the encoder and quant-MLP entries of
+    the tree are read when the module was built with its encoder),
+    `HybridPCDEncoder`, `SDEncoderTrunk`, `MVConvEncoder`, `DiT2`,
+    `GaussianUpsampler`, `CrossAttentionBlock` and the perceptual pyramid
+    `PerceptualNet`. Raises if a port parameter is left without a value or
+    a shape disagrees.
     """
     if set(params_np) == {"params"}:
         params_np = params_np["params"]

@@ -40,8 +40,15 @@ def _imported_roots(path):
 
 def test_port_files_found():
     files = _port_files()
-    assert len(files) > 20
-    assert any(f.endswith("rasterize_cuda.py") for f in files)
+    assert len(files) > 30
+    rel = {os.path.relpath(f, ROOT) for f in files}
+    pkg = "gaussiananything_tpu_torch/"
+    for name in ("ops/rasterize_cuda.py", "ops/fps.py", "ops/pointcloud.py",
+                 "models/sd_encoder.py", "models/encoder.py",
+                 "data/postprocess.py", "train/losses.py", "train/state.py",
+                 "train/vae_trainer.py", "train/logging.py",
+                 "cli/train_vae.py"):
+        assert pkg + name in rel, name
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -69,6 +76,42 @@ def test_resolve_device_pins_fp32_products():
     resolve_device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_train_cli_defaults_to_cuda_and_refuses_without_it(monkeypatch,
+                                                           tmp_path):
+    from gaussiananything_tpu_torch.cli import train_vae
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_vae.main(["--steps", "1", "--logdir", str(tmp_path)])
+
+
+def test_training_kernels_raise_on_cuda_tensors_without_a_build(monkeypatch,
+                                                                tmp_path):
+    """On a CUDA tensor the wrappers launch their kernel or raise: a build
+    that fails is an error, never the plain version, and leaves no file
+    behind. (A `meta` tensor stands in for a device that is not the CPU.)"""
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+    assert set(rasterize_cuda.SOURCES) == {"fwd", "bwd"}
+    for path in rasterize_cuda.SOURCES.values():
+        assert os.path.exists(path)
+    tab = torch.zeros((4, rz.TABLE_W), device="meta")
+    idx = torch.zeros(4, dtype=torch.int32, device="meta")
+    bg = torch.ones(3, device="meta")
+    for fn in (rasterize_cuda.composite, rasterize_cuda.composite_entries,
+               rasterize_cuda.composite_train):
+        with pytest.raises((ValueError, RuntimeError)):
+            fn(tab, idx, idx, idx, bg, 32, 32)
+    build_dir = tmp_path / "build"
+    monkeypatch.setattr(rasterize_cuda, "_nvcc",
+                        lambda: str(tmp_path / "no-nvcc-here"))
+    monkeypatch.setattr(rasterize_cuda, "BUILD_DIR", str(build_dir))
+    monkeypatch.setattr(rasterize_cuda, "_libs", {})
+    with pytest.raises(FileNotFoundError):
+        rasterize_cuda._library("bwd")
+    assert not rasterize_cuda._libs
+    assert list(build_dir.iterdir()) == []
 
 
 def test_cli_runs_only_the_ported_path():
