@@ -9,9 +9,13 @@ Phases, in order; any failure exits non-zero:
 2. build: compile every kernel from `csrc/` with nvcc, the sources in
    parallel, and print what ptxas says of each;
 3. kernels: hold each kernel (K1 forward, K2a forward with entry states,
-   K2b backward) against its plain PyTorch version on the card, at every
-   shape the main paths give it and on a scene that makes each output
-   channel checkable, and time both; K2b twice, bit-equal;
+   K2b backward, K6 segment-fed forward, K3/K4/K5 dense-list forwards, the
+   eight stage instantiations of K4) against its plain PyTorch version on
+   the card, at every shape the main paths give it and on a scene that
+   makes each output channel checkable, and time both; K2b twice,
+   bit-equal; K6 also against K1, K3-K5 also against K1 up to the image
+   residue of their unflushed transmittance; the gradient of
+   `rasterize_tiled_v1_fused` against the plain route's;
 4. small cascade: the sampling pipeline at small widths on the card
    against the same weights and noise on the CPU;
 5. cascade: two release-width image-to-3D requests through the port's
@@ -24,7 +28,11 @@ Phases, in order; any failure exits non-zero:
    batch cut to TRAIN_BATCH), checking losses, the step count, that
    parameters and EMA moved, the kernels' launch counts, and timing the
    step's stages;
-8. report: one JSON line of kernel records, the kernels launched, the
+8. rasterizer tools: the rasterizer's own entry points at the release
+   shape through `tools/rasterizer_timing.py --all`, `tools/bench.py` and
+   `tools/kernel_stages.py`, checking every kernel's launch count against
+   what the arguments predict;
+9. report: one JSON line of kernel records, the kernels launched, the
    card's name and power limit, then the `{"ok": true, ...}` line last.
 
 It imports nothing of JAX; the port's package must sit beside this file.
@@ -42,6 +50,7 @@ stage.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -66,6 +75,14 @@ K1_OPS_PER_STEP = 43
 # of the pixel basis and the features 24, and 22 additions into the sums
 # over the pixels. (K2b itself evaluates the 43 twice.)
 K2B_ADJOINT_OPS = 8 + 7 + 19 + 12 + 15 + 18 + 14 + 24 + 22
+# fp32 operations of one (pixel, pair) step of the list kernels K3-K5 up to
+# the keep test: the two pixel planes 12, their cross product 9, the guard 2,
+# two divisions, rho3d 3, the depth 4, rho2d 6, min and select 3, the window
+# 4, exp and product 3, the clamp and the tests 5
+V1_OPS_PER_STEP = 53
+# the stage kernels stop earlier: planes, cross product, guard, divisions and
+# rho 28; alpha 5 more; log1p, sum, exp, weight 7 more; four sums 7 more
+STAGE_OPS_PER_STEP = (28, 33, 40, 47)
 # the batch of the release-width training phase: the preset's 8 does not
 # fit 80 GB in fp32 without activation checkpointing; see PERF.md for the
 # measured peaks
@@ -122,9 +139,11 @@ def build_phase():
     t0 = time.perf_counter()
     rasterize_cuda._library("fwd")
     dt = time.perf_counter() - t0
-    print(f"[build] K1+K2a {rasterize_cuda.SOURCES['fwd']}, K2b "
-          f"{rasterize_cuda.SOURCES['bwd']}, in parallel: {dt:.2f}s",
-          flush=True)
+    names = {"fwd": "K1+K2a", "bwd": "K2b", "seg": "K6",
+             "v1": "K3+K4+K5+stages"}
+    print("[build] " + ", ".join(f"{names[k]} {path}" for k, path in
+                                 rasterize_cuda.SOURCES.items())
+          + f", in parallel: {dt:.2f}s", flush=True)
     for line in rasterize_cuda.build_log.splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill",
                                    "smem")):
@@ -161,6 +180,8 @@ K1_CASES = {
     # the slice's render shape on the bench.py:42-56 scene, with
     # cfg.render.chunk 256 (bench.py itself uses 128); timed, and bounded
     "turntable": (0, 73728, "sphere", None, 1.8, (20, 45), 512, 2048, 256),
+    # the same frame as `tools/bench.py` renders it: chunk 128
+    "bench": (0, 73728, "sphere", None, 1.8, (20, 45), 512, 2048, 128),
     # the demo conditioning view (cli/sample.py demo_condition_image)
     "demo view": (7, 512, None, None, 1.8, (20, 30), 512, 512, 128),
     # a ground-truth view of the trainer's batches (`make_batch` through
@@ -292,7 +313,8 @@ def k1_phase(dev):
 # 1024, chunk 128) at each of the four LoDs of the ladder (768 splats at
 # 128², 6,144 at 256², 24,576 at 384² with a 24 x 24 tile grid that is no
 # power of two, 73,728 at 512²), on K1's scene; the dist scene with chunk
-# 32; and a small shape held to rtol/atol.
+# 32; the forward + backward of `tools/rasterizer_timing.py` (max_per_tile
+# 2048, chunk 128); and a small shape held to rtol/atol.
 # name: (seed, n, kind, opacity, radius, pose, image size, max_per_tile,
 # chunk)
 K2_CASES = {
@@ -300,6 +322,7 @@ K2_CASES = {
     "train 384": (0, 24576, "sphere", None, 1.8, (20, 45), 384, 1024, 128),
     "train 256": (0, 6144, "sphere", None, 1.8, (20, 45), 256, 1024, 128),
     "train 128": (0, 768, "sphere", None, 1.8, (20, 45), 128, 1024, 128),
+    "tools 512": (0, 73728, "sphere", None, 1.8, (20, 45), 512, 2048, 128),
     "dist scene": (0, 73728, "sphere", 0.2, 0.6, (20, 45), 512, 1024, 32),
     "small": (0, 1024, "sphere", None, 1.8, (20, 45), 64, 256, 64),
 }
@@ -383,8 +406,9 @@ def k2a_phase(dev):
 def _surfel_gradient(dev, scene, chunk, impl, dist_weight=1.0,
                      only_dist=False):
     """d(Σ_map Σ map · cotangent)/d(surfels) of one view through
-    `rasterize_tiled(impl=...)`: a seeded N(0, 1) cotangent on every
-    output map, dist's scaled by `dist_weight`."""
+    `rasterize_tiled(impl=...)`, or through `rasterize_tiled_v1_fused` for
+    impl "v1_fused": a seeded N(0, 1) cotangent on every output map,
+    dist's scaled by `dist_weight`."""
     import torch
     from gaussiananything_tpu_torch.data.synthetic import make_object
     from gaussiananything_tpu_torch.ops import rasterize as rz
@@ -396,9 +420,11 @@ def _surfel_gradient(dev, scene, chunk, impl, dist_weight=1.0,
     g.requires_grad_(True)
     cam = cameras.pose_to_gs_camera(
         cameras.generate_input_camera(radius, [pose])[0], device=dev)
-    out = rz.rasterize_tiled(g, cam["cam_view"], cam["cam_view_proj"],
-                             torch.ones(3, device=dev), res, res,
-                             max_per_tile=mpt, chunk=chunk, impl=impl)
+    render = rz.rasterize_tiled_v1_fused if impl == "v1_fused" else \
+        functools.partial(rz.rasterize_tiled, impl=impl)
+    out = render(g, cam["cam_view"], cam["cam_view_proj"],
+                 torch.ones(3, device=dev), res, res, max_per_tile=mpt,
+                 chunk=chunk)
     gen = torch.Generator().manual_seed(5)
     loss = 0.0
     for k in sorted(out):
@@ -564,6 +590,476 @@ def k2b_phase(dev):
     }
 
 
+def _record(name, source, replaces, max_err, ms, plain_ms, n_bytes, n_ops):
+    """One entry of the `kernels` line; the bound from this run's bytes and
+    operations."""
+    t_bytes = n_bytes / H100_HBM_BYTES_S * 1e3
+    t_ops = n_ops / H100_FP32_FLOPS * 1e3
+    return {
+        "name": name, "route": "cuda",
+        "source": f"gaussiananything_tpu_torch/csrc/{source}",
+        "replaces": replaces, "max_abs_err": max_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        # no single PyTorch call composites 2DGS surfels
+        "library_ms": None,
+    }
+
+
+# K6's cases: K1's bench shape and dist scene, and a small shape held to
+# atol 2e-5 / rtol 1e-4
+K6_CASES = {
+    "turntable": K1_CASES["turntable"],
+    "dist scene": K1_CASES["dist scene"],
+    "small": K2_CASES["small"],
+}
+
+
+def k6_phase(dev):
+    """K6 against `composite_segments_plain` on the card in every K6_CASES
+    case, to K1's limits (the golden criteria; dist to DIST_REL of its size
+    on the dist scene), and against K1 on the same frame, whose arithmetic
+    it shares: equal bit for bit; and on the table cut to its live rows,
+    equal again. Timed at the bench shape beside K1 and the gather that
+    builds its table."""
+    import torch
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+
+    max_err = 0.0
+    for name, (*scene, chunk) in K6_CASES.items():
+        tab, pairs, starts, counts, bg, res, _ = args = _k1_inputs(dev,
+                                                                   *scene)
+        seg = rz.segment_table(tab, pairs)
+        got = rasterize_cuda.composite_segments(seg, starts, counts, bg, res,
+                                                res, chunk=chunk)
+        ref = rz.composite_segments_plain(seg, starts, counts, bg, res, res,
+                                          chunk=chunk)
+        k1 = rasterize_cuda.composite(*args, chunk=chunk)
+        # the kernel copies no row at or past a tile's count: the table cut
+        # to its live rows gives the same buffer
+        live_rows = seg[:int((starts + counts).max())].clone()
+        cut = rasterize_cuda.composite_segments(live_rows, starts, counts, bg,
+                                                res, res, chunk=chunk)
+        torch.cuda.synchronize()
+        if not torch.equal(cut, got):
+            fail(f"K6 read rows past a tile's count ({name})")
+        ref_maps = rz.split_outputs(ref)
+        ok, errs = _golden_errors(rz.split_outputs(got), ref_maps,
+                                  GOLDEN_TOL)
+        dist_max = float(ref_maps["dist"].abs().max())
+        dist_rel = errs["dist"]["max_abs"] / max(dist_max, 1e-30)
+        k1_err = float((got - k1).abs().max())
+        print(f"[K6] {name} ({scene[1]} splats, {scene[6]}², max_per_tile "
+              f"{scene[7]}, chunk {chunk}, {seg.shape[0]} table rows) vs "
+              f"plain: {json.dumps(errs, sort_keys=True)}; limits "
+              f"{json.dumps(GOLDEN_TOL, sort_keys=True)}; max|dist_ref| "
+              f"{dist_max:.4g}, dist error / max|dist_ref| {dist_rel:.4g}; "
+              f"max|K6 - K1| {k1_err:.3g}", flush=True)
+        if not torch.isfinite(got).all():
+            fail(f"K6 output is not finite ({name})")
+        if not ok:
+            fail(f"K6 disagrees with its plain version beyond the golden "
+                 f"criteria ({name})")
+        if not torch.equal(got, k1):
+            fail(f"K6's buffer is not K1's ({name}): max|Δ| {k1_err:.3g}")
+        if name == "dist scene" and not (dist_max >= DIST_FLOOR
+                                         and dist_rel <= DIST_REL):
+            fail(f"K6's dist disagrees with its plain version: error "
+                 f"{dist_rel:.4g} of max|dist_ref| {dist_max:.4g}")
+        if name == "small" and not torch.allclose(got, ref, atol=2e-5,
+                                                  rtol=1e-4):
+            fail("K6 disagrees with its plain version at the small shape")
+        max_err = max(max_err, *(r["max_abs"] for r in errs.values()))
+        if name == "turntable":
+            timed, t_seg = args, seg
+
+    tab, pairs, starts, counts, bg, res, _ = timed
+    chunk, tile = K6_CASES["turntable"][-1], 16
+    ms = time_cuda(lambda: rasterize_cuda.composite_segments(
+        t_seg, starts, counts, bg, res, res, chunk=chunk), reps=50)
+    k1_ms = time_cuda(lambda: rasterize_cuda.composite(*timed, chunk=chunk),
+                      reps=50)
+    gather_ms = time_cuda(lambda: rz.segment_table(tab, pairs), reps=50)
+    plain_ms = time_cuda(lambda: rz.composite_segments_plain(
+        t_seg, starts, counts, bg, res, res, chunk=chunk), reps=5, warmup=1)
+    steps = _pair_steps(*timed, chunk)
+    n_tiles = (res // tile) ** 2
+    # the rows of the executed slices below each tile's count, read once
+    n_bytes = (steps * tab.shape[1] * 4 + 2 * n_tiles * 4 + 3 * 4
+               + rz.N_OUT * res * res * 4)
+    n_ops = steps * tile * tile * K1_OPS_PER_STEP
+    print(f"[K6] turntable: {ms:.4f} ms (median of 50), K1 on the same "
+          f"frame {k1_ms:.4f} ms, the table's gather {gather_ms:.4f} ms, "
+          f"plain {plain_ms:.2f} ms; pair steps {steps}, bytes {n_bytes}, "
+          f"ops {n_ops}", flush=True)
+    return _record("K6", "rasterize_v4_seg.cu",
+                   "gaussiananything_tpu/ops/rasterize_pallas.py:966",
+                   max_err, ms, plain_ms, n_bytes, n_ops)
+
+
+# The list kernels' cases. name: (seed, n, kind, opacity, camera radius,
+# pose, image size, tile, max_per_tile, chunk)
+LIST_CASES = {
+    # the bench shape (timed, and bounded)
+    "bench": (0, 73728, "sphere", None, 1.8, (20, 45), 512, 16, 2048, 256),
+    # the defaults of `rasterize_tiled_v2` and `rasterize_tiled_v3`
+    "defaults": (0, 73728, "sphere", None, 1.8, (20, 45), 512, 8, 512, 128),
+    "small": (0, 1024, "sphere", None, 1.8, (20, 45), 64, 16, 256, 64),
+    # K3 with aux: the scene where dist stands above its fp32 floor
+    "dist scene": (0, 73728, "sphere", 0.2, 0.6, (20, 45), 512, 16, 2048,
+                   32),
+}
+LIST_ATOL, LIST_RTOL = 2e-5, 1e-4
+# v1-v3 leave T <= 1e-4 unflushed, so their image over a white background
+# keeps up to that much more than K1's
+IMAGE_RESIDUE = 1.1e-4
+
+
+def _list_inputs(dev, seed, n, kind, opacity, radius, pose, res, tile, mpt):
+    """The list wrappers' inputs for one case: dense geom and feat, counts,
+    and the tiles' pixel tables in natural order."""
+    import torch
+    from gaussiananything_tpu_torch.data.synthetic import make_object
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.render import cameras
+    g = make_object(seed, n=n, kind=kind, device=dev)
+    if opacity is not None:
+        g[:, 3] = opacity
+    cam = cameras.pose_to_gs_camera(
+        cameras.generate_input_camera(radius, [pose])[0], device=dev)
+    sp = rz.preprocess_splats(g, cam["cam_view"], cam["cam_view_proj"],
+                              res, res)
+    lists, counts = rz.build_tile_lists(sp, res, res, tile, mpt)
+    geom, feat = rz.pack_tile_inputs(rz.pad_dead_splat(sp), lists)
+    px, py = rz.tile_pixel_tables(
+        torch.arange(counts.shape[0], device=dev), res // tile, tile)
+    return geom.contiguous(), feat.contiguous(), counts, px, py
+
+
+def _list_errors(got, ref, res, tile):
+    """(T, P, 16) list-kernel outputs as maps over a white background: per
+    map the largest error and the largest error over its limit LIST_ATOL +
+    LIST_RTOL·|ref|. Median depth passes by flips: at most
+    MEDIAN_FLIP_FRAC of the pixels beyond the limit, none beyond
+    MEDIAN_FLIP_BOUND."""
+    import torch
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    bg = torch.ones(3, device=got.device)
+    gm = rz.list_outputs(got, bg, res, res, tile)
+    rm = rz.list_outputs(ref, bg, res, res, tile)
+    errs, ok = {}, True
+    for k in rm:
+        d = (gm[k] - rm[k]).abs()
+        over = d / (LIST_ATOL + LIST_RTOL * rm[k].abs())
+        rec = {"max_abs": float(d.max()),
+               "max_over_limit": float(f"{float(over.max()):.3g}")}
+        if k == "depth_median":
+            rec["frac_beyond"] = float((over > 1).double().mean())
+            good = (rec["frac_beyond"] <= MEDIAN_FLIP_FRAC
+                    and rec["max_abs"] <= MEDIAN_FLIP_BOUND)
+        else:
+            good = rec["max_over_limit"] <= 1
+        ok &= good and bool(torch.isfinite(gm[k]).all())
+        errs[k] = rec
+    return ok, errs, gm
+
+
+def _against_k1(dev, scene, chunk, maps, kernel, name):
+    """A list kernel's maps against K1's on the same frame: the golden
+    criteria on every map but the image, which keeps the residue of the
+    unflushed transmittance (IMAGE_RESIDUE), and dist, which K4, K5 and K3
+    without aux do not compute."""
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+    seed, n, kind, opacity, radius, pose, res, _tile, mpt = scene
+    k1 = rz.split_outputs(rasterize_cuda.composite(
+        *_k1_inputs(dev, seed, n, kind, opacity, radius, pose, res, mpt),
+        chunk=chunk))
+    names = [k for k in GOLDEN_TOL if k not in ("image", "dist")]
+    ok, errs = _golden_errors(maps, k1, names)
+    image = float((maps["image"] - k1["image"]).abs().max())
+    print(f"[{kernel}] {name} vs K1: image {image:.6g} (limit "
+          f"{IMAGE_RESIDUE}), {json.dumps(errs, sort_keys=True)}",
+          flush=True)
+    if not (ok and image <= IMAGE_RESIDUE):
+        fail(f"{kernel} disagrees with K1 ({name})")
+
+
+def _live_levels(geom, feat, counts, px, py, chunk):
+    """live[c] (T,) bool for every chunk level some tile reaches: whether
+    the tile still has a pixel above T_EPS after c chunks, from the plain
+    version on the counts cut at c·chunk."""
+    import torch
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    levels, live, c = [], torch.ones_like(counts, dtype=torch.bool), 0
+    while bool((live & (counts > c * chunk)).any()):
+        levels.append(live)
+        c += 1
+        trans = rz.composite_lists_plain(
+            geom[:, :c * chunk], feat[:, :c * chunk],
+            torch.clamp(counts, max=c * chunk), px, py, chunk)[..., 10]
+        live = trans.amax(1) > 1e-4
+    return levels
+
+
+def _list_record(name, replaces, max_err, ms, plain_ms, steps, counts, P,
+                 extra_bytes=0):
+    """Bound of a list kernel: the 96 bytes of every (tile, pair) row its
+    executed chunks read (the dense tables are mostly the dead row), the
+    counts, the output; V1_OPS_PER_STEP for every (pixel, pair) step."""
+    n_tiles = counts.shape[0]
+    n_bytes = steps * 96 + n_tiles * 4 + n_tiles * P * 16 * 4 + extra_bytes
+    n_ops = steps * P * V1_OPS_PER_STEP
+    print(f"[{name}] bench: {ms:.4f} ms (median of 30), plain "
+          f"{plain_ms:.2f} ms; pairs {int(counts.sum())}, executed pair "
+          f"steps {steps}, bytes {n_bytes}, ops {n_ops}", flush=True)
+    return _record(name, "rasterize_v1.cu", replaces, max_err, ms, plain_ms,
+                   n_bytes, n_ops)
+
+
+def _chunk_steps(counts, c, chunk):
+    """(T,) pairs of chunk c below each tile's count."""
+    import torch
+    return torch.clamp(counts - c * chunk, min=0, max=chunk)
+
+
+def k3_phase(dev):
+    """K3 with and without aux against `composite_lists_plain` on the card
+    at the bench shape, a small shape and, with aux, the dist scene (dist to
+    DIST_REL of its size); against K1 at the bench shape; the gradient of
+    `rasterize_tiled_v1_fused` against the plain route's. Timed at the
+    bench shape."""
+    import torch
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+
+    max_err = 0.0
+    for name, auxes in (("bench", (False, True)), ("small", (False, True)),
+                        ("dist scene", (True,))):
+        *scene, chunk = LIST_CASES[name]
+        res, tile = scene[6], scene[7]
+        geom, feat, counts, px, py = _list_inputs(dev, *scene)
+        for aux in auxes:
+            got = rasterize_cuda.composite_lists(
+                geom, feat, counts, res // tile, tile, chunk, with_aux=aux)
+            ref = rz.composite_lists_plain(geom, feat, counts, px, py, chunk,
+                                           with_aux=aux)
+            torch.cuda.synchronize()
+            ok, errs, maps = _list_errors(got, ref, res, tile)
+            dist_max = float(ref[..., 6].abs().max())
+            dist_rel = errs["dist"]["max_abs"] / max(dist_max, 1e-30)
+            print(f"[K3] {name} aux={aux} ({scene[1]} splats, {res}², tile "
+                  f"{tile}, max_per_tile {scene[8]}, chunk {chunk}) vs "
+                  f"plain, limit {LIST_ATOL} + {LIST_RTOL}·|ref|: "
+                  f"{json.dumps(errs, sort_keys=True)}; max|dist_ref| "
+                  f"{dist_max:.4g}, dist error / max|dist_ref| "
+                  f"{dist_rel:.4g}", flush=True)
+            if not ok:
+                fail(f"K3 disagrees with its plain version ({name}, "
+                     f"aux={aux})")
+            if not aux and float(got[..., 6].abs().max()) != 0.0:
+                fail("K3 without aux wrote a dist")
+            if name == "dist scene" and not (dist_max >= DIST_FLOOR
+                                             and dist_rel <= DIST_REL):
+                fail(f"K3's dist disagrees with its plain version: error "
+                     f"{dist_rel:.4g} of max|dist_ref| {dist_max:.4g}")
+            max_err = max(max_err, *(r["max_abs"] for r in errs.values()))
+            if name == "bench":
+                _against_k1(dev, scene, chunk, maps, "K3", f"aux={aux}")
+        if name == "bench":
+            timed = (geom, feat, counts, px, py, res, tile, chunk)
+
+    for case in ("small", "train 256"):
+        *scene, chunk = K2_CASES[case]
+        got = _surfel_gradient(dev, scene, chunk, "v1_fused", DIST_WEIGHT)
+        ref = _surfel_gradient(dev, scene, chunk, "plain", DIST_WEIGHT)
+        peak = float(ref.abs().max())
+        print(f"[K3] rasterize_tiled_v1_fused gradient, {case}: error / "
+              f"max|g| {_grad_rel(got, ref):.3g}, max|g| {peak:.4g}",
+              flush=True)
+        if not torch.allclose(got, ref, rtol=2e-3, atol=2e-4 * peak):
+            fail(f"rasterize_tiled_v1_fused's gradient disagrees with the "
+                 f"plain route's ({case})")
+
+    geom, feat, counts, px, py, res, tile, chunk = timed
+    run = functools.partial(rasterize_cuda.composite_lists, geom, feat,
+                            counts, res // tile, tile, chunk)
+    ms = time_cuda(run, reps=30)
+    aux_ms = time_cuda(lambda: run(with_aux=True), reps=30)
+    plain_ms = time_cuda(lambda: rz.composite_lists_plain(
+        geom, feat, counts, px, py, chunk), reps=3, warmup=1)
+    steps = sum(int(_chunk_steps(counts, c, chunk)[live].sum()) for c, live
+                in enumerate(_live_levels(geom, feat, counts, px, py, chunk)))
+    print(f"[K3] bench with aux: {aux_ms:.4f} ms", flush=True)
+    return _list_record("K3",
+                        "gaussiananything_tpu/ops/rasterize_pallas.py:59",
+                        max_err, ms, plain_ms, steps, counts, tile * tile)
+
+
+def k4_phase(dev):
+    """K4 against `composite_lists_plain` on the card, on count-sorted
+    groups as `rasterize_tiled_v2` forms them: the bench shape (group 16),
+    the defaults of `rasterize_tiled_v2` (tile 8, max_per_tile 512, chunk
+    128, group 16) and a small shape; dist exactly 0; against K1 at the
+    bench shape. Timed at the bench shape."""
+    import torch
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+
+    max_err = 0.0
+    for name, group in (("bench", 16), ("defaults", 16), ("small", 4)):
+        *scene, chunk = LIST_CASES[name]
+        res, tile = scene[6], scene[7]
+        geom, feat, counts, px, py = _list_inputs(dev, *scene)
+        order = torch.sort(-counts, stable=True).indices
+        inv = torch.sort(order, stable=True).indices
+        counts_s = counts[order]
+        args = (counts_s.reshape(-1, group).amax(1).int().contiguous(),
+                geom[order], feat[order], px[order], py[order],
+                counts_s.float()[:, None].contiguous())
+        got = rasterize_cuda.composite_lists_grouped(*args, group, chunk)
+        ref = rz.composite_lists_plain(args[1], args[2], counts_s, args[3],
+                                       args[4], chunk)
+        torch.cuda.synchronize()
+        ok, errs, maps = _list_errors(got[inv], ref[inv], res, tile)
+        print(f"[K4] {name} ({scene[1]} splats, {res}², tile {tile}, "
+              f"max_per_tile {scene[8]}, chunk {chunk}, group {group}) vs "
+              f"plain, limit {LIST_ATOL} + {LIST_RTOL}·|ref|: "
+              f"{json.dumps(errs, sort_keys=True)}", flush=True)
+        if not ok:
+            fail(f"K4 disagrees with its plain version ({name})")
+        if float(got[..., 6].abs().max()) != 0.0:
+            fail("K4 wrote a dist")
+        max_err = max(max_err, *(r["max_abs"] for r in errs.values()))
+        if name == "bench":
+            _against_k1(dev, scene, chunk, maps, "K4", name)
+            timed = (args, counts_s, group, tile, chunk)
+
+    args, counts_s, group, tile, chunk = timed
+    gmax, geom, feat, px, py, _ = args
+    ms = time_cuda(lambda: rasterize_cuda.composite_lists_grouped(
+        *args, group, chunk), reps=30)
+    plain_ms = time_cuda(lambda: rz.composite_lists_plain(
+        geom, feat, counts_s, px, py, chunk), reps=3, warmup=1)
+    steps = 0
+    for c, live in enumerate(_live_levels(geom, feat, counts_s, px, py,
+                                          chunk)):
+        runs = live.reshape(-1, group).any(1) & (c * chunk < gmax)
+        steps += int((_chunk_steps(counts_s, c, chunk).reshape(-1, group)
+                      .sum(1) * runs).sum())
+    # K4 also reads the pixel tables, the float counts and gmax
+    extra = px.numel() * 8 + counts_s.numel() * 4 + gmax.numel() * 4
+    return _list_record("K4",
+                        "gaussiananything_tpu/ops/rasterize_pallas.py:346",
+                        max_err, ms, plain_ms, steps, counts_s, tile * tile,
+                        extra)
+
+
+def k5_phase(dev):
+    """K5 against `composite_lists_plain` on the card: the bench shape
+    (group 16), the defaults of `rasterize_tiled_v3` (tile 8, max_per_tile
+    512, chunk 128, group 8) and a small shape; dist exactly 0; against K1
+    at the bench shape. Timed at the bench shape."""
+    import torch
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+
+    max_err = 0.0
+    for name, group in (("bench", 16), ("defaults", 8), ("small", 4)):
+        *scene, chunk = LIST_CASES[name]
+        res, tile = scene[6], scene[7]
+        geom, feat, counts, px, py = _list_inputs(dev, *scene)
+        got = rasterize_cuda.composite_lists_unrolled(
+            geom, feat, counts, res // tile, tile, chunk, group)
+        ref = rz.composite_lists_plain(geom, feat, counts, px, py, chunk)
+        torch.cuda.synchronize()
+        ok, errs, maps = _list_errors(got, ref, res, tile)
+        print(f"[K5] {name} ({scene[1]} splats, {res}², tile {tile}, "
+              f"max_per_tile {scene[8]}, chunk {chunk}, group {group}) vs "
+              f"plain, limit {LIST_ATOL} + {LIST_RTOL}·|ref|: "
+              f"{json.dumps(errs, sort_keys=True)}", flush=True)
+        if not ok:
+            fail(f"K5 disagrees with its plain version ({name})")
+        if float(got[..., 6].abs().max()) != 0.0:
+            fail("K5 wrote a dist")
+        max_err = max(max_err, *(r["max_abs"] for r in errs.values()))
+        if name == "bench":
+            _against_k1(dev, scene, chunk, maps, "K5", name)
+            timed = (geom, feat, counts, px, py, res, tile, chunk, group)
+
+    geom, feat, counts, px, py, res, tile, chunk, group = timed
+    ms = time_cuda(lambda: rasterize_cuda.composite_lists_unrolled(
+        geom, feat, counts, res // tile, tile, chunk, group), reps=30)
+    plain_ms = time_cuda(lambda: rz.composite_lists_plain(
+        geom, feat, counts, px, py, chunk), reps=3, warmup=1)
+    # K5 has no saturation test: every pair below the counts is a step
+    return _list_record("K5",
+                        "gaussiananything_tpu/ops/rasterize_pallas.py:555",
+                        max_err, ms, plain_ms, int(counts.sum()), counts,
+                        tile * tile)
+
+
+def stages_phase(dev):
+    """The eight stage instantiations (stage 0-3, row- and field-major)
+    against `stage_plain` on the card, on seeded splats at the shape of
+    `tools/kernel_stages.py`, to atol 2e-5 / rtol 1e-4; each timed and
+    bounded by the chunks its groups execute."""
+    import torch
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+    from gaussiananything_tpu_torch.tools import kernel_stages as ks
+
+    gmax, *row = ks.make_inputs(1, dev)
+    n_tiles, M, _ = row[0].shape
+    P = row[2].shape[1]
+    records = []
+    for field, args in ((False, tuple(row)), (True, ks.to_field_major(*row))):
+        for stage in range(4):
+            def run(fn):
+                return fn(stage, gmax, *args, ks.G, ks.CHUNK,
+                          field_major=field)
+            got, ref = run(rasterize_cuda.stage), run(rz.stage_plain)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            name = f"B{2 if field else 1}.{stage}"
+            if not (torch.isfinite(got).all() and torch.allclose(
+                    got, ref, atol=LIST_ATOL, rtol=LIST_RTOL)):
+                fail(f"{name} disagrees with its plain version: max|Δ| "
+                     f"{err:.3g} of max|ref| {float(ref.abs().max()):.3g}")
+            ms = time_cuda(lambda: run(rasterize_cuda.stage), reps=20)
+            plain_ms = time_cuda(lambda: run(rz.stage_plain), reps=3,
+                                 warmup=1)
+            # a group runs chunk c while c·chunk < gmax and, after the c
+            # chunks before it, some pixel of it is above the threshold
+            steps = 0
+            for c in range(M // ks.CHUNK):
+                live = torch.ones_like(gmax, dtype=torch.bool)
+                if c:
+                    cut = c * ks.CHUNK
+                    st = rz.stage_plain(stage, gmax, row[0][:, :cut],
+                                        row[1][:, :cut], row[2], row[3],
+                                        ks.G, ks.CHUNK)
+                    live = st[..., 0].reshape(len(gmax), -1).amax(1) > 1e-4
+                steps += int((live & (c * ks.CHUNK < gmax)).sum()) \
+                    * ks.G * ks.CHUNK
+            n_bytes = (steps * 96 + 2 * n_tiles * P * 4 + len(gmax) * 4
+                       + n_tiles * P * 16 * 4)
+            n_ops = steps * P * STAGE_OPS_PER_STEP[stage]
+            print(f"[stages] {name} ({'field' if field else 'row'}-major, "
+                  f"{len(gmax)} groups of {ks.G} tiles of {P} pixels, "
+                  f"{M // ks.CHUNK} chunks of {ks.CHUNK}): max|Δ| {err:.3g} "
+                  f"of max|ref| {float(ref.abs().max()):.4g} (limit "
+                  f"{LIST_ATOL} + {LIST_RTOL}·|ref|); {ms:.4f} ms, plain "
+                  f"{plain_ms:.2f} ms, executed pair steps {steps}",
+                  flush=True)
+            tool = "tools/pallas_bisect2.py:30" if field else \
+                "tools/pallas_bisect.py:25"
+            records.append(_record(name, "rasterize_v1.cu", tool, err, ms,
+                                   plain_ms, n_bytes, n_ops))
+    return records
+
+
 def _small_models(device):
     from gaussiananything_tpu_torch.cli.sample import ReleaseModels
     from gaussiananything_tpu_torch.models.conditioner import \
@@ -697,17 +1193,89 @@ def _cascade_run(dev, num, steps, out_dir):
     return launches
 
 
-def _reset_launches():
+def _launch_counters():
+    """{kernel name: (object, attribute or key)} of every wrapper's count."""
     from gaussiananything_tpu_torch.ops import rasterize_cuda as rc
-    for fn in (rc.composite, rc.composite_entries, rc.composite_backward):
+    counters = {"K1": rc.composite, "K2a": rc.composite_entries,
+                "K2b": rc.composite_backward, "K6": rc.composite_segments,
+                "K3": rc.composite_lists, "K4": rc.composite_lists_grouped,
+                "K5": rc.composite_lists_unrolled}
+    return counters, rc.stage.launches
+
+
+def _reset_launches():
+    counters, stages = _launch_counters()
+    for fn in counters.values():
         fn.launches = 0
+    for key in stages:
+        stages[key] = 0
 
 
 def _read_launches():
-    from gaussiananything_tpu_torch.ops import rasterize_cuda as rc
-    return {"K1": rc.composite.launches,
-            "K2a": rc.composite_entries.launches,
-            "K2b": rc.composite_backward.launches}
+    counters, stages = _launch_counters()
+    out = {name: fn.launches for name, fn in counters.items()}
+    out.update({f"B{2 if field else 1}.{stage}": n
+                for (stage, field), n in sorted(stages.items(),
+                                                key=lambda kv: kv[0][::-1])})
+    return out
+
+
+TOOLS_ITERS = 5
+
+
+def raster_tools_phase(dev):
+    """The rasterizer's own entry points at the release shape (512², 73,728
+    splats, tile 16, max_per_tile 2048, chunk 256, group 16), as a user
+    runs them: the timing tool with `--all` (every entry point's forward frame,
+    forward + backward of the training route, the A/B of the two v4 feeds),
+    the bench (8 batches of 20 frames) and the stage tool. Launch counts
+    are set to 0 just before and read just after, and must be what the
+    arguments predict."""
+    import math
+    from gaussiananything_tpu_torch.tools import (bench, kernel_stages,
+                                                  rasterizer_timing)
+
+    def log(line):
+        print(f"[tools] {line}", flush=True)
+
+    _reset_launches()
+    rows = rasterizer_timing.main(
+        ["--all", "--iters", str(TOOLS_ITERS), "--device", str(dev)], log=log)
+    result = bench.main(["--device", str(dev)])
+    stage_iters = 3
+    digests = kernel_stages.main(
+        ["--iters", str(stage_iters), "--device", str(dev)], log=log)
+    launches = _read_launches()
+    print(f"[tools] launches {json.dumps(launches)}", flush=True)
+
+    n = TOOLS_ITERS + 1         # every timed row: one warm-up, then iters
+    frames = (bench.REPEATS + 1) * bench.ITERS_PER_REPEAT
+    expect = {
+        "K1": 2 * n + frames,   # composite only, the cuda frame; the bench
+        "K2a": n, "K2b": n,     # forward + backward
+        "K6": 2 * n,            # the cuda_dma frame, composite only
+        "K3": 2 * n,            # v1 and v1_aux
+        "K4": n, "K5": n,
+    }
+    expect.update({f"B{b}.{stage}": stage_iters + 1 for b in (1, 2)
+                   for stage in range(4)})
+    if launches != expect:
+        fail(f"the tools launched {launches}, expected {expect}")
+    wanted = [f"forward frame [{impl}]" for impl in rasterizer_timing.IMPLS]
+    wanted += ["preprocess", "binning", "composite only",
+               "forward+backward [cuda]", "segment gather",
+               "composite only [segments]"]
+    bad = [k for k in wanted if not (rows.get(k, 0.0) > 0.0
+                                     and math.isfinite(rows[k]))]
+    if bad:
+        fail(f"the timing tool gave no time for {bad}")
+    if not (math.isfinite(result["value"]) and result["value"] > 0
+            and result["unit"] == "rays/s"):
+        fail(f"the bench result is {result}")
+    if len(digests) != 8 or not all(math.isfinite(v) for v in
+                                    digests.values()):
+        fail(f"the stage tool's digests are {digests}")
+    return launches
 
 
 def small_train_phase(dev):
@@ -807,9 +1375,10 @@ def _train_run(dev, logdir):
     peak = torch.cuda.max_memory_allocated()
     kernel_s = {k: sum(a.elapsed_time(b) for n, a, b in events if n == k)
                 / 1e3 for k in ("K1", "K2a", "K2b")}
+    used = {k: v for k, v in launches.items() if v}
     print(f"[train] vae-release width, batch {TRAIN_BATCH}, {TRAIN_STEPS} "
           f"steps, wall {wall:.2f}s (model build included); peak memory "
-          f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)}",
+          f"{peak / 2**30:.2f} GiB; launches {json.dumps(used)}",
           flush=True)
     for i, (lg, tm) in enumerate(zip(res["logs"], timers)):
         print(f"[train] step {i}: total {lg['total']:.6g}, grad_norm "
@@ -824,6 +1393,7 @@ def _train_run(dev, logdir):
     expect = {"K1": TRAIN_BATCH * 8 * TRAIN_STEPS,
               "K2a": TRAIN_BATCH * 4 * 4 * TRAIN_STEPS,
               "K2b": TRAIN_BATCH * 4 * 4 * TRAIN_STEPS}
+    expect.update({k: 0 for k in launches if k not in expect})
     if launches != expect:
         fail(f"launches {launches}, expected {expect}")
     state, model = res["state"], res["model"]
@@ -902,21 +1472,24 @@ def main():
         fail("gaussiananything_tpu_torch/ is missing beside chip_smoke.py")
     dev, smi_line = device_phase()
     build_phase()
-    k1, k2a, k2b = k1_phase(dev), k2a_phase(dev), k2b_phase(dev)
+    records = [k1_phase(dev), k2a_phase(dev), k2b_phase(dev), k6_phase(dev),
+               k3_phase(dev), k4_phase(dev), k5_phase(dev)]
+    records += stages_phase(dev)
     small_cascade_phase(dev)
-    sampling = cascade_phase(dev)
+    paths = {"cascade": cascade_phase(dev)}
     small_train_phase(dev)
-    training = train_phase(dev)
-    # K1 runs on both main paths (turntables; the trainer's ground truth)
-    k1["launches"] = sampling["K1"] + training["K1"]
-    k2a["launches"] = training["K2a"]
-    k2b["launches"] = training["K2b"]
-    for rec in (k1, k2a, k2b):
+    paths["train"] = train_phase(dev)
+    paths["raster_tools"] = raster_tools_phase(dev)
+    for rec in records:
+        # a kernel's launches over the main paths, each read just after its
+        # run: K1 is on all three, K2a and K2b on training and the tools
+        rec["launches"] = sum(p.get(rec["name"], 0) for p in paths.values())
         if rec["launches"] < 1:
-            fail(f"{rec['name']} was not launched on the main path")
-    print(json.dumps({"kernels": [k1, k2a, k2b]}), flush=True)
-    print(f"kernels launched: sampling {json.dumps(sampling)}, training "
-          f"{json.dumps(training)}", flush=True)
+            fail(f"{rec['name']} was not launched on a main path")
+    print(json.dumps({"kernels": records}), flush=True)
+    print("kernels launched: " + ", ".join(
+        f"{name} {json.dumps({k: v for k, v in p.items() if v})}"
+        for name, p in paths.items()), flush=True)
     print(smi_line, flush=True)
     import torch
     print(json.dumps({"ok": True, "device": {

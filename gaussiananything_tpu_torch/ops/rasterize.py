@@ -604,7 +604,7 @@ class _TileWalk:
     table makes the same functions their own higher-precision witness."""
 
     def __init__(self, tab, pairs, starts, counts, img_h, img_w, tile,
-                 chunk):
+                 chunk, row0=0):
         dev = tab.device
         self.dtype = tab.dtype
         self.tile, self.chunk = tile, chunk
@@ -618,7 +618,7 @@ class _TileWalk:
         self.counts = counts.long()
         lidx = torch.arange(self.P, device=dev)
         self.local_x = (lidx % tile).to(self.dtype)
-        self.local_y = (lidx // tile).to(self.dtype)
+        self.local_y = (lidx // tile).to(self.dtype) + row0
         self.j_chunk = torch.arange(chunk, device=dev)
         self.counts_host = self.counts.cpu()
         self.dev = dev
@@ -654,13 +654,14 @@ def composite_plain(tab: torch.Tensor, pairs: torch.Tensor,
                     starts: torch.Tensor, counts: torch.Tensor,
                     bg: torch.Tensor, img_h: int, img_w: int,
                     tile: int = 16, chunk: int = 256,
-                    return_entries: bool = False):
+                    return_entries: bool = False, row0: int = 0):
     """The function K1 computes, in PyTorch: composite every tile's
     depth-ordered pair segment and return the (N_OUT, img_h, img_w) buffer
     (channels in `OUT_CHANNELS`, image blended over `bg`).
 
     tab: (N, TABLE_W) `splat_table`; pairs/starts/counts from
-    `build_tile_pairs`.
+    `build_tile_pairs`; row0: the image row of the buffer's first row, for
+    a band of a taller image.
 
     return_entries: also return what K2a adds to K1, `(entries, n_exec)`:
     entries (`chunk_offsets(counts, chunk)[-1]`, 4, tile²) holds, for every
@@ -669,9 +670,9 @@ def composite_plain(tab: torch.Tensor, pairs: torch.Tensor,
     tile executes before all its pixels are at T <= T_EPS.
     """
     dev = tab.device
-    walk = _TileWalk(tab, pairs, starts, counts, img_h, img_w, tile, chunk)
-    n_tiles, P, tiles_x, tiles_y = walk.n_tiles, walk.P, walk.tiles_x, \
-        walk.tiles_y
+    walk = _TileWalk(tab, pairs, starts, counts, img_h, img_w, tile, chunk,
+                     row0)
+    n_tiles, P = walk.n_tiles, walk.P
     out = torch.empty((n_tiles, P, N_OUT), dtype=tab.dtype, device=dev)
     bg = bg.to(tab.dtype)
     if return_entries:
@@ -698,8 +699,7 @@ def composite_plain(tab: torch.Tensor, pairs: torch.Tensor,
             rgb, state.alpha_acc[..., None], state.depth_exp[..., None],
             state.depth_med[..., None], state.dist[..., None],
             state.normal], dim=-1)
-    out = out.reshape(tiles_y, tiles_x, tile, tile, N_OUT)
-    buf = out.permute(4, 0, 2, 1, 3).reshape(N_OUT, img_h, img_w)
+    buf = detile(out, img_h, img_w, tile)
     return (buf, entries, n_exec) if return_entries else buf
 
 
@@ -876,11 +876,7 @@ def rasterize_tiled(gaussians: torch.Tensor, cam_view: torch.Tensor,
       * "plain" — the plain pair on any device (`composite_plain_train`):
         the reference the kernels are checked against.
     """
-    if img_h % tile or img_w % tile:
-        raise ValueError(f"image {img_h}x{img_w} is not a multiple of the "
-                         f"tile {tile}")
-    if max_per_tile % chunk:
-        raise ValueError("max_per_tile must be a multiple of chunk")
+    _check_frame_args(img_h, img_w, tile, max_per_tile, chunk)
     if impl not in ("cuda", "plain"):
         raise ValueError(f"unknown rasterizer impl {impl!r}")
     sp = preprocess_splats(gaussians, cam_view, cam_view_proj, img_h, img_w)
@@ -898,4 +894,502 @@ def rasterize_tiled(gaussians: torch.Tensor, cam_view: torch.Tensor,
             else rasterize_cuda.composite
         buf = fn(tab, pairs, starts, counts, bg, img_h, img_w, tile=tile,
                  chunk=chunk)
+    return split_outputs(buf)
+
+
+# ---------------------------------------------------------------------------
+# The rasterizer's other entry points: the segment-fed v4 forward (K6) and
+# the dense-list forwards v1, v2, v3 (K3, K4, K5) of
+# `gaussiananything_tpu/ops/rasterize_pallas.py`, each with its plain version
+# here and its kernel behind a wrapper in `rasterize_cuda.py`.
+# ---------------------------------------------------------------------------
+
+GEOM_W = 16     # list-kernel geometry row: t_x(3) t_y(3) t_w(3) t_z(3)
+#                 centre x, y, centre depth, opacity (0 for invalid splats)
+FEAT_W = 8      # feature row: rgb(3) view normal(3) 1 0
+LIST_OUT_W = 16  # list-kernel output row: rgb(3) alpha Σw·z median dist
+#                  normal(3) T, 5 zeros (`rasterize_pallas.py:27`)
+
+
+def segment_table(tab: torch.Tensor, pairs: torch.Tensor) -> torch.Tensor:
+    """(N, TABLE_W) splat table → the segment-ordered (L, TABLE_W) table
+    `tab[pairs]`: tile t's depth-ordered splat rows lie contiguously from
+    row `starts[t]`, so a (tile, chunk) slice is ONE range of `chunk` rows
+    (chunk × 96 bytes, 32-byte aligned). The JAX package's table is
+    field-major, `packed24[:, pairs]` (24, L) (`rasterize_pallas.py:1217`);
+    splat-major rows are what a 16-byte asynchronous copy needs. `pairs`
+    ends in `max_per_tile` padding slots, so a slice that starts below a
+    tile's count never leaves the table."""
+    return tab[pairs.long()]
+
+
+def composite_segments_plain(seg: torch.Tensor, starts: torch.Tensor,
+                             counts: torch.Tensor, bg: torch.Tensor,
+                             img_h: int, img_w: int, tile: int = 16,
+                             chunk: int = 128, row0: int = 0
+                             ) -> torch.Tensor:
+    """The function K6 computes, in PyTorch: `composite_plain` reading tile
+    t's rows `seg[starts[t] + i]`, i < counts[t], straight out of the
+    segment-ordered table; rows at or past the count (the next tile's) are
+    masked. Returns the (N_OUT, img_h, img_w) buffer."""
+    ident = torch.arange(seg.shape[0], dtype=torch.int32, device=seg.device)
+    return composite_plain(seg, ident, starts, counts, bg, img_h, img_w,
+                           tile=tile, chunk=chunk, row0=row0)
+
+
+def build_tile_lists(sp: SplatProj, img_h: int, img_w: int, tile: int,
+                     max_per_tile: int, row0: int = 0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense per-tile depth-sorted index lists (`rasterize.py:884`):
+    (n_tiles, max_per_tile) int32 splat ids, -1 past each tile's count, and
+    the (n_tiles,) int32 counts. Only the list kernels read them."""
+    pairs, starts, counts = build_tile_pairs(sp, img_h, img_w, tile,
+                                             max_per_tile, row0=row0)
+    j = torch.arange(max_per_tile, dtype=torch.int32, device=pairs.device)
+    in_range = j[None, :] < counts[:, None]
+    idx = torch.where(in_range, starts[:, None] + j[None, :],
+                      torch.zeros_like(j)[None])
+    lists = torch.where(in_range, pairs[idx.long()],
+                        torch.full_like(idx, -1))
+    return lists, counts
+
+
+def pad_dead_splat(sp: SplatProj) -> SplatProj:
+    """`sp` with one more, invalid, all-zero splat: row N, which the -1
+    entries of `build_tile_lists` select (`rasterize_pallas.py:236-239`)."""
+    return SplatProj(*(torch.cat([a, a.new_zeros((1,) + a.shape[1:])])
+                       for a in sp))
+
+
+def pack_tile_inputs(sp_pad: SplatProj, lists: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather the list kernels' dense inputs (`rasterize_pallas.py:193`):
+    geom (n_tiles, max_per_tile, GEOM_W) and feat (n_tiles, max_per_tile,
+    FEAT_W). `sp_pad` is `pad_dead_splat(sp)`; a list entry of -1 selects
+    its last row, the dead splat with opacity 0."""
+    opac = torch.where(sp_pad.valid, sp_pad.opacity,
+                       torch.zeros_like(sp_pad.opacity))
+    geom_all = torch.cat(
+        [sp_pad.t_x, sp_pad.t_y, sp_pad.t_w, sp_pad.t_z, sp_pad.center_pix,
+         sp_pad.center_z[:, None], opac[:, None]], dim=1)       # (N+1, 16)
+    n1 = sp_pad.rgb.shape[0]
+    feat_all = torch.cat(
+        [sp_pad.rgb, sp_pad.normal_view, sp_pad.rgb.new_ones((n1, 1)),
+         sp_pad.rgb.new_zeros((n1, 1))], dim=1)                 # (N+1, 8)
+    idx = lists.long()      # -1 indexes the last row
+    return geom_all[idx], feat_all[idx]
+
+
+def tile_pixel_tables(tile_ids: torch.Tensor, tiles_x: int, tile: int,
+                      row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(len(tile_ids), tile²) float32 pixel x and y of the given tiles'
+    pixels, row-major inside a tile (`rasterize_pallas.py:488-494`)."""
+    lidx = torch.arange(tile * tile, device=tile_ids.device)
+    lx = (lidx % tile).float()
+    ly = (lidx // tile).float()
+    px = (tile_ids % tiles_x).float()[:, None] * tile + lx[None]
+    py = (tile_ids // tiles_x).float()[:, None] * tile + ly[None] \
+        + float(row0)
+    return px, py
+
+
+def _ray_uv(px, py, col):
+    """The v1 kernels' ray-splat form (`rasterize_pallas.py:96-107`): the
+    cross product of the two pixel planes evaluated per pair from t_x, t_y,
+    t_w, and u = p0 / safe. `col(j)` is field j of the geometry rows,
+    broadcast against the pixels. Returns the splat-plane (u, v)."""
+    k0 = px * col(6) - col(0)
+    k1 = px * col(7) - col(1)
+    k2 = px * col(8) - col(2)
+    l0 = py * col(6) - col(3)
+    l1 = py * col(7) - col(4)
+    l2 = py * col(8) - col(5)
+    p0 = k1 * l2 - k2 * l1
+    p1 = k2 * l0 - k0 * l2
+    p2 = k0 * l1 - k1 * l0
+    safe = torch.where(p2.abs() < 1e-9, torch.full_like(p2, 1e-9), p2)
+    return p0 / safe, p1 / safe
+
+
+def composite_lists_plain(geom: torch.Tensor, feat: torch.Tensor,
+                          counts: torch.Tensor, px: torch.Tensor,
+                          py: torch.Tensor, chunk: int,
+                          with_aux: bool = False) -> torch.Tensor:
+    """The function K3, K4 and K5 compute, in PyTorch (the body of
+    `_make_kernel`, `rasterize_pallas.py:59`, expression for expression):
+    composite every tile's dense depth-ordered list front to back.
+
+    geom (T, M, GEOM_W), feat (T, M, FEAT_W) from `pack_tile_inputs`;
+    counts (T,) int; px, py (T, P) pixel coordinates of each tile's pixels
+    (`tile_pixel_tables`; `rasterize_tiled_v2` passes them in its sorted tile
+    order). Returns (T, P, LIST_OUT_W).
+
+    Transmittance runs in log space: log1p(−α) summed along the chunk,
+    t_excl = exp(cums − log1m), and after pruning the pairs entered at
+    T_in ≤ T_EPS the sum is taken again. T is NOT flushed to zero at chunk
+    ends, so `trans·bg` keeps a residue of up to T_EPS that the v4 kernels
+    do not have. `with_aux` adds the depth distortion from prefix sums
+    (`:149-168`); without it dist is 0, as it always is for K4 and K5.
+
+    A chunk that a kernel skips (a saturated tile or group, a chunk past
+    the count) changes nothing here either: every pair of it is masked or
+    pruned, so its weights are 0 and exp(0) leaves T as it was. The three
+    kernels' different skipping therefore gives one function.
+    """
+    T, M, _ = geom.shape
+    P = px.shape[1]
+    dev = geom.device
+    out = geom.new_zeros((T, P, LIST_OUT_W))
+    counts = counts.long()
+    counts_host = counts.cpu()
+    lane = torch.arange(chunk, device=dev)
+    for g0 in range(0, T, _TILE_GROUP):
+        sl = slice(g0, min(g0 + _TILE_GROUP, T))
+        G = sl.stop - sl.start
+        pxe, pye = px[sl, :, None], py[sl, :, None]             # (G, P, 1)
+        cnt = counts[sl, None, None]
+        z = geom.new_zeros((G, P))
+        trans = torch.ones_like(z)
+        acc6 = geom.new_zeros((G, P, 6))        # rgb, normal
+        a_acc, d_exp, d_med, dist, s_d, s_d2 = z, z, z, z, z, z
+        n_chunks = min(math.ceil(int(counts_host[sl].max()) / chunk),
+                       M // chunk)
+        for c in range(n_chunks):
+            if not bool((trans > T_EPS).any()):
+                break
+            ge = geom[sl, c * chunk:(c + 1) * chunk]            # (G, K, 16)
+            fe = feat[sl, c * chunk:(c + 1) * chunk]
+
+            def col(j):
+                return ge[:, None, :, j]                        # (G, 1, K)
+
+            u, v = _ray_uv(pxe, pye, col)
+            rho3d = u * u + v * v
+            z_int = u * col(9) + v * col(10) + col(11)
+            dx = pxe - col(12)
+            dy = pye - col(13)
+            rho2d = FILTER_INV_SQUARE * (dx * dx + dy * dy)
+            rho = torch.minimum(rho3d, rho2d)
+            depth = torch.where(rho3d <= rho2d, z_int,
+                                col(14).expand_as(z_int))
+            g = torch.exp(-0.5 * rho) * _rho_window(rho)
+            alpha = torch.clamp(col(15) * g, max=ALPHA_MAX)
+            in_count = (c * chunk + lane)[None, None, :] < cnt
+            keep = (alpha >= ALPHA_EPS) & (depth > NEAR_CULL) & in_count
+            zero = torch.zeros_like(alpha)
+            alpha = torch.where(keep, alpha, zero)
+            depth = torch.where(keep, depth, zero)
+
+            tau = trans[..., None]
+            log1m = torch.log1p(-alpha)
+            cums = torch.cumsum(log1m, dim=-1)
+            t_in = tau * torch.exp(cums - log1m)
+            # prune the tail entered below the threshold, then scan again
+            alpha = torch.where(t_in > T_EPS, alpha, zero)
+            log1m = torch.log1p(-alpha)
+            cums = torch.cumsum(log1m, dim=-1)
+            t_excl = torch.exp(cums - log1m)
+            w = tau * alpha * t_excl                            # (G, P, K)
+
+            acc = torch.bmm(w, fe)                              # (G, P, 8)
+            w_sum = acc[..., 6]
+            t_after = tau * torch.exp(cums)
+            crossed = (t_in > 0.5) & (t_after <= 0.5)
+            if with_aux:
+                zc = torch.clamp(depth, min=ZNEAR)
+                m = torch.where(keep, (ZFAR * (zc - ZNEAR))
+                                / (zc * (ZFAR - ZNEAR)), zero)
+                wm_r = w * m
+                wm2_r = wm_r * m
+                # Σ_{j<i} w_j = T_in·(1 − t_excl_i): no third scan
+                a_pre = a_acc[..., None] + tau * (1.0 - t_excl)
+                d_pre = s_d[..., None] + (torch.cumsum(wm_r, -1) - wm_r)
+                d2_pre = s_d2[..., None] + (torch.cumsum(wm2_r, -1) - wm2_r)
+                dist = dist + (w * (m * m * a_pre + d2_pre
+                                    - 2 * m * d_pre)).sum(-1)
+                s_d = s_d + wm_r.sum(-1)
+                s_d2 = s_d2 + wm2_r.sum(-1)
+            acc6 = acc6 + acc[..., :6]
+            a_acc = a_acc + w_sum
+            d_exp = d_exp + (w * depth).sum(-1)
+            d_med = d_med + torch.where(crossed, depth, zero).sum(-1)
+            trans = trans * torch.exp(cums[..., -1])
+        o = out[sl]
+        o[..., 0:3] = acc6[..., 0:3]
+        o[..., 3] = a_acc
+        o[..., 4] = d_exp
+        o[..., 5] = d_med
+        o[..., 6] = dist
+        o[..., 7:10] = acc6[..., 3:6]
+        o[..., 10] = trans
+    return out
+
+
+def stage_plain(stage: int, gmax: torch.Tensor, geom: torch.Tensor,
+                feat: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                group: int, chunk: int, field_major: bool = False
+                ) -> torch.Tensor:
+    """The function the stage kernels compute, in PyTorch: the grouped (v2)
+    kernel cut off after stage 0 (Σρ), 1 (Σα), 2 (Σw and T) or 3 (rgb, Σw
+    and T), with the cut-down arithmetic of `make_kernel(stage)` in
+    `tools/pallas_bisect.py:25` (ρ = u² + v² alone, no window, no depth, no
+    count mask, no pruning pass) and its group-wide test: a group runs
+    chunk c while c·chunk < gmax[group] and some pixel of it has T > 1e-4.
+
+    Row-major (`field_major=False`, `tools/pallas_bisect.py`): geom (T, M,
+    16), feat (T, M, 8), px, py (T, P); returns the state (T, P, 16): T,
+    then the accumulated channels. Field-major
+    (`tools/pallas_bisect2.py`): geom (16, T, M), feat (8, T, M), px, py
+    (1, T, P); returns (16, T, P).
+    """
+    if field_major:
+        geom, feat = geom.permute(1, 2, 0), feat.permute(1, 2, 0)
+        px, py = px[0], py[0]
+    T, M, _ = geom.shape
+    P = px.shape[1]
+    n_groups = T // group
+    st = geom.new_zeros((n_groups, group, P, 16))
+    st[..., 0] = 1.0
+    ge = geom.reshape(n_groups, group, M, 16)
+    fe = feat.reshape(n_groups, group, M, 8)
+    pxe = px.reshape(n_groups, group, P, 1)
+    pye = py.reshape(n_groups, group, P, 1)
+    for c in range(M // chunk):
+        trans = st[..., 0]
+        active = (c * chunk < gmax) & (trans.amax((1, 2)) > T_EPS)
+        if not bool(active.any()):
+            continue
+        rows = ge[:, :, None, c * chunk:(c + 1) * chunk]    # (g, G, 1, K, 16)
+        u, v = _ray_uv(pxe, pye, lambda j: rows[..., j])
+        rho = u * u + v * v
+        new = st.clone()
+        if stage == 0:
+            new[..., 1] = st[..., 1] + rho.sum(-1)
+        else:
+            alpha = torch.clamp(rows[..., 15] * torch.exp(-0.5 * rho),
+                                max=ALPHA_MAX)
+            alpha = torch.where(alpha >= ALPHA_EPS, alpha,
+                                torch.zeros_like(alpha))
+            if stage == 1:
+                new[..., 1] = st[..., 1] + alpha.sum(-1)
+            else:
+                log1m = torch.log1p(-alpha)
+                cums = torch.cumsum(log1m, dim=-1)
+                w = trans[..., None] * alpha * torch.exp(cums - log1m)
+                if stage == 2:
+                    new[..., 1] = st[..., 1] + w.sum(-1)
+                else:
+                    f = fe[:, :, None, c * chunk:(c + 1) * chunk]
+                    for i in range(3):
+                        new[..., 1 + i] = st[..., 1 + i] \
+                            + (w * f[..., i]).sum(-1)
+                    new[..., 4] = st[..., 4] + w.sum(-1)
+                new[..., 0] = trans * torch.exp(cums[..., -1])
+        st = torch.where(active[:, None, None, None], new, st)
+    st = st.reshape(T, P, 16)
+    return st.permute(2, 0, 1).contiguous() if field_major else st
+
+
+def detile(tiles: torch.Tensor, img_h: int, img_w: int, tile: int
+           ) -> torch.Tensor:
+    """(n_tiles, tile², C) per-tile rows → (C, img_h, img_w)."""
+    C = tiles.shape[-1]
+    t = tiles.reshape(img_h // tile, img_w // tile, tile, tile, C)
+    return t.permute(4, 0, 2, 1, 3).reshape(C, img_h, img_w)
+
+
+def list_outputs(out: torch.Tensor, bg: torch.Tensor, img_h: int,
+                 img_w: int, tile: int) -> Dict[str, torch.Tensor]:
+    """(n_tiles, tile², LIST_OUT_W) list-kernel output → the maps of
+    `rasterize_tiled`, the image blended over `bg` with the unflushed T."""
+    buf = detile(out, img_h, img_w, tile)
+    return {"image": buf[0:3] + buf[10:11] * bg.to(buf.dtype)[:, None, None],
+            "alpha": buf[3:4], "depth_expected": buf[4:5],
+            "depth_median": buf[5:6], "dist": buf[6:7],
+            "normal_view": buf[7:10]}
+
+
+def _check_frame_args(img_h, img_w, tile, max_per_tile, chunk):
+    if img_h % tile or img_w % tile:
+        raise ValueError(f"image {img_h}x{img_w} is not a multiple of the "
+                         f"tile {tile}")
+    if max_per_tile % chunk:
+        raise ValueError("max_per_tile must be a multiple of chunk")
+
+
+def _check_group(img_h, img_w, tile, group):
+    n_tiles = (img_h // tile) * (img_w // tile)
+    if n_tiles % group:
+        raise ValueError(f"{n_tiles} tiles are not a multiple of the group "
+                         f"{group}")
+
+
+def tile_lists(gaussians: torch.Tensor, cam_view: torch.Tensor,
+               cam_view_proj: torch.Tensor, img_h: int, img_w: int,
+               tile: int, max_per_tile: int, chunk: int, full_h: int = 0,
+               row0: int = 0):
+    """What the list entry points share: project and bin into dense lists.
+    Returns (the projected splats with the dead splat appended, lists,
+    counts), for `pack_tile_inputs`."""
+    _check_frame_args(img_h, img_w, tile, max_per_tile, chunk)
+    sp = preprocess_splats(gaussians, cam_view, cam_view_proj,
+                           full_h or img_h, img_w)
+    lists, counts = build_tile_lists(sp, img_h, img_w, tile, max_per_tile,
+                                     row0=row0)
+    return pad_dead_splat(sp), lists, counts
+
+
+@torch.no_grad()
+def rasterize_tiled_v1(gaussians: torch.Tensor, cam_view: torch.Tensor,
+                       cam_view_proj: torch.Tensor, bg: torch.Tensor,
+                       img_h: int, img_w: int, tile: int = 16,
+                       max_per_tile: int = 1024, chunk: int = 256,
+                       full_h: int = 0, row0: int = 0,
+                       with_aux: bool = False) -> Dict[str, torch.Tensor]:
+    """The v1 forward, `rasterize_tiled_pallas`
+    (`rasterize_pallas.py:216`): one program per tile over dense lists, K3
+    (`rasterize_cuda.composite_lists`: the kernel for CUDA tensors,
+    `composite_lists_plain` for CPU tensors). Same maps as
+    `rasterize_tiled`; dist is 0 unless `with_aux`. `full_h`/`row0` render
+    a band of rows of a taller image. Forward only."""
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+    sp_pad, lists, counts = tile_lists(
+        gaussians, cam_view, cam_view_proj, img_h, img_w, tile, max_per_tile,
+        chunk, full_h, row0)
+    geom, feat = pack_tile_inputs(sp_pad, lists)
+    out = rasterize_cuda.composite_lists(
+        geom, feat, counts, img_w // tile, tile, chunk, row0=row0,
+        with_aux=with_aux)
+    return list_outputs(out, bg, img_h, img_w, tile)
+
+
+_MAP_ORDER = tuple(k for k, _, _ in OUT_CHANNELS)
+
+
+class _V1Fused(torch.autograd.Function):
+    """K3 (with the distortion) forward; the backward recomputes the
+    differentiable route `rasterize_tiled` and takes its gradient: no
+    residual but the surfels is kept."""
+
+    @staticmethod
+    def forward(ctx, gaussians, cam_view, cam_view_proj, bg, frame):
+        img_h, img_w, tile, max_per_tile, chunk, full_h, row0 = frame
+        ctx.save_for_backward(gaussians, cam_view, cam_view_proj, bg)
+        ctx.frame = frame
+        out = rasterize_tiled_v1(
+            gaussians, cam_view, cam_view_proj, bg, img_h, img_w, tile=tile,
+            max_per_tile=max_per_tile, chunk=chunk, full_h=full_h, row0=row0,
+            with_aux=True)
+        return tuple(out[k] for k in _MAP_ORDER)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        gaussians, cam_view, cam_view_proj, bg = ctx.saved_tensors
+        img_h, img_w, tile, max_per_tile, chunk, _, _ = ctx.frame
+        with torch.enable_grad():
+            g = gaussians.detach().requires_grad_(True)
+            out = rasterize_tiled(g, cam_view, cam_view_proj, bg, img_h,
+                                  img_w, tile=tile,
+                                  max_per_tile=max_per_tile, chunk=chunk)
+            loss = sum((out[k] * ct).sum() for k, ct in zip(_MAP_ORDER, cts)
+                       if ct is not None)
+            grad, = torch.autograd.grad(loss, g)
+        return grad, None, None, None, None
+
+
+def rasterize_tiled_v1_fused(gaussians: torch.Tensor,
+                             cam_view: torch.Tensor,
+                             cam_view_proj: torch.Tensor, bg: torch.Tensor,
+                             img_h: int, img_w: int, tile: int = 16,
+                             max_per_tile: int = 1024, chunk: int = 64
+                             ) -> Dict[str, torch.Tensor]:
+    """`rasterize_tiled_fused` (`rasterize_pallas.py:290`): the v1 kernel
+    forward (with the distortion, so dist's value matches its gradient)
+    and, for the gradient with respect to the surfels, the differentiable
+    route recomputed in the backward: `rasterize_tiled`, which is the
+    K2a/K2b pair for CUDA tensors and the plain pair for CPU tensors (the
+    JAX function differentiates its XLA path there, `:316-327`). The
+    backward renders whole images only, so this function takes no band."""
+    frame = (img_h, img_w, tile, max_per_tile, chunk, 0, 0)
+    maps = _V1Fused.apply(gaussians, cam_view, cam_view_proj, bg, frame)
+    return dict(zip(_MAP_ORDER, maps))
+
+
+@torch.no_grad()
+def rasterize_tiled_v2(gaussians: torch.Tensor, cam_view: torch.Tensor,
+                       cam_view_proj: torch.Tensor, bg: torch.Tensor,
+                       img_h: int, img_w: int, tile: int = 8,
+                       max_per_tile: int = 512, chunk: int = 128,
+                       group: int = 16, full_h: int = 0, row0: int = 0
+                       ) -> Dict[str, torch.Tensor]:
+    """The v2 forward, `rasterize_tiled_pallas_grouped`
+    (`rasterize_pallas.py:455`): tiles sorted by count, descending, in
+    groups of `group`; each group walks the chunks below its largest count
+    (K4, `rasterize_cuda.composite_lists_grouped`). dist is 0. Forward
+    only."""
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+    _check_group(img_h, img_w, tile, group)
+    sp_pad, lists, counts = tile_lists(
+        gaussians, cam_view, cam_view_proj, img_h, img_w, tile, max_per_tile,
+        chunk, full_h, row0)
+    order = torch.sort(-counts, stable=True).indices
+    inv_order = torch.sort(order, stable=True).indices
+    counts_s = counts[order]
+    geom, feat = pack_tile_inputs(sp_pad, lists[order])
+    px, py = tile_pixel_tables(order, img_w // tile, tile, row0)
+    gmax = counts_s.reshape(-1, group).amax(1).int()
+    out = rasterize_cuda.composite_lists_grouped(
+        gmax, geom, feat, px, py, counts_s.float()[:, None], group, chunk)
+    return list_outputs(out[inv_order], bg, img_h, img_w, tile)
+
+
+@torch.no_grad()
+def rasterize_tiled_v3(gaussians: torch.Tensor, cam_view: torch.Tensor,
+                       cam_view_proj: torch.Tensor, bg: torch.Tensor,
+                       img_h: int, img_w: int, tile: int = 8,
+                       max_per_tile: int = 512, chunk: int = 128,
+                       group: int = 8, full_h: int = 0, row0: int = 0
+                       ) -> Dict[str, torch.Tensor]:
+    """The v3 forward, `rasterize_tiled_pallas_v3`
+    (`rasterize_pallas.py:659`): `group` consecutive tiles per program,
+    each over its own ceil(count / chunk) chunks (K5,
+    `rasterize_cuda.composite_lists_unrolled`). dist is 0. Forward only."""
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+    _check_group(img_h, img_w, tile, group)
+    sp_pad, lists, counts = tile_lists(
+        gaussians, cam_view, cam_view_proj, img_h, img_w, tile, max_per_tile,
+        chunk, full_h, row0)
+    geom, feat = pack_tile_inputs(sp_pad, lists)
+    out = rasterize_cuda.composite_lists_unrolled(
+        geom, feat, counts, img_w // tile, tile, chunk, group, row0=row0)
+    return list_outputs(out, bg, img_h, img_w, tile)
+
+
+@torch.no_grad()
+def rasterize_tiled_v4_dma(gaussians: torch.Tensor, cam_view: torch.Tensor,
+                           cam_view_proj: torch.Tensor, bg: torch.Tensor,
+                           img_h: int, img_w: int, tile: int = 16,
+                           max_per_tile: int = 2048, chunk: int = 128,
+                           full_h: int = 0, row0: int = 0,
+                           big_capacity: int = 0) -> Dict[str, torch.Tensor]:
+    """The v4 forward fed by asynchronous copies, `rasterize_tiled_v4_dma`
+    (`rasterize_pallas.py:1147`): ONE gather builds the segment-ordered
+    table `segment_table(tab, pairs)`, and K6
+    (`rasterize_cuda.composite_segments`) copies each (tile, chunk) slice
+    of it into shared memory while it composites the one before. The same
+    maps as `rasterize_tiled`. There is no `group` or `steps_per_group`:
+    like K1, K6 walks every tile's whole segment, so no step is ever dead
+    (the JAX function parks dead steps on a chunk it may composite twice,
+    `:1204`). Forward only."""
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+    _check_frame_args(img_h, img_w, tile, max_per_tile, chunk)
+    sp = preprocess_splats(gaussians, cam_view, cam_view_proj,
+                           full_h or img_h, img_w)
+    pairs, starts, counts = build_tile_pairs(
+        sp, img_h, img_w, tile, max_per_tile, row0=row0,
+        big_capacity=big_capacity)
+    seg = segment_table(splat_table(pack_splat_render(sp)), pairs)
+    buf = rasterize_cuda.composite_segments(
+        seg, starts, counts, bg, img_h, img_w, tile=tile, chunk=chunk,
+        row0=row0)
     return split_outputs(buf)

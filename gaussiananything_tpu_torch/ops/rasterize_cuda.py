@@ -1,4 +1,4 @@
-"""K1, K2a and K2b, the hand-written Hopper compositors, and their wrappers.
+"""The hand-written Hopper compositors and their wrappers.
 
   * K1 (`composite`), forward only: replaces the TPU kernel
     `_make_v4_kernel(dma=False)`
@@ -11,6 +11,19 @@
     source, another instantiation); K2b (`csrc/rasterize_v4_bwd.cu`) walks
     the executed chunks in reverse and returns the cotangent of the splat
     table.
+  * K6 (`composite_segments`), forward only: replaces
+    `_make_v4_kernel(dma=True)` (`dma_kernel`, `:966`, driven by
+    `rasterize_tiled_v4_dma`, `:1147`): K1's arithmetic on slices of one
+    segment-ordered table that the kernel copies into shared memory
+    asynchronously. Source `csrc/rasterize_v4_seg.cu`; it shares
+    `csrc/composite_v4.cuh` with K1 and K2a.
+  * K3, K4, K5 (`composite_lists`, `composite_lists_grouped`,
+    `composite_lists_unrolled`), forward only: the dense-list kernels
+    `_make_kernel` (`:59`), `_make_grouped_kernel` (`:346`) and
+    `_make_unrolled_kernel` (`:555`). `stage` launches K4's stage-cut
+    instantiations, the counterparts of `make_kernel(stage)` in
+    `tools/pallas_bisect.py:25` and `tools/pallas_bisect2.py:30`. Source
+    `csrc/rasterize_v1.cu`.
 
 The design notes on what bounds each kernel are in the CUDA sources. Each
 source is compiled with `nvcc` for `sm_90a` into a shared library with a
@@ -18,8 +31,10 @@ plain C interface at first use (into `csrc/build/`, which git ignores) and
 loaded with ctypes; the sources build in parallel.
 
 The wrappers take the plain versions (`rasterize.composite_plain`,
-`rasterize.composite_plain_backward`) only for tensors on the CPU; for CUDA
-tensors they launch the kernels or raise.
+`rasterize.composite_plain_backward`, `rasterize.composite_segments_plain`,
+`rasterize.composite_lists_plain`, `rasterize.stage_plain`) only for tensors
+on the CPU; for CUDA tensors they launch the kernels or raise. Each wrapper
+counts its launches in its `launches` attribute.
 """
 from __future__ import annotations
 
@@ -39,12 +54,17 @@ from gaussiananything_tpu_torch.ops import rasterize as rz
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 SOURCES = {"fwd": os.path.join(_CSRC, "rasterize_v4.cu"),       # K1, K2a
-           "bwd": os.path.join(_CSRC, "rasterize_v4_bwd.cu")}   # K2b
+           "bwd": os.path.join(_CSRC, "rasterize_v4_bwd.cu"),   # K2b
+           "seg": os.path.join(_CSRC, "rasterize_v4_seg.cu"),   # K6
+           "v1": os.path.join(_CSRC, "rasterize_v1.cu")}  # K3-K5, stages
+HEADERS = [os.path.join(_CSRC, "composite_v4.cuh")]
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-MAX_CHUNK = {"fwd": 256, "bwd": 128}     # rows a kernel stages per chunk
+# rows a kernel stages per chunk
+MAX_CHUNK = {"fwd": 256, "bwd": 128, "seg": 256, "v1": 256}
+MAX_SHARED = 232448     # bytes of shared memory a block of this card can use
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -62,15 +82,19 @@ def _nvcc() -> str:
 def build() -> Dict[str, str]:
     """Compile every source of `SOURCES` that has no library yet, all at
     once (one `nvcc` process each); returns {name: library path}. A file
-    name carries its source's hash, and a library is written under a
+    name carries the hash of its source, the headers and the flags, and a
+    library is written under a
     temporary name and renamed, so concurrent builds never load a
     half-written file."""
     global build_log
     paths, running = {}, []
+    shared = " ".join(NVCC_FLAGS).encode()
+    for header in HEADERS:
+        with open(header, "rb") as f:
+            shared += f.read()
     for name, source in SOURCES.items():
         with open(source, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                    ).hexdigest()[:16]
+            digest = hashlib.sha256(f.read() + shared).hexdigest()[:16]
         stem = os.path.splitext(os.path.basename(source))[0]
         paths[name] = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
         if os.path.exists(paths[name]):
@@ -119,7 +143,24 @@ def _library(name: str) -> ctypes.CDLL:
             bwd.ga_composite_v4_bwd.argtypes = \
                 [ptr] * 9 + [i] * 3 + [ptr] * 3 + [i] + [ptr] * 2
             bwd.ga_composite_v4_bwd.restype = i
-            _libs.update(fwd=fwd, bwd=bwd)
+            seg = ctypes.CDLL(paths["seg"])
+            seg.ga_composite_v4_seg.argtypes = \
+                [ptr] * 4 + [i] * 4 + [ptr] * 2
+            v1 = ctypes.CDLL(paths["v1"])
+            v1.ga_composite_lists.argtypes = [ptr] * 3 + [i] * 7 + [ptr] * 2
+            v1.ga_composite_lists_unrolled.argtypes = \
+                [ptr] * 3 + [i] * 7 + [ptr] * 2
+            v1.ga_composite_lists_grouped.argtypes = \
+                [ptr] * 6 + [i] * 5 + [ptr] * 2
+            v1.ga_stage.argtypes = [i] * 2 + [ptr] * 5 + [i] * 5 + [ptr] * 2
+            v1.ga_grouped_shared_bytes.argtypes = [i] * 3
+            v1.ga_stage_shared_bytes.argtypes = [i] * 3
+            for fn in (seg.ga_composite_v4_seg, v1.ga_composite_lists,
+                       v1.ga_composite_lists_unrolled,
+                       v1.ga_composite_lists_grouped, v1.ga_stage,
+                       v1.ga_grouped_shared_bytes, v1.ga_stage_shared_bytes):
+                fn.restype = i
+            _libs.update(fwd=fwd, bwd=bwd, seg=seg, v1=v1)
     return _libs[name]
 
 
@@ -137,7 +178,8 @@ def _check(t: torch.Tensor, name: str, dtype, shape=None):
 
 def _check_frame(tab, pairs, starts, counts, bg, img_h, img_w, tile, chunk,
                  kernel: str):
-    """Raise on what the kernels do not take; returns (tiles_x, tiles_y)."""
+    """Raise on what the kernels do not take; returns (tiles_x, tiles_y).
+    `pairs` is None for K6, whose table is already in pair order."""
     if tile != 16:
         raise ValueError(f"the kernels run 16x16 tiles, got tile={tile}")
     if not 1 <= chunk <= MAX_CHUNK[kernel]:
@@ -150,13 +192,14 @@ def _check_frame(tab, pairs, starts, counts, bg, img_h, img_w, tile, chunk,
     if tab.dim() != 2 or tab.shape[1] != rz.TABLE_W:
         raise ValueError(f"tab must be (N, {rz.TABLE_W}), got "
                          f"{tuple(tab.shape)}")
-    _check(pairs, "pairs", torch.int32)
+    if pairs is not None:
+        _check(pairs, "pairs", torch.int32)
     _check(starts, "starts", torch.int32, (tiles_x * tiles_y,))
     _check(counts, "counts", torch.int32, (tiles_x * tiles_y,))
     _check(bg, "bg", torch.float32, (3,))
     for t, name in ((pairs, "pairs"), (starts, "starts"), (counts, "counts"),
                     (bg, "bg")):
-        if t.device != tab.device:
+        if t is not None and t.device != tab.device:
             raise ValueError(f"{name} is on {t.device}, tab on {tab.device}")
     return tiles_x, tiles_y
 
@@ -358,3 +401,236 @@ def composite_train(tab: torch.Tensor, pairs: torch.Tensor,
                                         img_h, img_w, tile=tile, chunk=chunk)
     return _CompositeTrain.apply(tab, pairs, starts, counts, bg, img_h,
                                  img_w, tile, chunk)
+
+
+def composite_segments(seg: torch.Tensor, starts: torch.Tensor,
+                       counts: torch.Tensor, bg: torch.Tensor, img_h: int,
+                       img_w: int, tile: int = 16, chunk: int = 128,
+                       row0: int = 0) -> torch.Tensor:
+    """K6: K1's buffer from the segment-ordered table.
+
+    seg (L, TABLE_W) float32 from `rasterize.segment_table` (row i is the
+    splat at pair position i; tile t's rows start at `starts[t]`), starts
+    and counts int32 from `build_tile_pairs`, bg (3,) float32; `row0` is
+    the image row of the buffer's first row. Returns (N_OUT, img_h, img_w).
+    CPU tensors take `rasterize.composite_segments_plain`; CUDA tensors
+    launch the kernel (one block per 16x16 tile, the next chunk's rows
+    copied asynchronously while this one is composited) and count one
+    launch. The kernel reads rows starts[t] .. starts[t] + counts[t] of
+    `seg` and no others, so the table needs no trailing padding. Forward
+    only.
+    """
+    if seg.device.type == "cpu":
+        return rz.composite_segments_plain(seg, starts, counts, bg, img_h,
+                                           img_w, tile=tile, chunk=chunk,
+                                           row0=row0)
+    seg = seg.detach()
+    tiles_x, tiles_y = _check_frame(seg, None, starts, counts, bg, img_h,
+                                    img_w, tile, chunk, "seg")
+    out = torch.empty((rz.N_OUT, img_h, img_w), dtype=torch.float32,
+                      device=seg.device)
+    stream = torch.cuda.current_stream(seg.device).cuda_stream
+    with _logged("K6"):
+        _raise_on(_library("seg").ga_composite_v4_seg(
+            seg.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+            bg.data_ptr(), tiles_x, tiles_y, chunk, row0, out.data_ptr(),
+            stream), "K6")
+    composite_segments.launches += 1
+    return out
+
+
+composite_segments.launches = 0
+
+
+def _check_lists(geom, feat, n_tiles, chunk, tile=None, P=None):
+    """Raise on what the list kernels do not take; returns max_per_tile."""
+    if tile is not None and tile not in (8, 16):
+        raise ValueError(f"the list kernels run 8x8 or 16x16 tiles, got "
+                         f"tile={tile}")
+    if P is not None and P not in (64, 256):
+        raise ValueError(f"the list kernels run 64 or 256 pixels a tile, got "
+                         f"{P}")
+    if not 1 <= chunk <= MAX_CHUNK["v1"]:
+        raise ValueError(f"the kernel stages at most {MAX_CHUNK['v1']} "
+                         f"splats a chunk, got {chunk}")
+    _check(geom, "geom", torch.float32)
+    if geom.dim() != 3 or geom.shape[0] != n_tiles \
+            or geom.shape[2] != rz.GEOM_W:
+        raise ValueError(f"geom must be ({n_tiles}, M, {rz.GEOM_W}), got "
+                         f"{tuple(geom.shape)}")
+    M = geom.shape[1]
+    _check(feat, "feat", torch.float32, (n_tiles, M, rz.FEAT_W))
+    if feat.device != geom.device:
+        raise ValueError(f"feat is on {feat.device}, geom on {geom.device}")
+    if M % chunk:
+        raise ValueError("max_per_tile must be a multiple of chunk")
+    return M
+
+
+def _composite_natural(wrapper, kernel, geom, feat, counts, tiles_x, tile,
+                       chunk, row0, with_aux=False, group=None):
+    """K3 (`group` None) or K5 on tiles in natural order: the plain version
+    for CPU tensors, else one launch, counted on `wrapper`. Returns
+    (T, tile², LIST_OUT_W)."""
+    n_tiles = counts.shape[0]
+    if group is not None and (group < 1 or n_tiles % group):
+        raise ValueError(f"{n_tiles} tiles are not a multiple of the group "
+                         f"{group}")
+    if geom.device.type == "cpu":
+        px, py = rz.tile_pixel_tables(torch.arange(n_tiles), tiles_x, tile,
+                                      row0)
+        return rz.composite_lists_plain(geom, feat, counts, px, py, chunk,
+                                        with_aux=with_aux)
+    M = _check_lists(geom, feat, n_tiles, chunk, tile=tile)
+    _check(counts, "counts", torch.int32, (n_tiles,))
+    out = torch.empty((n_tiles, tile * tile, rz.LIST_OUT_W),
+                      dtype=torch.float32, device=geom.device)
+    stream = torch.cuda.current_stream(geom.device).cuda_stream
+    lib = _library("v1")
+    head = (geom.data_ptr(), feat.data_ptr(), counts.data_ptr(), n_tiles, M,
+            tiles_x, tile, chunk)
+    with _logged(kernel):
+        if group is None:
+            err = lib.ga_composite_lists(*head, row0, int(with_aux),
+                                         out.data_ptr(), stream)
+        else:
+            err = lib.ga_composite_lists_unrolled(*head, group, row0,
+                                                  out.data_ptr(), stream)
+        _raise_on(err, kernel)
+    wrapper.launches += 1
+    return out
+
+
+def composite_lists(geom: torch.Tensor, feat: torch.Tensor,
+                    counts: torch.Tensor, tiles_x: int, tile: int,
+                    chunk: int, row0: int = 0, with_aux: bool = False
+                    ) -> torch.Tensor:
+    """K3: composite every tile's dense list, one block per tile.
+
+    geom (T, M, GEOM_W), feat (T, M, FEAT_W) float32 from
+    `rasterize.pack_tile_inputs`, counts (T,) int32; tile t covers the
+    `tile`-square at column t % tiles_x, row t // tiles_x, offset by `row0`
+    image rows. Returns (T, tile², LIST_OUT_W); dist (channel 6) is 0
+    unless `with_aux`. CPU tensors take `rasterize.composite_lists_plain`;
+    CUDA tensors launch the kernel and count one launch. Forward only.
+    """
+    return _composite_natural(composite_lists, "K3", geom, feat, counts,
+                              tiles_x, tile, chunk, row0, with_aux=with_aux)
+
+
+composite_lists.launches = 0
+
+
+def composite_lists_unrolled(geom: torch.Tensor, feat: torch.Tensor,
+                             counts: torch.Tensor, tiles_x: int, tile: int,
+                             chunk: int, group: int, row0: int = 0
+                             ) -> torch.Tensor:
+    """K5: as `composite_lists` without the distortion, `group` consecutive
+    tiles per block, each over its own chunks; `group` divides T. CPU
+    tensors take `rasterize.composite_lists_plain`; CUDA tensors launch the
+    kernel and count one launch."""
+    return _composite_natural(composite_lists_unrolled, "K5", geom, feat,
+                              counts, tiles_x, tile, chunk, row0, group=group)
+
+
+composite_lists_unrolled.launches = 0
+
+
+def composite_lists_grouped(gmax: torch.Tensor, geom: torch.Tensor,
+                            feat: torch.Tensor, px: torch.Tensor,
+                            py: torch.Tensor, cnt: torch.Tensor, group: int,
+                            chunk: int) -> torch.Tensor:
+    """K4: composite count-sorted groups of `group` tiles, a block per
+    group, chunk by chunk below the group's largest count.
+
+    The tiles come in the caller's (count-sorted) order: gmax (T / group,)
+    int32 largest count of each group, geom and feat as for
+    `composite_lists`, px and py (T, P) float32 pixel coordinates
+    (`rasterize.tile_pixel_tables`), cnt (T, 1) float32 counts. Returns
+    (T, P, LIST_OUT_W) in the same order, dist 0. CPU tensors take
+    `rasterize.composite_lists_plain`; CUDA tensors launch the kernel and
+    count one launch. A group's states live in shared memory, which bounds
+    group x P (4,096 pixels at chunk 256).
+    """
+    n_tiles, P = px.shape
+    if group < 1 or n_tiles % group:
+        raise ValueError(f"{n_tiles} tiles are not a multiple of the group "
+                         f"{group}")
+    if geom.device.type == "cpu":
+        return rz.composite_lists_plain(geom, feat, cnt[:, 0].int(), px, py,
+                                        chunk)
+    M = _check_lists(geom, feat, n_tiles, chunk, P=P)
+    _check(gmax, "gmax", torch.int32, (n_tiles // group,))
+    _check(px, "px", torch.float32, (n_tiles, P))
+    _check(py, "py", torch.float32, (n_tiles, P))
+    _check(cnt, "cnt", torch.float32, (n_tiles, 1))
+    lib = _library("v1")
+    need = lib.ga_grouped_shared_bytes(group, P, chunk)
+    if need > MAX_SHARED:
+        raise ValueError(f"a group of {group} tiles of {P} pixels at chunk "
+                         f"{chunk} needs {need} bytes of shared memory, the "
+                         f"card gives a block {MAX_SHARED}")
+    out = torch.empty((n_tiles, P, rz.LIST_OUT_W), dtype=torch.float32,
+                      device=geom.device)
+    stream = torch.cuda.current_stream(geom.device).cuda_stream
+    with _logged("K4"):
+        _raise_on(lib.ga_composite_lists_grouped(
+            gmax.data_ptr(), geom.data_ptr(), feat.data_ptr(), px.data_ptr(),
+            py.data_ptr(), cnt.data_ptr(), n_tiles, group, P, M, chunk,
+            out.data_ptr(), stream), "K4")
+    composite_lists_grouped.launches += 1
+    return out
+
+
+composite_lists_grouped.launches = 0
+
+
+def stage(stage_id: int, gmax: torch.Tensor, geom: torch.Tensor,
+          feat: torch.Tensor, px: torch.Tensor, py: torch.Tensor, group: int,
+          chunk: int, field_major: bool = False) -> torch.Tensor:
+    """K4 cut off after stage `stage_id` (0..3), on row-major or
+    field-major inputs: shapes and result as `rasterize.stage_plain`, which
+    CPU tensors take. CUDA tensors launch the instantiation and count one
+    launch in `stage.launches[(stage_id, field_major)]`."""
+    if stage_id not in (0, 1, 2, 3):
+        raise ValueError(f"stage must be 0..3, got {stage_id}")
+    if geom.device.type == "cpu":
+        return rz.stage_plain(stage_id, gmax, geom, feat, px, py, group,
+                              chunk, field_major=field_major)
+    if field_major:
+        _, n_tiles, M = geom.shape
+        P = px.shape[2]
+        shapes = ((16, n_tiles, M), (8, n_tiles, M), (1, n_tiles, P),
+                  (16, n_tiles, P))
+    else:
+        n_tiles, M, _ = geom.shape
+        P = px.shape[1]
+        shapes = ((n_tiles, M, 16), (n_tiles, M, 8), (n_tiles, P),
+                  (n_tiles, P, 16))
+    if group < 1 or n_tiles % group or M % chunk:
+        raise ValueError(f"{n_tiles} tiles of {M} rows do not split into "
+                         f"groups of {group} and chunks of {chunk}")
+    _check(geom, "geom", torch.float32, shapes[0])
+    _check(feat, "feat", torch.float32, shapes[1])
+    _check(px, "px", torch.float32, shapes[2])
+    _check(py, "py", torch.float32, shapes[2])
+    _check(gmax, "gmax", torch.int32, (n_tiles // group,))
+    lib = _library("v1")
+    need = lib.ga_stage_shared_bytes(group, P, chunk)
+    if need > MAX_SHARED:
+        raise ValueError(f"a group of {group} tiles of {P} pixels at chunk "
+                         f"{chunk} needs {need} bytes of shared memory, the "
+                         f"card gives a block {MAX_SHARED}")
+    out = torch.empty(shapes[3], dtype=torch.float32, device=geom.device)
+    stream = torch.cuda.current_stream(geom.device).cuda_stream
+    name = f"B{2 if field_major else 1}.{stage_id}"
+    with _logged(name):
+        _raise_on(lib.ga_stage(
+            stage_id, int(field_major), gmax.data_ptr(), geom.data_ptr(),
+            feat.data_ptr(), px.data_ptr(), py.data_ptr(), n_tiles, group, P,
+            M, chunk, out.data_ptr(), stream), name)
+    stage.launches[(stage_id, bool(field_major))] += 1
+    return out
+
+
+stage.launches = {(s, f): 0 for s in range(4) for f in (False, True)}

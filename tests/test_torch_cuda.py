@@ -17,7 +17,7 @@ from gaussiananything_tpu_torch.ops import rasterize_cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K1, K2a and K2b are CUDA kernels")
+        pytest.skip("needs a CUDA device: the port's kernels are CUDA kernels")
     from gaussiananything_tpu_torch.utils.device import resolve_device
     return resolve_device("cuda")
 
@@ -218,3 +218,178 @@ def test_impl_cuda_launches_k1_without_grad_and_the_pair_with(card):
     c2 = counts()
     assert (c2[0] - c1[0], c2[1] - c1[1], c2[2] - c1[2]) == (0, 1, 1)
     assert torch.isfinite(g.grad).all() and float(g.grad.abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,res,mpt,chunk", [(1024, 64, 256, 64),
+                                             (73728, 512, 2048, 256)])
+def test_k6_matches_plain_and_k1(card, n, res, mpt, chunk):
+    """K6 reads the segment-ordered table; it shares K1's arithmetic, so
+    its buffer is K1's bit for bit."""
+    tab, pairs, starts, counts, bg, _, _ = args = _frame(card, n, res, mpt)
+    seg = rz.segment_table(tab, pairs)
+    before = rasterize_cuda.composite_segments.launches
+    got = rasterize_cuda.composite_segments(seg, starts, counts, bg, res,
+                                            res, chunk=chunk)
+    torch.cuda.synchronize()
+    assert rasterize_cuda.composite_segments.launches == before + 1
+    assert torch.equal(got, rasterize_cuda.composite(*args, chunk=chunk))
+    ref = rz.composite_segments_plain(seg, starts, counts, bg, res, res,
+                                      chunk=chunk)
+    torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k6_reads_no_row_past_a_tiles_count(card):
+    """A table cut to its live rows, with a chunk above max_per_tile: the
+    kernel copies only the rows below each tile's count, so the buffer is
+    the padded table's."""
+    n, res, mpt, chunk = 1024, 64, 128, 256
+    tab, pairs, starts, counts, bg, _, _ = _frame(card, n, res, mpt)
+    seg = rz.segment_table(tab, pairs)
+    end = int((starts + counts).max())
+    assert end < seg.shape[0]
+    want = rasterize_cuda.composite_segments(seg, starts, counts, bg, res,
+                                             res, chunk=chunk)
+    got = rasterize_cuda.composite_segments(seg[:end].clone(), starts, counts,
+                                            bg, res, res, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _lists(card, n, res, tile, mpt, opacity=None, radius=1.8):
+    from gaussiananything_tpu_torch.data.synthetic import make_object
+    from gaussiananything_tpu_torch.render import cameras
+    g = make_object(0, n=n, kind="sphere", device=card)
+    if opacity is not None:
+        g[:, 3] = opacity
+    cam = cameras.pose_to_gs_camera(
+        cameras.generate_input_camera(radius, [(20, 45)])[0], device=card)
+    sp = rz.preprocess_splats(g, cam["cam_view"], cam["cam_view_proj"],
+                              res, res)
+    lists, counts = rz.build_tile_lists(sp, res, res, tile, mpt)
+    geom, feat = rz.pack_tile_inputs(rz.pad_dead_splat(sp), lists)
+    px, py = rz.tile_pixel_tables(
+        torch.arange(counts.shape[0], device=card), res // tile, tile)
+    return geom, feat, counts, px, py
+
+
+def _assert_lists_close(got, ref):
+    """atol 2e-5 / rtol 1e-4 on every channel but the median depth
+    (channel 5), a knife edge held by flips: at most 1e-4 of the pixels
+    beyond that, none beyond 0.2."""
+    keep = [c for c in range(rz.LIST_OUT_W) if c != 5]
+    torch.testing.assert_close(got[..., keep], ref[..., keep], atol=2e-5,
+                               rtol=1e-4)
+    d = (got[..., 5] - ref[..., 5]).abs()
+    beyond = d > 2e-5 + 1e-4 * ref[..., 5].abs()
+    assert float(beyond.double().mean()) <= 1e-4 and float(d.max()) <= 0.2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_aux", [False, True])
+@pytest.mark.parametrize("n,res,tile,mpt,chunk", [(1024, 64, 16, 256, 64),
+                                                  (73728, 512, 16, 2048, 256),
+                                                  (6144, 256, 8, 512, 128)])
+def test_k3_matches_plain(card, n, res, tile, mpt, chunk, with_aux):
+    geom, feat, counts, px, py = _lists(card, n, res, tile, mpt)
+    before = rasterize_cuda.composite_lists.launches
+    got = rasterize_cuda.composite_lists(geom, feat, counts, res // tile,
+                                         tile, chunk, with_aux=with_aux)
+    torch.cuda.synchronize()
+    assert rasterize_cuda.composite_lists.launches == before + 1
+    _assert_lists_close(got, rz.composite_lists_plain(
+        geom, feat, counts, px, py, chunk, with_aux=with_aux))
+    if not with_aux:
+        assert float(got[..., 6].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_k3_aux_dist_matches_plain(card):
+    """dist from the prefix forms where it stands above its fp32 floor."""
+    geom, feat, counts, px, py = _lists(card, 73728, 512, 16, 2048, 0.2, 0.6)
+    got = rasterize_cuda.composite_lists(geom, feat, counts, 32, 16, 32,
+                                         with_aux=True)
+    ref = rz.composite_lists_plain(geom, feat, counts, px, py, 32,
+                                   with_aux=True)
+    peak = float(ref[..., 6].abs().max())
+    assert peak >= 1e-4
+    assert float((got[..., 6] - ref[..., 6]).abs().max()) <= 2e-2 * peak
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,res,tile,mpt,chunk,group", [
+    (1024, 64, 16, 256, 64, 4), (73728, 512, 16, 2048, 256, 16),
+    (73728, 512, 8, 512, 128, 16)])
+def test_k4_matches_plain(card, n, res, tile, mpt, chunk, group):
+    geom, feat, counts, px, py = _lists(card, n, res, tile, mpt)
+    order = torch.sort(-counts, stable=True).indices
+    counts_s = counts[order]
+    args = (counts_s.reshape(-1, group).amax(1).int(), geom[order],
+            feat[order], px[order], py[order], counts_s.float()[:, None])
+    before = rasterize_cuda.composite_lists_grouped.launches
+    got = rasterize_cuda.composite_lists_grouped(*args, group, chunk)
+    torch.cuda.synchronize()
+    assert rasterize_cuda.composite_lists_grouped.launches == before + 1
+    _assert_lists_close(got, rz.composite_lists_plain(
+        args[1], args[2], counts_s, args[3], args[4], chunk))
+    assert float(got[..., 6].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,res,tile,mpt,chunk,group", [
+    (1024, 64, 16, 256, 64, 4), (73728, 512, 16, 2048, 256, 16),
+    (73728, 512, 8, 512, 128, 8)])
+def test_k5_matches_plain(card, n, res, tile, mpt, chunk, group):
+    geom, feat, counts, px, py = _lists(card, n, res, tile, mpt)
+    before = rasterize_cuda.composite_lists_unrolled.launches
+    got = rasterize_cuda.composite_lists_unrolled(
+        geom, feat, counts, res // tile, tile, chunk, group)
+    torch.cuda.synchronize()
+    assert rasterize_cuda.composite_lists_unrolled.launches == before + 1
+    _assert_lists_close(got, rz.composite_lists_plain(
+        geom, feat, counts, px, py, chunk))
+    assert float(got[..., 6].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+@pytest.mark.parametrize("field_major", [False, True])
+def test_stage_kernels_match_plain(card, stage, field_major):
+    from gaussiananything_tpu_torch.tools import kernel_stages as ks
+    gmax, *row = ks.make_inputs(1, card)
+    args = ks.to_field_major(*row) if field_major else row
+    before = rasterize_cuda.stage.launches[(stage, field_major)]
+    got = rasterize_cuda.stage(stage, gmax, *args, ks.G, ks.CHUNK,
+                               field_major=field_major)
+    torch.cuda.synchronize()
+    assert rasterize_cuda.stage.launches[(stage, field_major)] == before + 1
+    torch.testing.assert_close(
+        got, rz.stage_plain(stage, gmax, *args, ks.G, ks.CHUNK,
+                            field_major=field_major), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_v1_fused_gradient_matches_plain_route(card):
+    """`rasterize_tiled_v1_fused`: K3 forward, the K2a/K2b route recomputed
+    in the backward, against the plain pair's gradient."""
+    from gaussiananything_tpu_torch.data.synthetic import make_object
+    from gaussiananything_tpu_torch.render import cameras
+    g0 = make_object(0, n=1024, kind="sphere", device=card)
+    cam = cameras.pose_to_gs_camera(
+        cameras.generate_input_camera(1.8, [(20, 45)])[0], device=card)
+    args = (cam["cam_view"], cam["cam_view_proj"],
+            torch.ones(3, device=card), 64, 64)
+    grads = {}
+    for name, fn in (("fused", rz.rasterize_tiled_v1_fused),
+                     ("plain", lambda *a, **k: rz.rasterize_tiled(
+                         *a, impl="plain", **k))):
+        gg = g0.clone().requires_grad_(True)
+        out = fn(gg, *args, max_per_tile=256, chunk=64)
+        gen = torch.Generator().manual_seed(2)
+        sum((out[k] * torch.randn(out[k].shape, generator=gen).to(card)
+             ).sum() for k in sorted(out)).backward()
+        grads[name] = gg.grad
+    scale = float(grads["plain"].abs().max())
+    torch.testing.assert_close(grads["fused"], grads["plain"], rtol=2e-3,
+                               atol=2e-4 * scale)

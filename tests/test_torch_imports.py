@@ -11,7 +11,10 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "gaussiananything_tpu"}
+# `tools` and `bench` are the JAX package's top-level tools; the port's own
+# live inside its package
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "gaussiananything_tpu",
+             "tools", "bench"}
 
 
 def _port_files():
@@ -47,7 +50,8 @@ def test_port_files_found():
                  "models/sd_encoder.py", "models/encoder.py",
                  "data/postprocess.py", "train/losses.py", "train/state.py",
                  "train/vae_trainer.py", "train/logging.py",
-                 "cli/train_vae.py"):
+                 "cli/train_vae.py", "tools/rasterizer_timing.py",
+                 "tools/bench.py", "tools/kernel_stages.py"):
         assert pkg + name in rel, name
 
 
@@ -93,8 +97,8 @@ def test_training_kernels_raise_on_cuda_tensors_without_a_build(monkeypatch,
     behind. (A `meta` tensor stands in for a device that is not the CPU.)"""
     from gaussiananything_tpu_torch.ops import rasterize as rz
     from gaussiananything_tpu_torch.ops import rasterize_cuda
-    assert set(rasterize_cuda.SOURCES) == {"fwd", "bwd"}
-    for path in rasterize_cuda.SOURCES.values():
+    assert set(rasterize_cuda.SOURCES) == {"fwd", "bwd", "seg", "v1"}
+    for path in (*rasterize_cuda.SOURCES.values(), *rasterize_cuda.HEADERS):
         assert os.path.exists(path)
     tab = torch.zeros((4, rz.TABLE_W), device="meta")
     idx = torch.zeros(4, dtype=torch.int32, device="meta")
@@ -103,15 +107,40 @@ def test_training_kernels_raise_on_cuda_tensors_without_a_build(monkeypatch,
                rasterize_cuda.composite_train):
         with pytest.raises((ValueError, RuntimeError)):
             fn(tab, idx, idx, idx, bg, 32, 32)
+    with pytest.raises((ValueError, RuntimeError)):
+        rasterize_cuda.composite_segments(tab, idx, idx, bg, 32, 32)
+    geom = torch.zeros((4, 64, rz.GEOM_W), device="meta")
+    feat = torch.zeros((4, 64, rz.FEAT_W), device="meta")
+    pix = torch.zeros((4, 256), device="meta")
+    for call in (
+            lambda: rasterize_cuda.composite_lists(geom, feat, idx, 2, 16,
+                                                   64),
+            lambda: rasterize_cuda.composite_lists_unrolled(geom, feat, idx,
+                                                            2, 16, 64, 2),
+            lambda: rasterize_cuda.composite_lists_grouped(
+                idx[:2], geom, feat, pix, pix, pix[:, :1], 2, 64),
+            lambda: rasterize_cuda.stage(0, idx[:2], geom, feat, pix, pix, 2,
+                                         64)):
+        with pytest.raises((ValueError, RuntimeError)):
+            call()
     build_dir = tmp_path / "build"
     monkeypatch.setattr(rasterize_cuda, "_nvcc",
                         lambda: str(tmp_path / "no-nvcc-here"))
     monkeypatch.setattr(rasterize_cuda, "BUILD_DIR", str(build_dir))
     monkeypatch.setattr(rasterize_cuda, "_libs", {})
     with pytest.raises(FileNotFoundError):
-        rasterize_cuda._library("bwd")
+        rasterize_cuda._library("v1")
     assert not rasterize_cuda._libs
     assert list(build_dir.iterdir()) == []
+
+
+def test_tools_default_to_cuda_and_refuse_without_it(monkeypatch):
+    from gaussiananything_tpu_torch.tools import (bench, kernel_stages,
+                                                  rasterizer_timing)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for tool in (bench, kernel_stages, rasterizer_timing):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tool.main([])
 
 
 def test_cli_runs_only_the_ported_path():
