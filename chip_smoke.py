@@ -217,7 +217,7 @@ def _k1_inputs(dev, seed, n, kind, opacity, radius, pose, res, mpt):
     sp = rz.preprocess_splats(g, cam["cam_view"], cam["cam_view_proj"],
                               res, res)
     pairs, starts, counts = rz.build_tile_pairs(sp, res, res, 16, mpt)
-    tab = rz.splat_table(rz.pack_splat_render(sp)).contiguous()
+    tab = rz.splat_table(sp, res, res).contiguous()
     return tab, pairs, starts, counts, torch.ones(3, device=dev), res, res
 
 
@@ -326,6 +326,11 @@ K2_CASES = {
     "dist scene": (0, 73728, "sphere", 0.2, 0.6, (20, 45), 512, 1024, 32),
     "small": (0, 1024, "sphere", None, 1.8, (20, 45), 64, 256, 64),
 }
+# the cases the training pair is timed at: the trainer's four LoDs and the
+# timing tool's frame, with their launches (per training step at
+# TRAIN_BATCH: 4 views of each LoD per batch element; in the tools phase)
+K2_TIMED = {"train 128": "step", "train 256": "step", "train 384": "step",
+            "train 512": "step", "tools 512": "tools"}
 GRAD_REL = 2e-3            # of max|g| per surfel channel
 DIST_WEIGHT = 100.0        # the trainer's weight on the dist map
 DIST_GRAD_SHARE = 1e-3
@@ -337,26 +342,50 @@ def _executed_steps(counts, n_exec, chunk):
     return int(torch.minimum(counts, n_exec * chunk).sum())
 
 
+def _k2_launches(name):
+    """(launches of a K2_TIMED case, where): per training step or in the
+    tools phase."""
+    return ((TRAIN_BATCH * 4, "a step") if K2_TIMED[name] == "step"
+            else (TOOLS_ITERS + 1, "in the tools"))
+
+
+def _print_k2_times(kernel, times):
+    """Each K2_TIMED case's median beside its launches and their product."""
+    parts = []
+    for name, ms in times.items():
+        n, where = _k2_launches(name)
+        parts.append(f"{name} {ms:.4f} ms x {n} {where} = {ms * n:.4f} ms")
+    print(f"[{kernel}] times: " + "; ".join(parts), flush=True)
+
+
 def k2a_phase(dev):
     """K2a against `composite_plain(return_entries=True)` on the card in
     every K2_CASES case: the buffer to the golden criteria (and equal to
-    K1's bit for bit), the entry states to atol 2e-5 / rtol 1e-4, the
-    executed chunk counts exactly. Timed at "train 512"."""
+    K1's bit for bit), the entry states (the first `chunk_off[-1]` rows of
+    the buffer the wrapper sizes from shapes) to atol 2e-5 / rtol 1e-4,
+    the executed chunk counts exactly. Timed at every K2_TIMED case; the
+    record is "train 512"."""
     import torch
     from gaussiananything_tpu_torch.ops import rasterize as rz
     from gaussiananything_tpu_torch.ops import rasterize_cuda
 
-    max_err = 0.0
+    max_err, times = 0.0, {}
     for name, (*scene, chunk) in K2_CASES.items():
         args = _k1_inputs(dev, *scene)
-        buf, off, entries, n_exec = rasterize_cuda.composite_entries(
+        buf, off, entries, n_exec, marks = rasterize_cuda.composite_entries(
             *args, chunk=chunk)
         k1 = rasterize_cuda.composite(*args, chunk=chunk)
-        rbuf, rentries, rn_exec = rz.composite_plain(
+        rbuf, rentries, rn_exec, rmarks = rz.composite_plain(
             *args, chunk=chunk, return_entries=True)
         torch.cuda.synchronize()
         ok, errs = _golden_errors(rz.split_outputs(buf),
                                   rz.split_outputs(rbuf), GOLDEN_TOL)
+        if entries.shape[0] < rentries.shape[0]:
+            fail(f"K2a's entries buffer has {entries.shape[0]} rows, the "
+                 f"frame needs {rentries.shape[0]} ({name})")
+        entries = entries[:rentries.shape[0]]
+        if not torch.equal(marks[:rmarks.shape[0]], rmarks):
+            fail(f"K2a marked other slots than its plain version ({name})")
         e_err = float((entries - rentries).abs().max())
         e_ok = bool(((entries - rentries).abs()
                      <= 2e-5 + 1e-4 * rentries.abs()).all())
@@ -374,11 +403,14 @@ def k2a_phase(dev):
         max_err = max(max_err, e_err, *(r["max_abs"] for r in errs.values()))
         if name == "train 512":
             timed, t_exec, t_rows = args, n_exec, int(off[-1])
+        if name in K2_TIMED:
+            times[name] = time_cuda(lambda: rasterize_cuda.composite_entries(
+                *args, chunk=chunk), reps=50)
+    _print_k2_times("K2a", times)
 
     tab, _, _, counts, _, res, _ = timed
     chunk, tile = K2_CASES["train 512"][-1], 16
-    ms = time_cuda(lambda: rasterize_cuda.composite_entries(
-        *timed, chunk=chunk), reps=50)
+    ms = times["train 512"]
     plain_ms = time_cuda(lambda: rz.composite_plain(
         *timed, chunk=chunk, return_entries=True), reps=5, warmup=1)
     steps = _executed_steps(counts, t_exec, chunk)
@@ -459,13 +491,13 @@ def _float64_witness(dev, scene, chunk):
     ct = torch.zeros((rz.N_OUT, res, res), device=dev)
     ct[6] = torch.randn((res, res),
                         generator=torch.Generator().manual_seed(6)).to(dev)
-    _, off, entries, n_exec = rasterize_cuda.composite_entries(
+    _, off, entries, n_exec, marks = rasterize_cuda.composite_entries(
         *args, chunk=chunk)
     order, seg = rasterize_cuda.splat_order(pairs, starts, counts,
                                             tab.shape[0])
     kernel = rasterize_cuda.composite_backward(
-        tab, pairs, starts, counts, bg, ct, off, entries, n_exec, order, seg,
-        res, res, chunk=chunk)
+        tab, pairs, starts, counts, bg, ct, off, entries, n_exec, marks,
+        order, seg, res, res, chunk=chunk)
     plain = rz.composite_plain_backward(tab, pairs, starts, counts, bg, ct,
                                         res, res, chunk=chunk)
     exact = rz.composite_plain_backward(tab.double(), pairs, starts, counts,
@@ -488,13 +520,30 @@ def k2b_phase(dev):
     phase prints. (On the other scenes dist is a difference of sums that
     cancel to its fp32 floor, and its true gradient is under the rounding
     of either version.) Every kernel gradient is taken twice and must be
-    bit-equal. Timed at "train 512"."""
+    bit-equal. Timed at every K2_TIMED case; the record is "train 512"."""
     import torch
     from gaussiananything_tpu_torch.ops import rasterize as rz
     from gaussiananything_tpu_torch.ops import rasterize_cuda
 
-    max_err = 0.0
+    def backward_frame(scene, chunk):
+        """The wrapper's inputs for a seeded N(0, 1) cotangent."""
+        tab, pairs, starts, counts, bg, res, _ = args = _k1_inputs(dev,
+                                                                   *scene)
+        ct = torch.randn((rz.N_OUT, res, res),
+                         generator=torch.Generator().manual_seed(6)).to(dev)
+        _, off, entries, n_exec, marks = rasterize_cuda.composite_entries(
+            *args, chunk=chunk)
+        order, seg = rasterize_cuda.splat_order(pairs, starts, counts,
+                                                tab.shape[0])
+        return (tab, pairs, starts, counts, bg, ct, off, entries, n_exec,
+                marks, order, seg, res, res)
+
+    max_err, times = 0.0, {}
     for name, (*scene, chunk) in K2_CASES.items():
+        if name in K2_TIMED:
+            frame = backward_frame(scene, chunk)
+            times[name] = time_cuda(lambda: rasterize_cuda.composite_backward(
+                *frame, chunk=chunk), reps=30)
         got = _surfel_gradient(dev, scene, chunk, "cuda", DIST_WEIGHT)
         again = _surfel_gradient(dev, scene, chunk, "cuda", DIST_WEIGHT)
         ref = _surfel_gradient(dev, scene, chunk, "plain", DIST_WEIGHT)
@@ -543,18 +592,12 @@ def k2b_phase(dev):
                   f"{json.dumps(_float64_witness(dev, scene, chunk))}",
                   flush=True)
         max_err = max(max_err, float(err.max()))
+    _print_k2_times("K2b", times)
 
     *scene, chunk = K2_CASES["train 512"]
-    tab, pairs, starts, counts, bg, res, _ = args = _k1_inputs(dev, *scene)
-    ct = torch.randn((rz.N_OUT, res, res),
-                     generator=torch.Generator().manual_seed(6)).to(dev)
-    _, off, entries, n_exec = rasterize_cuda.composite_entries(
-        *args, chunk=chunk)
-    order, seg = rasterize_cuda.splat_order(pairs, starts, counts,
-                                            tab.shape[0])
-    ms = time_cuda(lambda: rasterize_cuda.composite_backward(
-        tab, pairs, starts, counts, bg, ct, off, entries, n_exec, order,
-        seg, res, res, chunk=chunk), reps=30)
+    (tab, pairs, starts, counts, bg, ct, off, entries, n_exec, marks, order,
+     seg, res, _) = backward_frame(scene, chunk)
+    ms = times["train 512"]
     plain_ms = time_cuda(lambda: rz.composite_plain_backward(
         tab, pairs, starts, counts, bg, ct, res, res, chunk=chunk),
         reps=3, warmup=1)

@@ -9,12 +9,17 @@
 // per-pair math of `composite_chunk_grouped`, rasterize.py:360) but is not
 // carried over block by block:
 //
-//   * one thread block per 16x16-pixel tile, one thread per pixel;
+//   * one thread block per 16x16-pixel tile, one thread per pixel, each warp
+//     an 8 x 4 pixel rectangle;
 //   * the block walks its tile's depth-ordered pair segment (starts/counts
 //     of `build_tile_pairs`) in chunks: the threads copy each chunk's splat
-//     rows (22 packed fields, padded to 96 bytes = six float4) from the
-//     splat-major table into shared memory, then every thread composites
-//     its pixel over the chunk serially;
+//     rows (22 packed fields and the splat's pixel box, 96 bytes = six
+//     float4) from the splat-major table into shared memory (sized to the
+//     chunk), then every thread composites its pixel over the chunk
+//     serially, its warp skipping the rows whose box it misses (the exact
+//     warp cull of composite_v4.cuh: 35-45% of the (warp, pair) steps of the
+//     trainer's frames need no keep test) and taking the others two at a
+//     time, their geometry side by side;
 //   * the block leaves once no pixel has T > T_EPS (`__syncthreads_or`),
 //     the per-tile saturation exit of the TPU kernel.
 //
@@ -51,12 +56,18 @@
 // outputs are K1's bit for bit; in addition, before each chunk it executes,
 // every pixel stores its entry state (T, Σw, D = Σw·m, D2 = Σw·m²,
 // :1297-1300) at row `chunk_off[tile] + chunk index` of the entries buffer
-// ((rows, 4, 256) floats, coalesced over the pixels), and the tile records
-// how many chunks it executed before its saturation exit. The backward
-// kernel (rasterize_v4_bwd.cu) reads only those rows, so it walks exactly
-// the chunks the forward ran. The extra cost is 4 KB written per executed
-// (tile, chunk): still bound by operations. K1's instantiation compiles
-// the stores away.
+// ((rows, 4, 256) floats, coalesced over the pixels), after each chunk
+// every warp stores its marks (four 32-bit words: bit k set where some
+// lane of the warp blends slot k, `__any_sync` in the walk), and the tile
+// records how many chunks it executed before its saturation exit. The
+// backward kernel (rasterize_v4_bwd.cu) reads only those rows, so it walks
+// exactly the chunks the forward ran, and only their marked slots: the
+// walk's keep test runs once per executed step, here. The extra cost is 4 KB written per executed
+// (tile, chunk), sector-coalesced (a warp's 8 x 4 pixels are four 32-byte
+// runs): still bound by operations. K1's instantiation compiles the stores
+// away. K2a's blocks take the tiles heaviest first (`tile_order`, sorted by
+// count): the heaviest tile of a training frame runs twice the busy tiles'
+// mean, and started last in raster order it set the kernel's end.
 
 #include <cuda_runtime.h>
 
@@ -66,6 +77,9 @@ namespace {
 
 using namespace ga_v4;
 
+constexpr int kTrainChunk = 128;                // K2a's largest chunk
+constexpr int kMarkWords = kTrainChunk / 32;    // per warp and chunk
+
 template <bool kEntries>
 __global__ void __launch_bounds__(kPix)
 composite_v4_kernel(const float4* __restrict__ tab,
@@ -74,14 +88,20 @@ composite_v4_kernel(const float4* __restrict__ tab,
                     const int* __restrict__ counts,
                     const float* __restrict__ bg, int tiles_x, int img_h,
                     int img_w, int chunk, float* __restrict__ out,
+                    const int* __restrict__ tile_order,
                     const int* __restrict__ chunk_off,
-                    float* __restrict__ entries, int* __restrict__ n_exec) {
-  __shared__ float4 rows[kMaxChunk * kRowF4];
+                    float* __restrict__ entries, int* __restrict__ n_exec,
+                    unsigned* __restrict__ marks) {
+  extern __shared__ float4 rows[];      // chunk * kRowF4
 
-  const int t = blockIdx.x;
+  const int t = kEntries ? tile_order[blockIdx.x] : blockIdx.x;
   const int lid = threadIdx.x;
-  const int x = (t % tiles_x) * kTile + lid % kTile;
-  const int y = (t / tiles_x) * kTile + lid / kTile;
+  const int tx0 = (t % tiles_x) * kTile;
+  const int ty0 = (t / tiles_x) * kTile;
+  const PixelSlot slot = pixel_slot(lid, tx0, ty0);
+  const int x = tx0 + slot.lx;
+  const int y = ty0 + slot.ly;
+  const int pix = slot.ly * kTile + slot.lx;
   const float px = (float)x;
   const float py = (float)y;
   const int start = starts[t];
@@ -93,8 +113,9 @@ composite_v4_kernel(const float4* __restrict__ tab,
   for (int c0 = 0; c0 < count; c0 += chunk) {
     // barrier for the previous chunk's readers and the saturation exit
     if (!__syncthreads_or(s.T > kTEps)) break;
+    const size_t row = kEntries ? (size_t)(chunk_off[t] + executed) : 0;
     if constexpr (kEntries) {
-      float* e = entries + (size_t)(chunk_off[t] + executed) * (4 * kPix) + lid;
+      float* e = entries + row * (4 * kPix) + pix;
       e[0 * kPix] = s.T;
       e[1 * kPix] = s.A;
       e[2 * kPix] = s.D;
@@ -109,11 +130,32 @@ composite_v4_kernel(const float4* __restrict__ tab,
     }
     __syncthreads();
 
-    composite_rows(rows, n, px, py, s);
+    if constexpr (kEntries) {
+      // the warp's words; those past the chunk's rows stay zero
+      unsigned* m = marks + (row * (kPix / 32) + (lid >> 5)) * kMarkWords;
+      if ((lid & 31) < kMarkWords) m[lid & 31] = 0u;
+      __syncwarp();
+      composite_rows<true>(rows, n, px, py, slot, s, m);
+    } else {
+      composite_rows(rows, n, px, py, slot, s);
+    }
   }
 
   if constexpr (kEntries) {
     if (lid == 0) n_exec[t] = executed;
+    // the chunks past the saturation exit keep a zero entry state and
+    // mark no slot
+    const int n_chunks = (count + chunk - 1) / chunk;
+    for (int c = executed; c < n_chunks; ++c) {
+      const size_t row = (size_t)(chunk_off[t] + c);
+      float* e = entries + row * (4 * kPix) + pix;
+      e[0 * kPix] = 0.0f;
+      e[1 * kPix] = 0.0f;
+      e[2 * kPix] = 0.0f;
+      e[3 * kPix] = 0.0f;
+      if (lid < (kPix / 32) * kMarkWords)
+        marks[row * (kPix / 32) * kMarkWords + lid] = 0u;
+    }
   }
 
   const size_t plane = (size_t)img_h * img_w;
@@ -129,29 +171,54 @@ extern "C" int ga_composite_v4(const void* tab, const void* pairs,
                                const void* bg, int tiles_x, int tiles_y,
                                int chunk, void* out, void* stream) {
   if (chunk < 1 || chunk > kMaxChunk) return (int)cudaErrorInvalidValue;
-  dim3 grid(tiles_x * tiles_y);
-  composite_v4_kernel<false><<<grid, kPix, 0, (cudaStream_t)stream>>>(
+  const size_t shmem = (size_t)chunk * kRowF4 * sizeof(float4);
+  composite_v4_kernel<false><<<tiles_x * tiles_y, kPix, shmem,
+                               (cudaStream_t)stream>>>(
       (const float4*)tab, (const int*)pairs, (const int*)starts,
       (const int*)counts, (const float*)bg, tiles_x, tiles_y * kTile,
-      tiles_x * kTile, chunk, (float*)out, nullptr, nullptr, nullptr);
+      tiles_x * kTile, chunk, (float*)out, nullptr, nullptr, nullptr,
+      nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 
-// K2a: as above, plus the entry states (`entries`, rows indexed by the
-// exclusive cumsum `chunk_off` of ceil(counts / chunk)) and the executed
-// chunk count of every tile (`n_exec`).
+// The tile order and chunk offsets K2a launches with (tile_order_kernel):
+// `order` (n_tiles) int32, `chunk_off` (n_tiles + 1) int32 or null, work by
+// `n_exec` (n_tiles) int32 when it is not null. Returns the CUDA error.
+extern "C" int ga_tile_order(const void* counts, const void* n_exec,
+                             int chunk, int n_tiles, void* order,
+                             void* chunk_off, void* stream) {
+  if (chunk < 1 || n_tiles < 1) return (int)cudaErrorInvalidValue;
+  return (int)launch_tile_order((const int*)counts, (const int*)n_exec,
+                                chunk, n_tiles, (int*)order, (int*)chunk_off,
+                                (cudaStream_t)stream);
+}
+
+// K2a: as above, plus the entry states (`entries`, rows indexed by
+// `chunk_off`, the exclusive cumsum of ceil(counts / chunk), which it
+// writes), the executed chunk count of every tile (`n_exec`) and each
+// executed chunk's marks (`marks`, (rows, 8 warps, 4 words) uint32: bit
+// k % 32 of word k / 32 set where some lane of the warp blends slot k);
+// block i runs tile `tile_order[i]`, the tiles by descending count, which
+// it also writes (tile_order_kernel, launched first). chunk <= 128.
 extern "C" int ga_composite_v4_train(const void* tab, const void* pairs,
                                      const void* starts, const void* counts,
                                      const void* bg, int tiles_x, int tiles_y,
-                                     int chunk, void* out,
-                                     const void* chunk_off, void* entries,
-                                     void* n_exec, void* stream) {
-  if (chunk < 1 || chunk > kMaxChunk) return (int)cudaErrorInvalidValue;
-  dim3 grid(tiles_x * tiles_y);
-  composite_v4_kernel<true><<<grid, kPix, 0, (cudaStream_t)stream>>>(
+                                     int chunk, void* out, void* tile_order,
+                                     void* chunk_off, void* entries,
+                                     void* n_exec, void* marks,
+                                     void* stream) {
+  if (chunk < 1 || chunk > kTrainChunk) return (int)cudaErrorInvalidValue;
+  cudaError_t err = launch_tile_order(
+      (const int*)counts, nullptr, chunk, tiles_x * tiles_y,
+      (int*)tile_order, (int*)chunk_off, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  const size_t shmem = (size_t)chunk * kRowF4 * sizeof(float4);
+  composite_v4_kernel<true><<<tiles_x * tiles_y, kPix, shmem,
+                              (cudaStream_t)stream>>>(
       (const float4*)tab, (const int*)pairs, (const int*)starts,
       (const int*)counts, (const float*)bg, tiles_x, tiles_y * kTile,
-      tiles_x * kTile, chunk, (float*)out, (const int*)chunk_off,
-      (float*)entries, (int*)n_exec);
+      tiles_x * kTile, chunk, (float*)out, (const int*)tile_order,
+      (const int*)chunk_off, (float*)entries, (int*)n_exec,
+      (unsigned*)marks);
   return (int)cudaGetLastError();
 }

@@ -79,8 +79,12 @@ composite_v4_seg_kernel(const float4* __restrict__ seg,
 
   const int t = blockIdx.x;
   const int lid = threadIdx.x;
-  const int x = (t % tiles_x) * kTile + lid % kTile;
-  const int y = (t / tiles_x) * kTile + lid / kTile;
+  const int tx0 = (t % tiles_x) * kTile;
+  const int ty0 = (t / tiles_x) * kTile;
+  // the splat boxes are in the image's rows: the band starts at row0
+  const PixelSlot slot = pixel_slot(lid, tx0, ty0 + row0);
+  const int x = tx0 + slot.lx;
+  const int y = ty0 + slot.ly;
   const float px = (float)x;
   const float py = (float)(y + row0);
   const int count = counts[t];
@@ -115,7 +119,8 @@ composite_v4_seg_kernel(const float4* __restrict__ seg,
     __syncthreads();          // every thread's copies of this chunk landed
 
     // lanes at or past the tile's count were not copied and are not walked
-    composite_rows(rows + buf * slice_f4, min(chunk, count - c0), px, py, s);
+    composite_rows(rows + buf * slice_f4, min(chunk, count - c0), px, py,
+                   slot, s);
   }
   cp_async_wait<0>();         // a copy in flight at the saturation exit
 

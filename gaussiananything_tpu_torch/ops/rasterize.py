@@ -7,7 +7,8 @@ to back in depth order (Huang et al. 2024, `nsr/gs_surfel.py:85-142`).
 
 The forward frame pipeline of one view:
 
-  preprocess_splats → build_tile_pairs → pack_splat_render/splat_table →
+  preprocess_splats → build_tile_pairs → splat_table (pack_splat_render,
+  pixel_box) →
   composite (plain versions here; the CUDA kernels K1, K2a and K2b in
   `rasterize_cuda.py`)
 
@@ -58,6 +59,10 @@ OUT_CHANNELS = (("image", 0, 3), ("alpha", 3, 4), ("depth_expected", 4, 5),
                 ("normal_view", 7, 10))
 N_OUT = 10
 _TILE_GROUP = 128   # tiles the plain compositor evaluates at once
+# the kernels' warps: each an 8 x 4 pixel rectangle of its 16 x 16 tile
+# (`csrc/composite_v4.cuh`), which their marks and warp cull are per
+WARP_W, WARP_H = 8, 4
+MARK_WORDS = 4      # 32-slot mark words per warp and chunk (chunk <= 128)
 
 
 def _rho_window(rho: torch.Tensor) -> torch.Tensor:
@@ -193,12 +198,39 @@ def pack_splat_render(sp: SplatProj) -> torch.Tensor:
     ], dim=0)
 
 
-def splat_table(packed: torch.Tensor) -> torch.Tensor:
-    """(PACKED_F, N) → splat-major (N, TABLE_W) table, each row padded to
-    96 bytes so the kernel reads a splat as six aligned float4 loads."""
+def splat_table(sp: SplatProj, img_h: int, img_w: int) -> torch.Tensor:
+    """SplatProj → splat-major (N, TABLE_W) table: the PACKED_F fields of
+    `pack_splat_render` (differentiable), padded to 96 bytes so a kernel
+    reads a splat as six aligned float4 loads, with the splat's pixel box
+    (`pixel_box`, no gradient) in the two padding columns: the kernels' warp
+    cull (`csrc/composite_v4.cuh`)."""
+    packed = pack_splat_render(sp)
     tab = packed.new_zeros((packed.shape[1], TABLE_W))
     tab[:, :PACKED_F] = packed.t()
+    tab[:, PACKED_F:] = pixel_box(sp.bb_min, sp.bb_max, img_h, img_w)
     return tab
+
+
+def pixel_box(bb_min: torch.Tensor, bb_max: torch.Tensor, img_h: int,
+              img_w: int) -> torch.Tensor:
+    """(N, 2) float32 columns whose bits hold each splat's pixel box:
+    x0 | x1 << 16 and y0 | y1 << 16 (int32), where [x0, x1] × [y0, y1] =
+    [floor(bb_min), ceil(bb_max)] clamped to the image's pixels. Pixel
+    centres lie on integers, so every pixel of the screen box
+    (`preprocess_splats`) is inside. An invalid splat's bound may be
+    infinite or NaN (its opacity in the table is 0, so no walk keeps it):
+    ±inf clamps to the edges, NaN to 0."""
+    with torch.no_grad():
+        def _int(v, n, rnd):
+            v = torch.nan_to_num(rnd(v.float()), nan=0.0, posinf=n,
+                                 neginf=-1.0)
+            return torch.clamp(v, 0, n - 1).int()
+        x0 = _int(bb_min[:, 0], img_w, torch.floor)
+        x1 = _int(bb_max[:, 0], img_w, torch.ceil)
+        y0 = _int(bb_min[:, 1], img_h, torch.floor)
+        y1 = _int(bb_max[:, 1], img_h, torch.ceil)
+        bits = torch.stack([x0 | (x1 << 16), y0 | (y1 << 16)], dim=-1)
+        return bits.contiguous().view(torch.float32)
 
 
 def build_tile_pairs(sp: SplatProj, img_h: int, img_w: int, tile: int,
@@ -595,6 +627,14 @@ def chunk_offsets(counts: torch.Tensor, chunk: int) -> torch.Tensor:
     return torch.cat([n.new_zeros(1), torch.cumsum(n, 0)]).int()
 
 
+def max_entry_rows(n_pairs: int, n_tiles: int, chunk: int) -> int:
+    """A bound on `chunk_offsets(counts, chunk)[-1]` from shapes alone:
+    Σ ceil(c_t / chunk) <= Σ c_t / chunk + n_tiles, and the counts sum to
+    at most the pair list's length `n_pairs`. K2a sizes its entries buffer
+    with it, so the host never waits for the counts."""
+    return n_pairs // chunk + n_tiles
+
+
 class _TileWalk:
     """What the plain forward and backward share for a frame: the zero-row
     padded table, pixel coordinates, and the tiles in groups of
@@ -663,11 +703,14 @@ def composite_plain(tab: torch.Tensor, pairs: torch.Tensor,
     `build_tile_pairs`; row0: the image row of the buffer's first row, for
     a band of a taller image.
 
-    return_entries: also return what K2a adds to K1, `(entries, n_exec)`:
-    entries (`chunk_offsets(counts, chunk)[-1]`, 4, tile²) holds, for every
-    chunk a tile executes, each pixel's state on entry (T, Σw, Σw·m,
-    Σw·m²), zero elsewhere; n_exec (n_tiles,) int32 counts the chunks each
-    tile executes before all its pixels are at T <= T_EPS.
+    return_entries: also return what K2a adds to K1, `(entries, n_exec,
+    marks)`: entries (`chunk_offsets(counts, chunk)[-1]`, 4, tile²) holds,
+    for every chunk a tile executes, each pixel's state on entry (T, Σw,
+    Σw·m, Σw·m²), zero elsewhere; n_exec (n_tiles,) int32 counts the chunks
+    each tile executes before all its pixels are at T <= T_EPS; marks
+    (rows, tile² / 32, MARK_WORDS) int32 holds, for every executed chunk
+    and warp (`warp_marks`), bit k % 32 of word k / 32 set where some pixel
+    of the warp blends slot k with a weight above zero, zero elsewhere.
     """
     dev = tab.device
     walk = _TileWalk(tab, pairs, starts, counts, img_h, img_w, tile, chunk,
@@ -680,6 +723,9 @@ def composite_plain(tab: torch.Tensor, pairs: torch.Tensor,
         entries = torch.zeros((int(offs[-1]), 4, P), dtype=tab.dtype,
                               device=dev)
         n_exec = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+        marks = torch.zeros((int(offs[-1]), P // 32,
+                             max(MARK_WORDS, -(-chunk // 32))),
+                            dtype=torch.int32, device=dev)
     for tiles, px, py, n_chunks in walk.groups():
         state = walk.init_state(len(tiles))
         for c in range(n_chunks):
@@ -692,6 +738,12 @@ def composite_plain(tab: torch.Tensor, pairs: torch.Tensor,
                     [state.trans, state.alpha_acc, state.dist_d,
                      state.dist_d2], dim=1)[ran]
                 n_exec[tiles] += ran.int()
+                state, w = composite_chunk(
+                    state, px, py, walk.chunk_data(walk.chunk_ids(tiles, c)),
+                    return_weights=True)
+                marks[offs[tiles][ran] + c] = warp_marks(
+                    w[ran], tile, marks.shape[2])
+                continue
             state = composite_chunk(
                 state, px, py, walk.chunk_data(walk.chunk_ids(tiles, c)))
         rgb = state.rgb + state.trans[..., None] * bg
@@ -700,7 +752,25 @@ def composite_plain(tab: torch.Tensor, pairs: torch.Tensor,
             state.depth_med[..., None], state.dist[..., None],
             state.normal], dim=-1)
     buf = detile(out, img_h, img_w, tile)
-    return (buf, entries, n_exec) if return_entries else buf
+    return (buf, entries, n_exec, marks) if return_entries else buf
+
+
+def warp_marks(w: torch.Tensor, tile: int, words: int) -> torch.Tensor:
+    """(G, tile², K) blend weights of G tiles' pixels over a chunk's K
+    slots → (G, tile² / 32, words) int32: per warp (the kernels' 8 x 4
+    pixel rectangles, `WARP_W` x `WARP_H`, numbered row-major over the
+    tile), bit k % 32 of word k / 32 set where some pixel of the warp has
+    w > 0 at slot k."""
+    G, P, K = w.shape
+    lidx = torch.arange(P, device=w.device)
+    warp = (lidx // tile // WARP_H) * (tile // WARP_W) \
+        + lidx % tile // WARP_W
+    hit = torch.stack([(w[:, warp == i] > 0).any(1)
+                       for i in range(P // 32)], 1)            # (G, W, K)
+    hit = torch.nn.functional.pad(hit, (0, 32 * words - K))
+    bits = (hit.reshape(G, P // 32, words, 32).long()
+            << torch.arange(32, device=w.device)).sum(-1)
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).int()
 
 
 def active_steps(tab: torch.Tensor, pairs: torch.Tensor,
@@ -883,7 +953,7 @@ def rasterize_tiled(gaussians: torch.Tensor, cam_view: torch.Tensor,
     with torch.no_grad():
         pairs, starts, counts = build_tile_pairs(sp, img_h, img_w, tile,
                                                  max_per_tile)
-    tab = splat_table(pack_splat_render(sp))
+    tab = splat_table(sp, img_h, img_w)
     if impl == "plain":
         buf = composite_plain_train(tab, pairs, starts, counts, bg, img_h,
                                     img_w, tile=tile, chunk=chunk)
@@ -1388,7 +1458,7 @@ def rasterize_tiled_v4_dma(gaussians: torch.Tensor, cam_view: torch.Tensor,
     pairs, starts, counts = build_tile_pairs(
         sp, img_h, img_w, tile, max_per_tile, row0=row0,
         big_capacity=big_capacity)
-    seg = segment_table(splat_table(pack_splat_render(sp)), pairs)
+    seg = segment_table(splat_table(sp, full_h or img_h, img_w), pairs)
     buf = rasterize_cuda.composite_segments(
         seg, starts, counts, bg, img_h, img_w, tile=tile, chunk=chunk,
         row0=row0)

@@ -7,10 +7,10 @@
   * K2a and K2b (`composite_train`, a `torch.autograd.Function`): the
     training pair, replacing `_v4_fwd_entries_kernel` (`:1280`) and
     `_v4_bwd_kernel` (`:1306`), driven there by `rasterize_tiled_v4_train`
-    (`:1559`). K2a is K1 plus each executed chunk's entry state (same
-    source, another instantiation); K2b (`csrc/rasterize_v4_bwd.cu`) walks
-    the executed chunks in reverse and returns the cotangent of the splat
-    table.
+    (`:1559`). K2a is K1 plus each executed chunk's entry state and the
+    slots each warp blends (same source, another instantiation); K2b
+    (`csrc/rasterize_v4_bwd.cu`) walks the executed chunks in reverse over
+    those slots and returns the cotangent of the splat table.
   * K6 (`composite_segments`), forward only: replaces
     `_make_v4_kernel(dma=True)` (`dma_kernel`, `:966`, driven by
     `rasterize_tiled_v4_dma`, `:1147`): K1's arithmetic on slices of one
@@ -137,11 +137,13 @@ def _library(name: str) -> ctypes.CDLL:
             fwd.ga_composite_v4.argtypes = [ptr] * 5 + [i] * 3 + [ptr] * 2
             fwd.ga_composite_v4.restype = i
             fwd.ga_composite_v4_train.argtypes = \
-                [ptr] * 5 + [i] * 3 + [ptr] * 5
+                [ptr] * 5 + [i] * 3 + [ptr] * 7
             fwd.ga_composite_v4_train.restype = i
+            fwd.ga_tile_order.argtypes = [ptr] * 2 + [i] * 2 + [ptr] * 3
+            fwd.ga_tile_order.restype = i
             bwd = ctypes.CDLL(paths["bwd"])
             bwd.ga_composite_v4_bwd.argtypes = \
-                [ptr] * 9 + [i] * 3 + [ptr] * 3 + [i] + [ptr] * 2
+                [ptr] * 11 + [i] * 3 + [ptr] * 3 + [i] + [ptr] * 2
             bwd.ga_composite_v4_bwd.restype = i
             seg = ctypes.CDLL(paths["seg"])
             seg.ga_composite_v4_seg.argtypes = \
@@ -268,30 +270,38 @@ def composite_entries(tab: torch.Tensor, pairs: torch.Tensor,
                       tile: int = 16, chunk: int = 128):
     """K2a: K1's buffer, plus what the backward needs (CUDA tensors).
     Returns (buf (N_OUT, img_h, img_w), chunk_off (n_tiles + 1,) int32,
-    entries (chunk_off[-1], 4, 256) float32, n_exec (n_tiles,) int32), as
-    `rasterize.chunk_offsets` and its plain version
-    `rasterize.composite_plain(..., return_entries=True)` define them.
-    Launches the kernel and counts one launch.
+    entries (rows, 4, 256) float32, n_exec (n_tiles,) int32, marks
+    (rows, 8, 4) int32), as `rasterize.chunk_offsets` and its plain version
+    `rasterize.composite_plain(..., return_entries=True)` define them:
+    entries' and marks' first `chunk_off[-1]` rows are the plain
+    version's, and `rows` is `rasterize.max_entry_rows`, a bound from the
+    shapes alone, so the host never waits for the card. Launches the
+    kernel (which orders the tiles heaviest first and writes `chunk_off`
+    itself) and counts one launch.
     """
-    chunk_off = rz.chunk_offsets(counts, chunk)
     tiles_x, tiles_y = _check_frame(tab, pairs, starts, counts, bg, img_h,
                                     img_w, tile, chunk, "bwd")
-    dev = tab.device
+    n_tiles, dev = tiles_x * tiles_y, tab.device
+    chunk_off = torch.empty(n_tiles + 1, dtype=torch.int32, device=dev)
+    order = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     out = torch.empty((rz.N_OUT, img_h, img_w), dtype=torch.float32,
                       device=dev)
-    # zero: rows of chunks a saturated tile never reaches stay defined
-    entries = torch.zeros((int(chunk_off[-1]), 4, tile * tile),
-                          dtype=torch.float32, device=dev)
-    n_exec = torch.zeros(tiles_x * tiles_y, dtype=torch.int32, device=dev)
+    # the kernel zeroes the rows of the chunks a saturated tile skips
+    entries = torch.empty((rz.max_entry_rows(pairs.shape[0], n_tiles, chunk),
+                           4, tile * tile), dtype=torch.float32, device=dev)
+    n_exec = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    marks = torch.empty((entries.shape[0], tile * tile // 32, rz.MARK_WORDS),
+                        dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with _logged("K2a"):
         _raise_on(_library("fwd").ga_composite_v4_train(
             tab.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
             counts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, chunk,
-            out.data_ptr(), chunk_off.data_ptr(), entries.data_ptr(),
-            n_exec.data_ptr(), stream), "K2a")
+            out.data_ptr(), order.data_ptr(), chunk_off.data_ptr(),
+            entries.data_ptr(), n_exec.data_ptr(), marks.data_ptr(),
+            stream), "K2a")
     composite_entries.launches += 1
-    return out, chunk_off, entries, n_exec
+    return out, chunk_off, entries, n_exec, marks
 
 
 composite_entries.launches = 0
@@ -323,16 +333,19 @@ def composite_backward(tab: torch.Tensor, pairs: torch.Tensor,
                        starts: torch.Tensor, counts: torch.Tensor,
                        bg: torch.Tensor, ct_buf: torch.Tensor,
                        chunk_off: torch.Tensor, entries: torch.Tensor,
-                       n_exec: torch.Tensor, order: torch.Tensor,
-                       seg: torch.Tensor, img_h: int, img_w: int,
-                       tile: int = 16, chunk: int = 128) -> torch.Tensor:
+                       n_exec: torch.Tensor, marks: torch.Tensor,
+                       order: torch.Tensor, seg: torch.Tensor, img_h: int,
+                       img_w: int, tile: int = 16,
+                       chunk: int = 128) -> torch.Tensor:
     """K2b: the cotangent of `tab` (N, TABLE_W) given the cotangent `ct_buf`
     (N_OUT, img_h, img_w) of the forward's buffer, from what
     `composite_entries` and `splat_order` returned for the same frame
-    (CUDA tensors). Launches the kernel (its two passes) and counts one
-    launch. No float atomics: equal inputs give bit-equal gradients. Its
-    plain version is `rasterize.composite_plain_backward`, which
-    `composite_train` takes for CPU tensors.
+    (CUDA tensors). Launches the kernel (pass A over the tiles, heaviest
+    first, visiting only the slots K2a marked; then pass B over the
+    splats) and counts one launch. No float atomics: equal inputs give
+    bit-equal gradients. Its plain version is
+    `rasterize.composite_plain_backward`, which `composite_train` takes for
+    CPU tensors.
     """
     tiles_x, tiles_y = _check_frame(tab, pairs, starts, counts, bg, img_h,
                                     img_w, tile, chunk, "bwd")
@@ -342,20 +355,25 @@ def composite_backward(tab: torch.Tensor, pairs: torch.Tensor,
     _check(chunk_off, "chunk_off", torch.int32, (n_tiles + 1,))
     _check(entries, "entries", torch.float32)
     _check(n_exec, "n_exec", torch.int32, (n_tiles,))
+    _check(marks, "marks", torch.int32,
+           (entries.shape[0], tile * tile // 32, rz.MARK_WORDS))
     _check(order, "order", torch.int32, tuple(pairs.shape))
     _check(seg, "seg", torch.int32, (n_splats + 1,))
     dev = tab.device
-    d_pairs = torch.zeros((pairs.shape[0], rz.TABLE_W), dtype=torch.float32,
+    # the kernel writes every row a tile reads; pass B reads no other
+    d_pairs = torch.empty((pairs.shape[0], rz.TABLE_W), dtype=torch.float32,
                           device=dev)
     d_tab = torch.empty_like(tab)
+    tiles = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with _logged("K2b"):
         _raise_on(_library("bwd").ga_composite_v4_bwd(
             tab.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
-            counts.data_ptr(), bg.data_ptr(), chunk_off.data_ptr(),
-            entries.data_ptr(), n_exec.data_ptr(), ct_buf.data_ptr(),
-            tiles_x, tiles_y, chunk, d_pairs.data_ptr(), order.data_ptr(),
-            seg.data_ptr(), n_splats, d_tab.data_ptr(), stream), "K2b")
+            counts.data_ptr(), bg.data_ptr(), tiles.data_ptr(),
+            chunk_off.data_ptr(), entries.data_ptr(), n_exec.data_ptr(),
+            marks.data_ptr(), ct_buf.data_ptr(), tiles_x, tiles_y, chunk,
+            d_pairs.data_ptr(), order.data_ptr(), seg.data_ptr(), n_splats,
+            d_tab.data_ptr(), stream), "K2b")
     composite_backward.launches += 1
     return d_tab
 

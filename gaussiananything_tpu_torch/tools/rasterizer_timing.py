@@ -129,7 +129,7 @@ def main(argv: Optional[Sequence[str]] = None,
     rows["binning"], (pairs, starts, counts) = timed(
         "binning (build_tile_pairs)",
         lambda: rz.build_tile_pairs(sp, res, res, tile, mpt))
-    tab = rz.splat_table(rz.pack_splat_render(sp)).contiguous()
+    tab = rz.splat_table(sp, res, res).contiguous()
     if tile == 16:      # the v4 kernels run 16x16 tiles only
         rows["composite only"], _ = timed(
             "composite only", lambda: rasterize_cuda.composite(

@@ -35,7 +35,7 @@ def test_k1_matches_plain(card, res, n, chunk):
     sp = rz.preprocess_splats(g, cam["cam_view"], cam["cam_view_proj"],
                               res, res)
     pairs, starts, counts = rz.build_tile_pairs(sp, res, res, 16, 2048)
-    tab = rz.splat_table(rz.pack_splat_render(sp))
+    tab = rz.splat_table(sp, res, res)
     bg = torch.ones(3, device=card)
     before = rasterize_cuda.composite.launches
     got = rasterize_cuda.composite(tab, pairs, starts, counts, bg, res, res,
@@ -63,7 +63,7 @@ def test_k1_dist_matches_plain(card):
     sp = rz.preprocess_splats(g, cam["cam_view"], cam["cam_view_proj"],
                               512, 512)
     pairs, starts, counts = rz.build_tile_pairs(sp, 512, 512, 16, 2048)
-    tab = rz.splat_table(rz.pack_splat_render(sp))
+    tab = rz.splat_table(sp, 512, 512)
     bg = torch.ones(3, device=card)
     got = rz.split_outputs(rasterize_cuda.composite(
         tab, pairs, starts, counts, bg, 512, 512, chunk=32))
@@ -104,7 +104,7 @@ def _frame(card, n, res, mpt, opacity=None, radius=1.8):
     sp = rz.preprocess_splats(g, cam["cam_view"], cam["cam_view_proj"],
                               res, res)
     pairs, starts, counts = rz.build_tile_pairs(sp, res, res, 16, mpt)
-    tab = rz.splat_table(rz.pack_splat_render(sp))
+    tab = rz.splat_table(sp, res, res)
     return (tab, pairs, starts, counts, torch.ones(3, device=card), res, res)
 
 
@@ -117,19 +117,27 @@ K2_CASES = [(6144, 256, 128, None, 1.8), (73728, 512, 128, None, 1.8),
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,res,chunk,opacity,radius", K2_CASES)
 def test_k2a_matches_plain(card, n, res, chunk, opacity, radius):
-    """K2a's buffer is K1's bit for bit; buffer, entry states and executed
-    chunk counts against `composite_plain(return_entries=True)`."""
+    """K2a's buffer is K1's bit for bit; buffer, entry states, executed
+    chunk counts and marks against `composite_plain(return_entries=True)`.
+    The entries buffer is sized from shapes (`rz.max_entry_rows`); its
+    first `chunk_off[-1]` rows are the plain version's, and the marks'
+    equal them bit for bit."""
     args = _frame(card, n, res, 1024, opacity, radius)
     before = rasterize_cuda.composite_entries.launches
-    buf, off, entries, n_exec = rasterize_cuda.composite_entries(
+    buf, off, entries, n_exec, marks = rasterize_cuda.composite_entries(
         *args, chunk=chunk)
     assert rasterize_cuda.composite_entries.launches == before + 1
     assert torch.equal(buf, rasterize_cuda.composite(*args, chunk=chunk))
-    rbuf, rentries, rn_exec = rz.composite_plain(*args, chunk=chunk,
-                                                 return_entries=True)
+    rbuf, rentries, rn_exec, rmarks = rz.composite_plain(
+        *args, chunk=chunk, return_entries=True)
     assert torch.equal(n_exec, rn_exec)
+    assert torch.equal(marks[:rmarks.shape[0]], rmarks)
+    assert entries.shape[0] == rz.max_entry_rows(args[1].shape[0],
+                                                 (res // 16) ** 2, chunk)
+    assert int(off[-1]) == rentries.shape[0] <= entries.shape[0]
     torch.testing.assert_close(buf, rbuf, atol=2e-5, rtol=1e-4)
-    torch.testing.assert_close(entries, rentries, atol=2e-5, rtol=1e-4)
+    torch.testing.assert_close(entries[:rentries.shape[0]], rentries,
+                               atol=2e-5, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -144,14 +152,13 @@ def test_k2b_matches_plain_and_is_deterministic(card, n, res, chunk, opacity,
     ct = torch.randn((rz.N_OUT, res, res),
                      generator=torch.Generator().manual_seed(1)).to(card)
     ct[6] *= 100.0
-    _, off, entries, n_exec = rasterize_cuda.composite_entries(*args,
-                                                               chunk=chunk)
+    _, *state = rasterize_cuda.composite_entries(*args, chunk=chunk)
     order, seg = rasterize_cuda.splat_order(pairs, starts, counts,
                                             tab.shape[0])
     before = rasterize_cuda.composite_backward.launches
     runs = [rasterize_cuda.composite_backward(
-        tab, pairs, starts, counts, bg, ct, off, entries, n_exec, order, seg,
-        res, res, chunk=chunk) for _ in range(2)]
+        tab, pairs, starts, counts, bg, ct, *state, order, seg, res, res,
+        chunk=chunk) for _ in range(2)]
     assert rasterize_cuda.composite_backward.launches == before + 2
     assert torch.equal(*runs)
     ref = rz.composite_plain_backward(tab, pairs, starts, counts, bg, ct,
@@ -160,6 +167,90 @@ def test_k2b_matches_plain_and_is_deterministic(card, n, res, chunk, opacity,
     peak = ref.abs().amax(0)
     assert torch.isfinite(runs[0]).all()
     assert (err <= 2e-3 * peak + 1e-12).all(), (err / peak).tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [16, 48, 96])
+def test_k2_pair_matches_plain_below_chunk_128(card, chunk):
+    """Chunks below the trainer's 128 and off the 32-slot words of K2b's
+    masks: K2a's buffer is K1's bit for bit and the plain version's to the
+    compositor tolerance, K2b's table cotangent within 2e-3 of each field's
+    largest value, dist at weight 100."""
+    tab, pairs, starts, counts, bg, res, _ = args = _frame(card, 6144, 256,
+                                                           1024)
+    buf, off, entries, n_exec, marks = rasterize_cuda.composite_entries(
+        *args, chunk=chunk)
+    assert torch.equal(buf, rasterize_cuda.composite(*args, chunk=chunk))
+    rbuf, rentries, rn_exec, rmarks = rz.composite_plain(
+        *args, chunk=chunk, return_entries=True)
+    assert torch.equal(n_exec, rn_exec)
+    assert torch.equal(marks[:rmarks.shape[0]], rmarks)
+    torch.testing.assert_close(buf, rbuf, atol=2e-5, rtol=1e-4)
+    torch.testing.assert_close(entries[:rentries.shape[0]], rentries,
+                               atol=2e-5, rtol=1e-4)
+    ct = torch.randn((rz.N_OUT, res, res),
+                     generator=torch.Generator().manual_seed(3)).to(card)
+    ct[6] *= 100.0
+    order, seg = rasterize_cuda.splat_order(pairs, starts, counts,
+                                            tab.shape[0])
+    got = rasterize_cuda.composite_backward(
+        tab, pairs, starts, counts, bg, ct, off, entries, n_exec, marks,
+        order, seg, res, res, chunk=chunk)
+    ref = rz.composite_plain_backward(tab, pairs, starts, counts, bg, ct,
+                                      res, res, chunk=chunk)
+    err = (got - ref).abs().amax(0)
+    peak = ref.abs().amax(0)
+    assert (err <= 2e-3 * peak + 1e-12).all(), (err / peak).tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles", [576, 1024])
+def test_k2_tile_order_is_heaviest_first(card, n_tiles):
+    """The order K2a and K2b take the tiles in (`ga_tile_order`, the kernel
+    both launch first): the tiles by descending work, ties by id, as a
+    stable sort gives it, the work being the counts or, with `n_exec`,
+    min(counts, n_exec · chunk); and the chunk offsets of
+    `rz.chunk_offsets`. On seeded counts with many ties."""
+    gen = torch.Generator().manual_seed(n_tiles)
+    counts = torch.randint(0, 40, (n_tiles,), generator=gen).mul(37).int()
+    n_exec = torch.randint(0, 12, (n_tiles,), generator=gen).int()
+    counts, n_exec = counts.to(card), n_exec.to(card)
+    lib = rasterize_cuda._library("fwd")
+    stream = torch.cuda.current_stream(card).cuda_stream
+    order = torch.empty(n_tiles, dtype=torch.int32, device=card)
+    off = torch.empty(n_tiles + 1, dtype=torch.int32, device=card)
+    assert lib.ga_tile_order(counts.data_ptr(), None, 128, n_tiles,
+                             order.data_ptr(), off.data_ptr(), stream) == 0
+    assert torch.equal(order, torch.sort(counts, descending=True,
+                                         stable=True).indices.int())
+    assert torch.equal(off, rz.chunk_offsets(counts, 128))
+    assert lib.ga_tile_order(counts.data_ptr(), n_exec.data_ptr(), 128,
+                             n_tiles, order.data_ptr(), None, stream) == 0
+    work = torch.minimum(counts, n_exec * 128)
+    assert torch.equal(order, torch.sort(work, descending=True,
+                                         stable=True).indices.int())
+
+
+@pytest.mark.cuda
+def test_k2a_writes_the_chunk_offsets_and_every_tile(card):
+    """K2a's wrapper leaves `chunk_off` and `n_exec` to the kernel: they
+    are `rz.chunk_offsets` and the plain version's, every tile ran (its
+    buffer is K1's, in raster order, bit for bit), and the entries and
+    marks past each tile's executed chunks up to its ceil(count / chunk)
+    are zero."""
+    args = _frame(card, 24576, 384, 1024)
+    counts = args[3]
+    buf, off, entries, n_exec, marks = rasterize_cuda.composite_entries(
+        *args, chunk=128)
+    assert torch.equal(off, rz.chunk_offsets(counts, 128))
+    assert torch.equal(buf, rasterize_cuda.composite(*args, chunk=128))
+    _, rentries, rn_exec, _ = rz.composite_plain(*args, chunk=128,
+                                                 return_entries=True)
+    assert torch.equal(n_exec, rn_exec)
+    skipped = rentries.abs().sum((1, 2)) == 0
+    assert bool(skipped.any())
+    assert (entries[:rentries.shape[0]][skipped] == 0).all()
+    assert (marks[:rentries.shape[0]][skipped] == 0).all()
 
 
 @pytest.mark.cuda

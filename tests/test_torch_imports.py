@@ -51,7 +51,8 @@ def test_port_files_found():
                  "data/postprocess.py", "train/losses.py", "train/state.py",
                  "train/vae_trainer.py", "train/logging.py",
                  "cli/train_vae.py", "tools/rasterizer_timing.py",
-                 "tools/bench.py", "tools/kernel_stages.py"):
+                 "tools/bench.py", "tools/kernel_stages.py",
+                 "tools/kernel_attribution.py"):
         assert pkg + name in rel, name
 
 
@@ -135,10 +136,11 @@ def test_training_kernels_raise_on_cuda_tensors_without_a_build(monkeypatch,
 
 
 def test_tools_default_to_cuda_and_refuse_without_it(monkeypatch):
-    from gaussiananything_tpu_torch.tools import (bench, kernel_stages,
+    from gaussiananything_tpu_torch.tools import (bench, kernel_attribution,
+                                                  kernel_stages,
                                                   rasterizer_timing)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for tool in (bench, kernel_stages, rasterizer_timing):
+    for tool in (bench, kernel_stages, rasterizer_timing, kernel_attribution):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tool.main([])
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 
 import pytest
 import torch
@@ -103,3 +104,26 @@ def test_kernel_stages_one_layout():
          "--groups", "1", "--group", "2", "--pixels", "64", "--chunks", "1",
          "--chunk", "32"], log=lines.append)
     assert list(digests) == ["field stage 2", "field stage 3"]
+
+
+def test_attribution_copies_fit_the_sources(tmp_path):
+    """`kernel_attribution` finds the design of this checkout's sources and
+    every instrumented or cut copy of it applies (each edit's anchor occurs
+    once); the stamped copies carry the instrumentation, the committed
+    sources none."""
+    from gaussiananything_tpu_torch.tools import kernel_attribution as ka
+    csrc = os.path.dirname(rasterize_cuda.SOURCES["fwd"])
+    design = ka.design_of(csrc)
+    assert design == "marked"
+    for kernel, copies in ka.DESIGNS[design].items():
+        assert "stamps" in copies
+        for i, (copy, patches) in enumerate(copies.items()):
+            out = ka.patched_csrc(csrc, str(tmp_path / f"{kernel}{i}"),
+                                  patches)
+            for name in patches:
+                with open(os.path.join(out, name)) as f:
+                    text = f.read()
+                assert ("ga_stamps" in text) == (copy == "stamps"), name
+    for path in (*rasterize_cuda.SOURCES.values(), *rasterize_cuda.HEADERS):
+        with open(path) as f:
+            assert "ga_stamps" not in f.read()

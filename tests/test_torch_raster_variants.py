@@ -286,7 +286,7 @@ def test_list_wrappers_take_plain_versions_on_cpu():
         counts.reshape(2, 2).amax(1).int(), geom, feat, px, py,
         counts.float()[:, None], 2, 64), ref, atol=0, rtol=0)
     pairs, starts, cnt = rz.build_tile_pairs(sp, 32, 32, 16, 128)
-    tab = rz.splat_table(rz.pack_splat_render(sp))
+    tab = rz.splat_table(sp, 32, 32)
     seg = rz.segment_table(tab, pairs)
     assert seg.shape == (pairs.shape[0], rz.TABLE_W)
     torch.testing.assert_close(

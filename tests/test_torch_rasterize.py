@@ -252,7 +252,7 @@ def test_k1_wrapper_takes_plain_version_on_cpu():
     sp = rz.preprocess_splats(t(g), t(cam["cam_view"][0]),
                               t(cam["cam_view_proj"][0]), 32, 32)
     pairs, starts, counts = rz.build_tile_pairs(sp, 32, 32, 16, 256)
-    tab = rz.splat_table(rz.pack_splat_render(sp))
+    tab = rz.splat_table(sp, 32, 32)
     before = rasterize_cuda.composite.launches
     got = rasterize_cuda.composite(tab, pairs, starts, counts,
                                    torch.ones(3), 32, 32)

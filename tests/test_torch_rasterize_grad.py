@@ -193,7 +193,7 @@ def test_function_matches_autograd_through_plain_compositor():
                               t(cam["cam_view_proj"][0]), res, res)
     with torch.no_grad():
         pairs, starts, counts = rz.build_tile_pairs(sp, res, res, 16, mpt)
-    tab = rz.splat_table(rz.pack_splat_render(sp))
+    tab = rz.splat_table(sp, res, res)
     out = rz.split_outputs(rz.composite_plain(
         tab, pairs, starts, counts, torch.ones(3), res, res, chunk=chunk))
     sum((out[k] * t(np.moveaxis(wts[k].reshape(res, res, -1), -1, 0))).sum()
@@ -210,16 +210,18 @@ def test_entries_are_the_chunk_entry_states():
     """`composite_plain(return_entries=True)`: row `chunk_offsets[t] + c`
     holds tile t's (T, Σw, D, D2) on entry to chunk c, the first chunk's
     is the initial state, a tile executes ceil(count / chunk) chunks unless
-    it saturates first, and the buffer is the one without entries."""
+    it saturates first, and the buffer is the one without entries; the
+    marks of a row set bits only below its chunk's slot count and none in
+    the rows of chunks a tile skips."""
     g, cam = translucent_scene(0, 1024, "sphere", 0.6, 0.2)
     res, chunk = 64, 32
     sp = rz.preprocess_splats(t(g), t(cam["cam_view"][0]),
                               t(cam["cam_view_proj"][0]), res, res)
     pairs, starts, counts = rz.build_tile_pairs(sp, res, res, 16, 512)
-    tab = rz.splat_table(rz.pack_splat_render(sp))
+    tab = rz.splat_table(sp, res, res)
     args = (tab, pairs, starts, counts, torch.ones(3), res, res)
-    buf, entries, n_exec = rz.composite_plain(*args, chunk=chunk,
-                                              return_entries=True)
+    buf, entries, n_exec, marks = rz.composite_plain(*args, chunk=chunk,
+                                                     return_entries=True)
     torch.testing.assert_close(buf, rz.composite_plain(*args, chunk=chunk),
                                rtol=0, atol=0)
     offs = rz.chunk_offsets(counts, chunk)
@@ -238,6 +240,35 @@ def test_entries_are_the_chunk_entry_states():
     alpha = after_one["alpha"][0, ty * 16:ty * 16 + 16,
                                tx * 16:tx * 16 + 16].reshape(-1)
     torch.testing.assert_close(entries[int(offs[tile]) + 1, 1], alpha)
+    # marks: (rows, 8 warps, 4 words), bits below each chunk's slot count
+    assert marks.shape == (int(offs[-1]), 8, rz.MARK_WORDS)
+    bits = (marks[..., None] >> torch.arange(32)) & 1           # int32
+    bits = bits.reshape(len(marks), 8, -1)
+    for ti in range(len(counts)):
+        for c in range((int(counts[ti]) + chunk - 1) // chunk):
+            row = bits[int(offs[ti]) + c]
+            live = min(chunk, int(counts[ti]) - c * chunk)
+            assert int(row[:, live:].sum()) == 0
+            if c >= int(n_exec[ti]):
+                assert int(row.sum()) == 0
+    assert int(bits.sum()) > 0
+
+
+def test_warp_marks_packs_each_warps_blending_slots():
+    """Pixel (x, y) of a 16² tile lies in warp (y // 4) · 2 + x // 8, as
+    the kernels lay their warps out; slot k sets bit k % 32 of word k /
+    32, bit 31 as the int32 sign."""
+    w = torch.zeros(2, 256, 40)
+    w[0, 0, 0] = 1.0               # (0, 0): warp 0, slot 0
+    w[0, 255, 39] = 0.5            # (15, 15): warp 7, slot 39
+    w[1, 8, 31] = 1.0              # (8, 0): warp 1, slot 31
+    w[1, 16 * 5 + 3, 2] = -0.0     # no weight above zero: no bit
+    m = rz.warp_marks(w, 16, 4)
+    want = torch.zeros(2, 8, 4, dtype=torch.int32)
+    want[0, 0, 0] = 1
+    want[0, 7, 1] = 1 << 7
+    want[1, 1, 0] = -2 ** 31
+    assert torch.equal(m, want)
 
 
 def test_splat_order_lists_each_live_pair_once():
@@ -256,6 +287,21 @@ def test_splat_order_lists_each_live_pair_once():
         run = sel[int(seg[s]):int(seg[s + 1])]
         assert (pairs[run] == s).all()
         assert (run[1:] > run[:-1]).all()       # stable: ascending position
+
+
+@pytest.mark.parametrize("mpt,chunk", [(64, 16), (512, 32), (512, 128)])
+def test_max_entry_rows_bounds_the_chunks_from_shapes(mpt, chunk):
+    """K2a sizes its entries buffer without reading the counts: the bound
+    holds with tiles capped, tiles at their cap and empty tiles."""
+    g, cam = scene(3, 512, None)
+    sp = rz.preprocess_splats(t(g), t(cam["cam_view"][0]),
+                              t(cam["cam_view_proj"][0]), 64, 64)
+    pairs, starts, counts = rz.build_tile_pairs(sp, 64, 64, 16, mpt)
+    need = int(rz.chunk_offsets(counts, chunk)[-1])
+    assert 0 < need <= rz.max_entry_rows(pairs.shape[0], 16, chunk)
+    full = torch.full((16,), 1000, dtype=torch.int32)
+    assert int(rz.chunk_offsets(full, chunk)[-1]) \
+        <= rz.max_entry_rows(16 * 1000, 16, chunk)
 
 
 @pytest.mark.parametrize("seed,n,kind,res", [(0, 256, "sphere", 32),
@@ -285,7 +331,7 @@ def test_active_steps_counts_the_blending_steps():
     sp = rz.preprocess_splats(t(g), t(cam["cam_view"][0]),
                               t(cam["cam_view_proj"][0]), res, res)
     pairs, starts, counts = rz.build_tile_pairs(sp, res, res, 16, 512)
-    tab = rz.splat_table(rz.pack_splat_render(sp))
+    tab = rz.splat_table(sp, res, res)
     n32 = rz.active_steps(tab, pairs, starts, counts, res, res, chunk=32)
     n512 = rz.active_steps(tab, pairs, starts, counts, res, res, chunk=512)
     alpha = rz.split_outputs(rz.composite_plain(
