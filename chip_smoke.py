@@ -14,7 +14,8 @@ Phases, in order; any failure exits non-zero:
    the card, at every shape the main paths give it and on a scene that
    makes each output channel checkable, and time both; K2b twice,
    bit-equal; K6 also against K1, K3-K5 also against K1 up to the image
-   residue of their unflushed transmittance; the gradient of
+   residue of their unflushed transmittance, K4 and K5 also against K3
+   bit for bit; the gradient of
    `rasterize_tiled_v1_fused` against the plain route's;
 4. small cascade: the sampling pipeline at small widths on the card
    against the same weights and noise on the CPU;
@@ -940,12 +941,37 @@ def k3_phase(dev):
                         max_err, ms, plain_ms, steps, counts, tile * tile)
 
 
+def _equal_to_k3(kernel, name, got, again, k3):
+    """A list kernel's output (natural order) against K3's without aux, bit
+    for bit, and against its own second run."""
+    import torch
+    same = bool(torch.equal(got, k3))
+    print(f"[{kernel}] {name}: equal to K3 bit for bit {same}, max|Δ| "
+          f"{float((got - k3).abs().max()):.3g}; two runs bit-equal "
+          f"{bool(torch.equal(got, again))}", flush=True)
+    if not same:
+        fail(f"{kernel} is not K3 bit for bit ({name})")
+    if not torch.equal(got, again):
+        fail(f"{kernel}'s two runs differ ({name})")
+
+
+def _defaults_times(kernel, run, k3_run):
+    """The kernel and K3, its control, at the defaults shape: medians of 30,
+    in turns."""
+    k3_a = time_cuda(k3_run, reps=30)
+    ms = time_cuda(run, reps=30)
+    k3_b = time_cuda(k3_run, reps=30)
+    print(f"[{kernel}] defaults: {ms:.4f} ms (median of 30), K3 beside it "
+          f"{k3_a:.4f} and {k3_b:.4f} ms", flush=True)
+
+
 def k4_phase(dev):
     """K4 against `composite_lists_plain` on the card, on count-sorted
     groups as `rasterize_tiled_v2` forms them: the bench shape (group 16),
     the defaults of `rasterize_tiled_v2` (tile 8, max_per_tile 512, chunk
-    128, group 16) and a small shape; dist exactly 0; against K1 at the
-    bench shape. Timed at the bench shape."""
+    128, group 16) and a small shape; dist exactly 0; equal to K3 (aux off)
+    bit for bit and to its own second run in every case; against K1 at the
+    bench shape. Timed at the bench shape, and beside K3 at the defaults."""
     import torch
     from gaussiananything_tpu_torch.ops import rasterize as rz
     from gaussiananything_tpu_torch.ops import rasterize_cuda
@@ -962,14 +988,28 @@ def k4_phase(dev):
                 geom[order], feat[order], px[order], py[order],
                 counts_s.float()[:, None].contiguous())
         got = rasterize_cuda.composite_lists_grouped(*args, group, chunk)
+        again = rasterize_cuda.composite_lists_grouped(*args, group, chunk)
+        k3_run = functools.partial(rasterize_cuda.composite_lists, geom,
+                                   feat, counts, res // tile, tile, chunk)
+        k3 = k3_run()
         ref = rz.composite_lists_plain(args[1], args[2], counts_s, args[3],
                                        args[4], chunk)
         torch.cuda.synchronize()
         ok, errs, maps = _list_errors(got[inv], ref[inv], res, tile)
+        cluster = rasterize_cuda.cluster_size(
+            group, rasterize_cuda.cluster_limit(tile * tile, chunk))
         print(f"[K4] {name} ({scene[1]} splats, {res}², tile {tile}, "
-              f"max_per_tile {scene[8]}, chunk {chunk}, group {group}) vs "
-              f"plain, limit {LIST_ATOL} + {LIST_RTOL}·|ref|: "
-              f"{json.dumps(errs, sort_keys=True)}", flush=True)
+              f"max_per_tile {scene[8]}, chunk {chunk}, group {group}, "
+              f"clusters of {cluster}) vs plain, limit {LIST_ATOL} + "
+              f"{LIST_RTOL}·|ref|: {json.dumps(errs, sort_keys=True)}",
+              flush=True)
+        if group == 16 and cluster != 16:
+            fail(f"K4 runs a group of 16 as clusters of {cluster} ({name})")
+        _equal_to_k3("K4", name, got[inv], again[inv], k3)
+        if name == "defaults":
+            _defaults_times("K4", lambda a=args, g=group, c=chunk:
+                            rasterize_cuda.composite_lists_grouped(
+                                *a, g, c), k3_run)
         if not ok:
             fail(f"K4 disagrees with its plain version ({name})")
         if float(got[..., 6].abs().max()) != 0.0:
@@ -1002,8 +1042,10 @@ def k4_phase(dev):
 def k5_phase(dev):
     """K5 against `composite_lists_plain` on the card: the bench shape
     (group 16), the defaults of `rasterize_tiled_v3` (tile 8, max_per_tile
-    512, chunk 128, group 8) and a small shape; dist exactly 0; against K1
-    at the bench shape. Timed at the bench shape."""
+    512, chunk 128, group 8) and a small shape; dist exactly 0; equal to K3
+    (aux off) bit for bit and to its own second run in every case; against
+    K1 at the bench shape. Timed at the bench shape, and beside K3 at the
+    defaults."""
     import torch
     from gaussiananything_tpu_torch.ops import rasterize as rz
     from gaussiananything_tpu_torch.ops import rasterize_cuda
@@ -1013,8 +1055,13 @@ def k5_phase(dev):
         *scene, chunk = LIST_CASES[name]
         res, tile = scene[6], scene[7]
         geom, feat, counts, px, py = _list_inputs(dev, *scene)
-        got = rasterize_cuda.composite_lists_unrolled(
-            geom, feat, counts, res // tile, tile, chunk, group)
+        run = functools.partial(rasterize_cuda.composite_lists_unrolled,
+                                geom, feat, counts, res // tile, tile, chunk,
+                                group)
+        got, again = run(), run()
+        k3_run = functools.partial(rasterize_cuda.composite_lists, geom,
+                                   feat, counts, res // tile, tile, chunk)
+        k3 = k3_run()
         ref = rz.composite_lists_plain(geom, feat, counts, px, py, chunk)
         torch.cuda.synchronize()
         ok, errs, maps = _list_errors(got, ref, res, tile)
@@ -1022,6 +1069,9 @@ def k5_phase(dev):
               f"max_per_tile {scene[8]}, chunk {chunk}, group {group}) vs "
               f"plain, limit {LIST_ATOL} + {LIST_RTOL}·|ref|: "
               f"{json.dumps(errs, sort_keys=True)}", flush=True)
+        _equal_to_k3("K5", name, got, again, k3)
+        if name == "defaults":
+            _defaults_times("K5", run, k3_run)
         if not ok:
             fail(f"K5 disagrees with its plain version ({name})")
         if float(got[..., 6].abs().max()) != 0.0:

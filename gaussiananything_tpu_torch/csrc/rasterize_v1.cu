@@ -38,11 +38,12 @@
 // The design here is not the TPU's, where a (P, chunk) block is evaluated
 // at once and `_lane_cumsum` is a doubling scan along the lanes. One thread
 // owns one pixel and walks the chunk front to back with a running sum; a
-// block of P = tile² threads serves a tile (K3), G consecutive tiles one
-// after the other (K5), or a group of G tiles chunk by chunk (K4). The
-// chunk's rows are staged in shared memory (96 bytes a pair; the dense
-// lists make a (tile, chunk) slice contiguous, so the copy is coalesced
-// float4 loads of only the rows below the tile's count).
+// block of P = tile² threads serves a tile. The chunk's rows are staged in
+// shared memory (96 bytes a pair; the dense lists make a (tile, chunk)
+// slice contiguous): K3 copies only the rows below the tile's count with
+// coalesced float4 loads; K4 and K5 with two 1-D bulk asynchronous copies
+// (geometry, features) into a double buffer, chunk c + 1 landing while the
+// block walks chunk c.
 //
 //   * The two scans. The first scan's running sum `cums1` decides the
 //     pruning, the second's `cums2` gives the weights. Until a pair is
@@ -59,26 +60,39 @@
 //     in the CPU interpreter is fp32. Here every sum is fp32, in the
 //     kernel's body.
 //   * K4's grid. A CUDA grid has no order to carry a state along, and
-//     G·P = 4096 threads are more than a block holds. So one block of P
-//     threads serves a group, keeps the G tiles' states in shared memory
-//     (10 floats a pixel) and loops over the chunks below the group's
-//     largest count. The group-wide test of :364 (`c·chunk < gmax` and some
-//     pixel of the GROUP above 1e-4) is a block-wide `__syncthreads_or`
-//     over every thread's G pixels. Skipping a chunk group-wide, per tile
-//     (K3) or not at all (K5) gives the same maps: a skipped chunk's pairs
-//     are all masked or pruned, their weights 0, and exp(0) leaves T as it
-//     was.
+//     G·P = 4096 threads are more than a block holds. The TPU's (group,
+//     chunk) grid becomes a thread-block cluster: a block per tile of the
+//     count-sorted group, each pixel's state in registers for the whole
+//     launch, the blocks of a cluster on neighbouring SMs. The group-wide
+//     test of :364 (`c·chunk < gmax` and some pixel of the GROUP above
+//     1e-4) is, once per chunk, a `__syncthreads_or` per block into a word
+//     of its shared memory, `cluster.sync()` and an OR of the cluster's
+//     words read through distributed shared memory. A cluster holds at most
+//     16 blocks; a larger group runs the test per cluster of a divisor of
+//     G. Skipping a chunk group-wide, per cluster, per tile (K3) or not at
+//     all (K5) gives the same maps: a skipped chunk's pairs are all masked
+//     or pruned, their weights 0, and exp(0) leaves T as it was.
+//   * K5's grid. The TPU walked G consecutive tiles in one program to
+//     spread each grid step's cost; a CUDA block has no such cost, and G
+//     tiles in one block left half the SMs idle and put G tiles' latencies
+//     end to end. So every tile is a block, and the blocks take the tiles
+//     heaviest first (`tile_order_kernel` of composite_v4.cuh, launched
+//     before it in the same call), since the heaviest tile's latency bounds the launch. G stays
+//     in the contract (it divides T) and forms no cluster: the tiles share
+//     nothing.
 //   * Tiles of 8×8 and 16×16 pixels (64- and 256-thread blocks), chunks of
-//     up to 256 rows.
+//     up to 256 rows (K4's and K5's two buffers then take 48 KB).
 //
 // What bounds them on this card: operations, as K1: about 53 fp32
 // operations per (pixel, pair) step up to the keep test, a log1p and two or
 // three exp for each kept pair, against 96 bytes per (tile, pair) read once.
-// Built like K1 without fast math and with -fmad=false (the α >= 1/255,
-// T_in > 1e-4 and 0.5-crossing tests are knife edges). The times are in
-// PERF.md.
+// Their time, though, is the latency of the heaviest tile's walk (up to
+// 2,048 dependent steps a pixel), which K4 and K5 start first. Built like
+// K1 without fast math and with -fmad=false (the α >= 1/255, T_in > 1e-4
+// and 0.5-crossing tests are knife edges). The times are in PERF.md.
 
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
 
 #include "composite_v4.cuh"
 
@@ -100,7 +114,6 @@ using ga_v4::kZRange;
 constexpr int kGeomF4 = 4;       // float4 per geometry row
 constexpr int kFeatF4 = 2;       // float4 per feature row
 constexpr int kOutW = 16;        // floats per output pixel
-constexpr int kGroupState = 10;  // floats of K4's per-pixel state
 constexpr int kStageState = 5;   // floats of a stage kernel's state
 
 // One pixel's state: the output channels, and with aux the running sums of
@@ -257,7 +270,7 @@ __device__ __forceinline__ void store_list_pixel(const ListState& s,
   o4[3] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
-// One tile, all of its chunks: K3's program, and one of K5's G.
+// One tile, all of its chunks: K3's program (kSaturationExit true).
 template <bool kAux, bool kSaturationExit>
 __device__ __forceinline__ void composite_tile(
     const float4* __restrict__ geom, const float4* __restrict__ feat, int t,
@@ -299,98 +312,194 @@ __global__ void composite_lists_kernel(const float4* __restrict__ geom,
                              tile, chunk, row0, rows, out);
 }
 
-// K5: one block per `group` consecutive tiles, one after the other, each
-// over its own ceil(count / chunk) chunks; no saturation test (:575-641).
-__global__ void composite_lists_unrolled_kernel(
-    const float4* __restrict__ geom, const float4* __restrict__ feat,
-    const int* __restrict__ counts, int max_per_tile, int tiles_x, int tile,
-    int chunk, int group, int row0, float* __restrict__ out) {
-  extern __shared__ float4 rows[];
-  for (int j = 0; j < group; ++j) {
-    const int t = blockIdx.x * group + j;
-    composite_tile<false, false>(geom, feat, t, counts[t], max_per_tile,
-                                 tiles_x, tile, chunk, row0, rows, out);
-  }
+// The 1-D bulk asynchronous copy (the Tensor Memory Accelerator's
+// non-tensor form) that feeds K4 and K5: one thread asks for a contiguous
+// run of bytes (a multiple of 16, both ends 16-byte aligned) to be copied
+// from global into this block's shared memory, and the copy counts its
+// bytes off the transaction count of an mbarrier in shared memory. A
+// thread waits for the barrier's phase `parity` to complete.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// K4: one block per count-sorted group of `group` tiles. Shared memory:
-// the chunk's rows, then the states, channel-major [group][kGroupState][P]
-// so that a warp's pixels lie on consecutive words.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// K4's and K5's double buffer: two chunks of rows, each as K3 lays one out
+// (the geometry rows, then from `chunk * kGeomF4` the feature rows), and a
+// barrier for each. Chunk c goes to buffer c & 1; its copy is the
+// (c >> 1)-th use of that buffer's barrier.
+struct ChunkBuffers {
+  float4* rows;                    // dynamic shared memory, 2 chunks
+  unsigned long long* full;        // two mbarriers
+  int chunk;
+
+  __device__ __forceinline__ const float4* geom(int c) const {
+    return rows + (c & 1) * chunk * (kGeomF4 + kFeatF4);
+  }
+  __device__ __forceinline__ const float4* feat(int c) const {
+    return geom(c) + chunk * kGeomF4;
+  }
+  // thread 0 only: set both barriers up (every thread then passes a barrier
+  // before the first copy or wait)
+  __device__ __forceinline__ void init() const {
+    mbar_init(&full[0]);
+    mbar_init(&full[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // thread 0 only: start copying the first n rows of chunk c of the tile
+  // whose rows start at `row`. Every reader of the buffer's previous chunk
+  // (c - 2) has passed a barrier since.
+  __device__ __forceinline__ void issue(const float4* __restrict__ g,
+                                       const float4* __restrict__ f,
+                                       size_t row, int c, int n) const {
+    const unsigned gbytes = (unsigned)(n * kGeomF4 * sizeof(float4));
+    const unsigned fbytes = (unsigned)(n * kFeatF4 * sizeof(float4));
+    unsigned long long* bar = &full[c & 1];
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(gbytes + fbytes) : "memory");
+    float4* dst = const_cast<float4*>(geom(c));
+    const size_t src = row + (size_t)c * chunk;
+    bulk_copy(dst, g + src * kGeomF4, gbytes, bar);
+    bulk_copy(dst + chunk * kGeomF4, f + src * kFeatF4, fbytes, bar);
+  }
+  __device__ __forceinline__ void wait(int c) const {
+    mbar_wait(&full[c & 1], (unsigned)((c >> 1) & 1));
+  }
+};
+
+// K5: one block per tile, each over its own ceil(count / chunk) chunks with
+// no saturation test (:575-641). Block i takes tile `order[i]`, the tiles by
+// descending count (tile_order_kernel, launched first), so the heaviest
+// start first; `out` is in natural tile order. Chunk c + 1 is copied while
+// the block walks chunk c.
+__global__ void composite_lists_unrolled_kernel(
+    const float4* __restrict__ geom, const float4* __restrict__ feat,
+    const int* __restrict__ counts, const int* __restrict__ order,
+    int max_per_tile, int tiles_x, int tile, int chunk, int row0,
+    float* __restrict__ out) {
+  extern __shared__ float4 rows[];
+  __shared__ unsigned long long full[2];
+  const ChunkBuffers buf{rows, full, chunk};
+  const int lid = threadIdx.x;
+  const int t = order[blockIdx.x];
+  const int count = counts[t];
+  const float px = (float)((t % tiles_x) * tile + lid % tile);
+  const float py = (float)((t / tiles_x) * tile + lid / tile + row0);
+  const int n_chunks = min((count + chunk - 1) / chunk, max_per_tile / chunk);
+  const size_t row = (size_t)t * max_per_tile;
+  if (lid == 0) {
+    buf.init();
+    if (n_chunks > 0) buf.issue(geom, feat, row, 0, min(chunk, count));
+  }
+  __syncthreads();
+  ListState s;
+  for (int c = 0; c < n_chunks; ++c) {
+    if (lid == 0 && c + 1 < n_chunks)
+      buf.issue(geom, feat, row, c + 1, min(chunk, count - (c + 1) * chunk));
+    buf.wait(c);
+    composite_list_rows<false>(buf.geom(c), buf.feat(c),
+                               min(chunk, count - c * chunk), px, py, s);
+    __syncthreads();    // the readers of buffer c & 1, before chunk c + 2
+  }
+  store_list_pixel(s, out + ((size_t)t * blockDim.x + lid) * kOutW);
+}
+
+// K4: one block of P threads per tile, the tiles in count-sorted order, a
+// cluster of consecutive blocks per group (or per part of a group larger
+// than the largest cluster the card schedules). Each pixel's state stays in
+// registers. Per chunk below the group's largest count, :364's group-wide
+// test: each block ORs its pixels' T > T_EPS into a word of its shared
+// memory, the cluster synchronises, and every warp ORs the cluster's words
+// through distributed shared memory; the cluster runs the chunk or, T never
+// rising again, stops. A block whose tile has no rows in a chunk still
+// votes. Each block copies only its tile's rows below its count, chunk
+// c + 1 while it walks chunk c.
 __global__ void composite_lists_grouped_kernel(
     const int* __restrict__ gmax_of, const float4* __restrict__ geom,
     const float4* __restrict__ feat, const float* __restrict__ px_tab,
     const float* __restrict__ py_tab, const float* __restrict__ cnt_f,
     int group, int max_per_tile, int chunk, float* __restrict__ out) {
   extern __shared__ float4 rows[];
+  __shared__ unsigned long long full[2];
+  __shared__ int live[2];          // this block's vote, by chunk parity
+  const ChunkBuffers buf{rows, full, chunk};
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
   const int P = blockDim.x;
   const int lid = threadIdx.x;
-  const int g = blockIdx.x;
-  float* state =
-      reinterpret_cast<float*>(rows + chunk * (kGeomF4 + kFeatF4));
-  auto at = [&](int j, int ch) -> float& {
-    return state[(j * kGroupState + ch) * P + lid];
-  };
-  // tile j's state: T, then the output channels in `ListState`'s order
-  auto load_state = [&](int j) {
-    ListState s;
-    s.T = at(j, 0);
-    s.r = at(j, 1);
-    s.g = at(j, 2);
-    s.b = at(j, 3);
-    s.alpha = at(j, 4);
-    s.dexp = at(j, 5);
-    s.dmed = at(j, 6);
-    s.n0 = at(j, 7);
-    s.n1 = at(j, 8);
-    s.n2 = at(j, 9);
-    return s;
-  };
-  auto store_state = [&](int j, const ListState& s) {
-    at(j, 0) = s.T;
-    at(j, 1) = s.r;
-    at(j, 2) = s.g;
-    at(j, 3) = s.b;
-    at(j, 4) = s.alpha;
-    at(j, 5) = s.dexp;
-    at(j, 6) = s.dmed;
-    at(j, 7) = s.n0;
-    at(j, 8) = s.n1;
-    at(j, 9) = s.n2;
-  };
-  for (int j = 0; j < group; ++j) store_state(j, ListState());
-  const int gmax = gmax_of[g];
-  const int n_chunks = max_per_tile / chunk;
-  for (int c = 0; c < n_chunks && c * chunk < gmax; ++c) {
-    // :364: the group runs the chunk while some pixel of ANY of its tiles
-    // is above the threshold. Each thread reads only its own state words,
-    // so the barrier inside is the only one this test needs; T never rises
-    // again, so a group that fails the test once is done.
-    bool live = false;
-    for (int j = 0; j < group; ++j) live |= at(j, 0) > kTEps;
-    if (!__syncthreads_or(live)) break;
-    for (int j = 0; j < group; ++j) {
-      const int t = g * group + j;
-      const int n = min(chunk, (int)cnt_f[t] - c * chunk);
-      if (n <= 0) continue;   // the same for the whole block
-      __syncthreads();        // the previous tile's readers
-      stage_rows(rows, geom, feat, (size_t)t * max_per_tile + c * chunk, n,
-                 chunk);
-      __syncthreads();
-      ListState s = load_state(j);
-      composite_list_rows<false>(rows, rows + chunk * kGeomF4, n,
-                                 px_tab[(size_t)t * P + lid],
-                                 py_tab[(size_t)t * P + lid], s);
-      store_state(j, s);
+  const int lane = lid & 31;
+  const int cluster_size = (int)cluster.num_blocks();
+  const int t = blockIdx.x;
+  const int count = (int)cnt_f[t];
+  const float px = px_tab[(size_t)t * P + lid];
+  const float py = py_tab[(size_t)t * P + lid];
+  // the chunks c with c·chunk < gmax: the same for the whole cluster
+  const int c_end = min(max_per_tile / chunk,
+                        (gmax_of[t / group] + chunk - 1) / chunk);
+  const int own = min(c_end, (count + chunk - 1) / chunk);  // with rows
+  const size_t row = (size_t)t * max_per_tile;
+  if (lid == 0) {
+    buf.init();
+    if (own > 0) buf.issue(geom, feat, row, 0, min(chunk, count));
+  }
+  ListState s;
+  int c = 0;
+  for (; c < c_end; ++c) {
+    // also the barrier for the readers of the buffer chunk c + 1 goes to
+    const int mine = __syncthreads_or(s.T > kTEps);
+    if (lid == 0) live[c & 1] = mine;
+    cluster.sync();
+    // a word is written again two chunks on, after the next cluster.sync,
+    // which no block passes before every block has read it here
+    const int vote = lane < cluster_size
+                         ? *cluster.map_shared_rank(&live[c & 1], lane)
+                         : 0;
+    if (!__any_sync(0xffffffffu, vote)) break;
+    if (c < own) {
+      if (lid == 0 && c + 1 < own)
+        buf.issue(geom, feat, row, c + 1,
+                  min(chunk, count - (c + 1) * chunk));
+      buf.wait(c);
+      composite_list_rows<false>(buf.geom(c), buf.feat(c),
+                                 min(chunk, count - c * chunk), px, py, s);
     }
   }
-  for (int j = 0; j < group; ++j) {
-    const ListState s = load_state(j);
-    store_list_pixel(s, out + ((size_t)(g * group + j) * P + lid) * kOutW);
-  }
+  // a copy started for a chunk the cluster did not run lands before exit
+  if (lid == 0 && c < own) buf.wait(c);
+  store_list_pixel(s, out + ((size_t)t * P + lid) * kOutW);
+  cluster.sync();   // no block leaves while another may read its votes
 }
 
-// The stage kernels: K4's structure (a block per group, the state in shared
-// memory across the chunk loop, the group-wide test) around the cut-down
+// The stage kernels: the structure K4 had before it became a cluster (a
+// block per group, the G tiles walked one after another each chunk, their
+// states in shared memory across the chunk loop, the group-wide test as a
+// block-wide `__syncthreads_or`) around the cut-down
 // arithmetic of `make_kernel(stage)`: ρ = u² + v² alone (no window, no
 // depth, no count mask), α = min(op·exp(-ρ/2), 0.99) kept at 1/255, one
 // scan, no pruning. State channels: 0 = T, 1..4 = the stage's sums.
@@ -512,10 +621,41 @@ int rows_bytes(int chunk) {
   return chunk * (kGeomF4 + kFeatF4) * (int)sizeof(float4);
 }
 
+// K4's and K5's double buffer: two chunks of rows.
+int list_buffers_bytes(int chunk) { return 2 * rows_bytes(chunk); }
+
 template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// K4's launch: `n_tiles` blocks of P threads in clusters of `cluster`.
+cudaLaunchConfig_t grouped_config(int n_tiles, int P, int smem, int cluster,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_tiles);
+  cfg.blockDim = dim3(P);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// K4 may take `smem` bytes of dynamic shared memory and clusters of up to
+// 16 blocks (beyond the portable 8).
+cudaError_t prepare_grouped(int smem) {
+  const cudaError_t err = allow_shared(composite_lists_grouped_kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(composite_lists_grouped_kernel,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed,
+                              1);
 }
 
 template <int kStage, bool kFieldMajor>
@@ -554,46 +694,78 @@ extern "C" int ga_composite_lists(const void* geom, const void* feat,
   return (int)cudaGetLastError();
 }
 
-// K5. As K3, `group` consecutive tiles per block; n_tiles % group == 0.
+// K5. geom, feat, counts as K3, out (T, P, 16) in natural tile order, no
+// dist. `group` consecutive tiles are the reference's unit (n_tiles % group
+// == 0) but no longer share a block. `order` (T,) int32 receives the tiles
+// by descending count (ties by id), the order the blocks take them in.
 extern "C" int ga_composite_lists_unrolled(const void* geom, const void* feat,
-                                           const void* counts, int n_tiles,
-                                           int max_per_tile, int tiles_x,
-                                           int tile, int chunk, int group,
-                                           int row0, void* out, void* stream) {
+                                           const void* counts, void* order,
+                                           int n_tiles, int max_per_tile,
+                                           int tiles_x, int tile, int chunk,
+                                           int group, int row0, void* out,
+                                           void* stream) {
   if (bad_frame(tile, chunk, max_per_tile) || group < 1 || n_tiles % group)
     return (int)cudaErrorInvalidValue;
-  composite_lists_unrolled_kernel<<<n_tiles / group, tile * tile,
-                                    rows_bytes(chunk), (cudaStream_t)stream>>>(
+  const int smem = list_buffers_bytes(chunk);
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = allow_shared(composite_lists_unrolled_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = ga_v4::launch_tile_order((const int*)counts, nullptr, chunk, n_tiles,
+                                 (int*)order, nullptr, s);
+  if (err != cudaSuccess) return (int)err;
+  composite_lists_unrolled_kernel<<<n_tiles, tile * tile, smem, s>>>(
       (const float4*)geom, (const float4*)feat, (const int*)counts,
-      max_per_tile, tiles_x, tile, chunk, group, row0, (float*)out);
+      (const int*)order, max_per_tile, tiles_x, tile, chunk, row0,
+      (float*)out);
   return (int)cudaGetLastError();
 }
 
-// Bytes of dynamic shared memory K4 needs for a group: the caller checks it
-// against the card's limit before the launch.
-extern "C" int ga_grouped_shared_bytes(int group, int P, int chunk) {
-  return rows_bytes(chunk) + group * kGroupState * P * (int)sizeof(float);
+// How many clusters of `cluster` K4 blocks of P threads at `chunk` the card
+// holds at once (cudaOccupancyMaxActiveClusters): 0 where it refuses the
+// cluster size; any other failure as its CUDA error, negated.
+extern "C" int ga_grouped_clusters(int cluster, int P, int chunk) {
+  const int smem = list_buffers_bytes(chunk);
+  const cudaError_t err = prepare_grouped(smem);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      grouped_config(cluster, P, smem, cluster, nullptr, &attr);
+  int n = 0;
+  const cudaError_t occ =
+      cudaOccupancyMaxActiveClusters(&n, composite_lists_grouped_kernel, &cfg);
+  if (occ == cudaErrorInvalidClusterSize) {
+    cudaGetLastError();   // a size the card refuses: none of it fits
+    return 0;
+  }
+  return occ == cudaSuccess ? n : -(int)occ;
 }
 
 // K4. Tiles in count-sorted order: gmax (T / group,) int32, geom, feat as
-// K3, px, py (T, P) float, cnt (T, 1) float counts, out (T, P, 16).
+// K3, px, py (T, P) float, cnt (T, 1) float counts, out (T, P, 16). One
+// block per tile in clusters of `cluster` (a divisor of `group`, at most 16,
+// that the card schedules: `ga_grouped_clusters`).
 extern "C" int ga_composite_lists_grouped(const void* gmax, const void* geom,
                                           const void* feat, const void* px,
                                           const void* py, const void* cnt,
-                                          int n_tiles, int group, int P,
-                                          int max_per_tile, int chunk,
+                                          int n_tiles, int group, int cluster,
+                                          int P, int max_per_tile, int chunk,
                                           void* out, void* stream) {
   if ((P != 64 && P != 256) || chunk < 1 || chunk > kMaxChunk
-      || max_per_tile % chunk != 0 || group < 1 || n_tiles % group)
+      || max_per_tile % chunk != 0 || group < 1 || n_tiles % group
+      || cluster < 1 || cluster > 16 || group % cluster)
     return (int)cudaErrorInvalidValue;
-  const int smem = ga_grouped_shared_bytes(group, P, chunk);
-  cudaError_t err = allow_shared(composite_lists_grouped_kernel, smem);
+  const int smem = list_buffers_bytes(chunk);
+  cudaError_t err = prepare_grouped(smem);
   if (err != cudaSuccess) return (int)err;
-  composite_lists_grouped_kernel<<<n_tiles / group, P, smem,
-                                   (cudaStream_t)stream>>>(
-      (const int*)gmax, (const float4*)geom, (const float4*)feat,
-      (const float*)px, (const float*)py, (const float*)cnt, group,
-      max_per_tile, chunk, (float*)out);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = grouped_config(
+      n_tiles, P, smem, cluster, (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(
+      &cfg, composite_lists_grouped_kernel, (const int*)gmax,
+      (const float4*)geom, (const float4*)feat, (const float*)px,
+      (const float*)py, (const float*)cnt, group, max_per_tile, chunk,
+      (float*)out);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -20,8 +20,9 @@
   * K3, K4, K5 (`composite_lists`, `composite_lists_grouped`,
     `composite_lists_unrolled`), forward only: the dense-list kernels
     `_make_kernel` (`:59`), `_make_grouped_kernel` (`:346`) and
-    `_make_unrolled_kernel` (`:555`). `stage` launches K4's stage-cut
-    instantiations, the counterparts of `make_kernel(stage)` in
+    `_make_unrolled_kernel` (`:555`); K4 launches a thread-block cluster
+    per group (`cluster_size`, `cluster_limit`). `stage` launches the
+    stage-cut instantiations, the counterparts of `make_kernel(stage)` in
     `tools/pallas_bisect.py:25` and `tools/pallas_bisect2.py:30`. Source
     `csrc/rasterize_v1.cu`.
 
@@ -151,16 +152,16 @@ def _library(name: str) -> ctypes.CDLL:
             v1 = ctypes.CDLL(paths["v1"])
             v1.ga_composite_lists.argtypes = [ptr] * 3 + [i] * 7 + [ptr] * 2
             v1.ga_composite_lists_unrolled.argtypes = \
-                [ptr] * 3 + [i] * 7 + [ptr] * 2
+                [ptr] * 4 + [i] * 7 + [ptr] * 2
             v1.ga_composite_lists_grouped.argtypes = \
-                [ptr] * 6 + [i] * 5 + [ptr] * 2
+                [ptr] * 6 + [i] * 6 + [ptr] * 2
             v1.ga_stage.argtypes = [i] * 2 + [ptr] * 5 + [i] * 5 + [ptr] * 2
-            v1.ga_grouped_shared_bytes.argtypes = [i] * 3
+            v1.ga_grouped_clusters.argtypes = [i] * 3
             v1.ga_stage_shared_bytes.argtypes = [i] * 3
             for fn in (seg.ga_composite_v4_seg, v1.ga_composite_lists,
                        v1.ga_composite_lists_unrolled,
                        v1.ga_composite_lists_grouped, v1.ga_stage,
-                       v1.ga_grouped_shared_bytes, v1.ga_stage_shared_bytes):
+                       v1.ga_grouped_clusters, v1.ga_stage_shared_bytes):
                 fn.restype = i
             _libs.update(fwd=fwd, bwd=bwd, seg=seg, v1=v1)
     return _libs[name]
@@ -480,6 +481,9 @@ def _check_lists(geom, feat, n_tiles, chunk, tile=None, P=None):
     _check(feat, "feat", torch.float32, (n_tiles, M, rz.FEAT_W))
     if feat.device != geom.device:
         raise ValueError(f"feat is on {feat.device}, geom on {geom.device}")
+    if geom.data_ptr() % 16 or feat.data_ptr() % 16:
+        raise ValueError("the kernels read geom and feat as 16-byte rows: "
+                         "both must be 16-byte aligned")
     if M % chunk:
         raise ValueError("max_per_tile must be a multiple of chunk")
     return M
@@ -505,15 +509,20 @@ def _composite_natural(wrapper, kernel, geom, feat, counts, tiles_x, tile,
                       dtype=torch.float32, device=geom.device)
     stream = torch.cuda.current_stream(geom.device).cuda_stream
     lib = _library("v1")
-    head = (geom.data_ptr(), feat.data_ptr(), counts.data_ptr(), n_tiles, M,
-            tiles_x, tile, chunk)
     with _logged(kernel):
         if group is None:
-            err = lib.ga_composite_lists(*head, row0, int(with_aux),
-                                         out.data_ptr(), stream)
+            err = lib.ga_composite_lists(
+                geom.data_ptr(), feat.data_ptr(), counts.data_ptr(), n_tiles,
+                M, tiles_x, tile, chunk, row0, int(with_aux), out.data_ptr(),
+                stream)
         else:
-            err = lib.ga_composite_lists_unrolled(*head, group, row0,
-                                                  out.data_ptr(), stream)
+            # the tiles by descending count, which the kernel writes
+            order = torch.empty(n_tiles, dtype=torch.int32,
+                                device=geom.device)
+            err = lib.ga_composite_lists_unrolled(
+                geom.data_ptr(), feat.data_ptr(), counts.data_ptr(),
+                order.data_ptr(), n_tiles, M, tiles_x, tile, chunk, group,
+                row0, out.data_ptr(), stream)
         _raise_on(err, kernel)
     wrapper.launches += 1
     return out
@@ -543,10 +552,14 @@ def composite_lists_unrolled(geom: torch.Tensor, feat: torch.Tensor,
                              counts: torch.Tensor, tiles_x: int, tile: int,
                              chunk: int, group: int, row0: int = 0
                              ) -> torch.Tensor:
-    """K5: as `composite_lists` without the distortion, `group` consecutive
-    tiles per block, each over its own chunks; `group` divides T. CPU
-    tensors take `rasterize.composite_lists_plain`; CUDA tensors launch the
-    kernel and count one launch."""
+    """K5: as `composite_lists` without the distortion and without the
+    saturation exit: every tile walks every chunk below its count. The
+    reference's unit of `group` consecutive tiles stays in the contract
+    (`group` divides T) but no longer shares a block: one block per tile,
+    the heaviest tiles first, each chunk's rows copied asynchronously while
+    the block walks the one before. CPU tensors take
+    `rasterize.composite_lists_plain`; CUDA tensors launch the kernel and
+    count one launch."""
     return _composite_natural(composite_lists_unrolled, "K5", geom, feat,
                               counts, tiles_x, tile, chunk, row0, group=group)
 
@@ -554,12 +567,44 @@ def composite_lists_unrolled(geom: torch.Tensor, feat: torch.Tensor,
 composite_lists_unrolled.launches = 0
 
 
+CLUSTER_MAX = 16     # the largest thread-block cluster Hopper schedules
+
+
+def cluster_size(group: int, limit: int) -> int:
+    """K4's cluster: the largest divisor of `group` not above `limit`, the
+    largest cluster the card schedules (at most CLUSTER_MAX)."""
+    return max(d for d in range(1, min(group, limit) + 1) if group % d == 0)
+
+
+_cluster_limits: Dict[tuple, int] = {}
+
+
+def cluster_limit(P: int, chunk: int) -> int:
+    """The largest cluster of K4 blocks of P threads at `chunk`, up to
+    CLUSTER_MAX, of which the card holds at least one at a time
+    (`cudaOccupancyMaxActiveClusters`); raises where it holds none."""
+    lib = _library("v1")
+    key = (id(lib), P, chunk)
+    if key not in _cluster_limits:
+        for size in range(CLUSTER_MAX, 0, -1):
+            n = lib.ga_grouped_clusters(size, P, chunk)
+            _raise_on(max(-n, 0), "K4")
+            if n > 0:
+                _cluster_limits[key] = size
+                break
+        else:
+            raise RuntimeError(f"the card schedules no cluster of K4 blocks "
+                               f"of {P} threads at chunk {chunk}")
+    return _cluster_limits[key]
+
+
 def composite_lists_grouped(gmax: torch.Tensor, geom: torch.Tensor,
                             feat: torch.Tensor, px: torch.Tensor,
                             py: torch.Tensor, cnt: torch.Tensor, group: int,
                             chunk: int) -> torch.Tensor:
-    """K4: composite count-sorted groups of `group` tiles, a block per
-    group, chunk by chunk below the group's largest count.
+    """K4: composite count-sorted groups of `group` tiles, chunk by chunk
+    below the group's largest count while some pixel of the group stands
+    above T_EPS.
 
     The tiles come in the caller's (count-sorted) order: gmax (T / group,)
     int32 largest count of each group, geom and feat as for
@@ -567,8 +612,14 @@ def composite_lists_grouped(gmax: torch.Tensor, geom: torch.Tensor,
     (`rasterize.tile_pixel_tables`), cnt (T, 1) float32 counts. Returns
     (T, P, LIST_OUT_W) in the same order, dist 0. CPU tensors take
     `rasterize.composite_lists_plain`; CUDA tensors launch the kernel and
-    count one launch. A group's states live in shared memory, which bounds
-    group x P (4,096 pixels at chunk 256).
+    count one launch.
+
+    On the card a tile is a block and a group a thread-block cluster of
+    `cluster_size(group, cluster_limit(P, chunk))` blocks: the whole group
+    for every group up to 16. A larger group runs its group test per
+    cluster, which gives the same maps: a chunk that one part skips and
+    another runs has all of the skipping part's pairs masked or pruned
+    (`tests/test_torch_list_groups.py` holds the plain twin of that walk).
     """
     n_tiles, P = px.shape
     if group < 1 or n_tiles % group:
@@ -583,19 +634,15 @@ def composite_lists_grouped(gmax: torch.Tensor, geom: torch.Tensor,
     _check(py, "py", torch.float32, (n_tiles, P))
     _check(cnt, "cnt", torch.float32, (n_tiles, 1))
     lib = _library("v1")
-    need = lib.ga_grouped_shared_bytes(group, P, chunk)
-    if need > MAX_SHARED:
-        raise ValueError(f"a group of {group} tiles of {P} pixels at chunk "
-                         f"{chunk} needs {need} bytes of shared memory, the "
-                         f"card gives a block {MAX_SHARED}")
+    cluster = cluster_size(group, cluster_limit(P, chunk))
     out = torch.empty((n_tiles, P, rz.LIST_OUT_W), dtype=torch.float32,
                       device=geom.device)
     stream = torch.cuda.current_stream(geom.device).cuda_stream
     with _logged("K4"):
         _raise_on(lib.ga_composite_lists_grouped(
             gmax.data_ptr(), geom.data_ptr(), feat.data_ptr(), px.data_ptr(),
-            py.data_ptr(), cnt.data_ptr(), n_tiles, group, P, M, chunk,
-            out.data_ptr(), stream), "K4")
+            py.data_ptr(), cnt.data_ptr(), n_tiles, group, cluster, P, M,
+            chunk, out.data_ptr(), stream), "K4")
     composite_lists_grouped.launches += 1
     return out
 

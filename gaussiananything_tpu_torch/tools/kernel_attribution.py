@@ -1,9 +1,10 @@
-"""Where the training pair's time goes on the card: K2a's and K2b's time
-split into the phases of their design, from instrumented copies of their
-sources.
+"""Where the kernels' time goes on the card: K2a's and K2b's time split
+into the phases of their design, and the block timelines of the list
+kernels K4 and K5, from instrumented copies of their sources.
 
     python -m gaussiananything_tpu_torch.tools.kernel_attribution \\
-        [--root DIR] [--cases "train 512" ...] [--reps 20] [--out FILE]
+        [--root DIR] [--cases "train 512" ... bench defaults] [--reps 20] \\
+        [--out FILE]
 
 `--root` names the checkout whose kernels are measured (default: this
 one); another checkout's package, e.g. an earlier commit unpacked with
@@ -27,8 +28,21 @@ Every time is the median of `--reps` wrapper calls between CUDA events, at
 the trainer's frames (the 73,728-splat sphere's LoD ladder, `max_per_tile`
 1024, chunk 128) and the timing tool's (`max_per_tile` 2048); K1 and K6,
 which share K2a's walk, are timed whole beside them at the serving path's
-chunk 256. One JSON line per (kernel, case), the card's name and power
-limit first. Needs the card and nvcc.
+chunk 256.
+
+The list cases ("bench": 512², tile 16, `max_per_tile` 2048, chunk 256;
+"defaults": the defaults of `rasterize_tiled_v2`/`_v3`, tile 8,
+`max_per_tile` 512, chunk 128) time K3, K4 and K5 whole, check that K4's
+and K5's outputs equal K3's (aux off) bit for bit and that two runs are
+bit-equal, and read a stamped copy of K4 and of K5: every block's start
+and end (%globaltimer) and SM (%smid), which give the span, the tail after
+the median block, the longest block and its start, and the number of SMs
+the blocks ran on; beside them the blocks (and clusters) per SM that
+`cudaOccupancyMaxActiveBlocksPerMultiprocessor` (and
+`cudaOccupancyMaxActiveClusters`) give for the launch.
+
+One JSON line per (kernel, case), the card's name and power limit first.
+Needs the card and nvcc.
 """
 from __future__ import annotations
 
@@ -47,6 +61,10 @@ import tempfile
 CASES = {"train 128": (768, 128, 1024), "train 256": (6144, 256, 1024),
          "train 384": (24576, 384, 1024), "train 512": (73728, 512, 1024),
          "tools 512": (73728, 512, 2048)}
+# name: (splats, image size, tile, max_per_tile, chunk, K4's group, K5's
+# group), as `chip_smoke.py` runs the list kernels
+LIST_CASES = {"bench": (73728, 512, 16, 2048, 256, 16, 16),
+              "defaults": (73728, 512, 8, 512, 128, 16, 8)}
 CHUNK = 128
 FWD_CHUNK = 256     # the serving path's chunk, where K1 and K6 are timed
 MAX_BLOCKS = 16384
@@ -55,13 +73,20 @@ PRELUDE = r"""
 #define GA_MAX_BLOCKS %d
 __device__ unsigned long long ga_acc[16];
 __device__ unsigned long long ga_blk[2 * GA_MAX_BLOCKS];
+__device__ unsigned ga_sm[GA_MAX_BLOCKS];
 __device__ __forceinline__ unsigned long long ga_gt() {
   unsigned long long t;
   asm volatile("mov.u64 %%0, %%%%globaltimer;" : "=l"(t));
   return t;
 }
+__device__ __forceinline__ unsigned ga_smid() {
+  unsigned r;
+  asm volatile("mov.u32 %%0, %%%%smid;" : "=r"(r));
+  return r;
+}
 #define GA_BEGIN() int ga_ph = 0; long long ga_c = clock64(); \
-  if (threadIdx.x == 0) ga_blk[blockIdx.x] = ga_gt()
+  if (threadIdx.x == 0) { \
+    ga_blk[blockIdx.x] = ga_gt(); ga_sm[blockIdx.x] = ga_smid(); }
 #define GA_MARK(next) do { const long long ga_n = clock64(); \
   if (threadIdx.x == 0) \
     atomicAdd(&ga_acc[ga_ph], (unsigned long long)(ga_n - ga_c)); \
@@ -71,14 +96,16 @@ __device__ __forceinline__ unsigned long long ga_gt() {
 #define GA_END() do { __syncthreads(); GA_MARK(0); \
   if (threadIdx.x == 0) ga_blk[GA_MAX_BLOCKS + blockIdx.x] = ga_gt(); \
   } while (0)
-extern "C" int ga_stamps(void* acc, void* blk, int clear) {
+extern "C" int ga_stamps(void* acc, void* blk, void* sm, int clear) {
   static unsigned long long zero[2 * GA_MAX_BLOCKS];
   if (clear) {
     cudaMemcpyToSymbol(ga_acc, zero, sizeof(ga_acc));
     cudaMemcpyToSymbol(ga_blk, zero, sizeof(ga_blk));
+    cudaMemcpyToSymbol(ga_sm, zero, sizeof(ga_sm));
   } else {
     cudaMemcpyFromSymbol(acc, ga_acc, sizeof(ga_acc));
     cudaMemcpyFromSymbol(blk, ga_blk, sizeof(ga_blk));
+    cudaMemcpyFromSymbol(sm, ga_sm, sizeof(ga_sm));
   }
   return (int)cudaDeviceSynchronize();
 }
@@ -229,10 +256,115 @@ DESIGNS = {
 }
 
 
+# The list kernels' copies, as DESIGNS. An edit whose `old` is None appends
+# `new` to the file: `ga_occupancy(kernel 4 or 5, P, chunk, group, *blocks,
+# *clusters)` writes the blocks per SM (and for a cluster launch the active
+# clusters) the occupancy calculator gives for the wrapper's launch. The
+# earlier design's anchors measure an earlier checkout through `--root`
+# (the before-and-after of PERF.md rests on them); a design's anchors go
+# once no number in PERF.md does.
+_STAMP_END = "  GA_END();\n}\n"
+LIST_DESIGNS = {
+    # the design before the clusters: K4 one block per count-sorted group, the G tiles'
+    # states in shared memory, the tiles walked one after another each
+    # chunk; K5 one block per G consecutive tiles, walked one after another
+    "shared-state": {
+        "K4": {"stamps": {"rasterize_v1.cu": [
+            ("  float* state =\n      reinterpret_cast<float*>(rows + chunk * "
+             "(kGeomF4 + kFeatF4));\n",
+             "  GA_BEGIN();\n  float* state =\n      reinterpret_cast<float*>"
+             "(rows + chunk * (kGeomF4 + kFeatF4));\n"),
+            ("    store_list_pixel(s, out + ((size_t)(g * group + j) * P + "
+             "lid) * kOutW);\n  }\n}\n",
+             "    store_list_pixel(s, out + ((size_t)(g * group + j) * P + "
+             "lid) * kOutW);\n  }\n" + _STAMP_END),
+            (None, """
+extern "C" int ga_occupancy(int kernel, int P, int chunk, int group,
+                            int* blocks, int* clusters) {
+  *clusters = 0;
+  if (kernel == 4) {
+    const int smem = ga_grouped_shared_bytes(group, P, chunk);
+    const cudaError_t err = allow_shared(composite_lists_grouped_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, composite_lists_grouped_kernel, P, smem);
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, composite_lists_unrolled_kernel, P, rows_bytes(chunk));
+}
+"""),
+        ]}},
+        "K5": {"stamps": {"rasterize_v1.cu": [
+            ("  extern __shared__ float4 rows[];\n  for (int j = 0; j < group; "
+             "++j) {\n    const int t = blockIdx.x * group + j;\n",
+             "  extern __shared__ float4 rows[];\n  GA_BEGIN();\n"
+             "  for (int j = 0; j < group; ++j) {\n"
+             "    const int t = blockIdx.x * group + j;\n"),
+            ("                                 tiles_x, tile, chunk, row0, "
+             "rows, out);\n  }\n}\n",
+             "                                 tiles_x, tile, chunk, row0, "
+             "rows, out);\n  }\n" + _STAMP_END),
+        ]}},
+    },
+}
+_CLUSTER_OCCUPANCY = (None, """
+extern "C" int ga_occupancy(int kernel, int P, int chunk, int group,
+                            int* blocks, int* clusters) {
+  const int smem = list_buffers_bytes(chunk);
+  *clusters = 0;
+  if (kernel == 4) {
+    const cudaError_t err = prepare_grouped(smem);
+    if (err != cudaSuccess) return (int)err;
+    for (int size = 16; size >= 1; --size) {
+      if (group % size) continue;
+      *clusters = ga_grouped_clusters(size, P, chunk);
+      if (*clusters < 0) return -*clusters;
+      if (*clusters > 0) break;
+    }
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, composite_lists_grouped_kernel, P, smem);
+  }
+  const cudaError_t err = allow_shared(composite_lists_unrolled_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, composite_lists_unrolled_kernel, P, smem);
+}
+""")
+# the current design: K4 a block per tile, a cluster per group, the states
+# in registers, the group test through distributed shared memory; K5 a
+# block per tile, heaviest first; both fed by bulk copies into a double
+# buffer
+LIST_DESIGNS["cluster"] = {
+    "K4": {"stamps": {"rasterize_v1.cu": [
+        ("  __shared__ int live[2];          // this block's vote, by chunk "
+         "parity\n",
+         "  __shared__ int live[2];\n  GA_BEGIN();\n"),
+        ("  cluster.sync();   // no block leaves while another may read its "
+         "votes\n}\n",
+         "  cluster.sync();\n" + _STAMP_END),
+        _CLUSTER_OCCUPANCY,
+    ]}},
+    "K5": {"stamps": {"rasterize_v1.cu": [
+        ("  const int t = order[blockIdx.x];\n",
+         "  const int t = order[blockIdx.x];\n  GA_BEGIN();\n"),
+        ("    __syncthreads();    // the readers of buffer c & 1, before chunk "
+         "c + 2\n  }\n  store_list_pixel(s, out + ((size_t)t * blockDim.x + "
+         "lid) * kOutW);\n}\n",
+         "    __syncthreads();\n  }\n  store_list_pixel(s, out + ((size_t)t "
+         "* blockDim.x + lid) * kOutW);\n" + _STAMP_END),
+        _CLUSTER_OCCUPANCY,
+    ]}},
+}
+# the K5 copy reads its occupancy through the same appended function
+LIST_DESIGNS["shared-state"]["K5"]["stamps"]["rasterize_v1.cu"].append(
+    LIST_DESIGNS["shared-state"]["K4"]["stamps"]["rasterize_v1.cu"][-1])
+
+
 def patched_csrc(csrc: str, dest: str, patches) -> str:
     """Copy `csrc` (without its build directory) to `dest`/csrc and apply
-    `patches` {file: [(old, new)]}; the instrumentation prelude goes after
-    the first include of every patched file. Returns the new directory."""
+    `patches` {file: [(old, new)]} (`old` None: append `new`); the
+    instrumentation prelude goes after the first include of every patched
+    file. Returns the new directory."""
     out = os.path.join(dest, "csrc")
     shutil.copytree(csrc, out, ignore=shutil.ignore_patterns("build"))
     for name, edits in patches.items():
@@ -240,6 +372,9 @@ def patched_csrc(csrc: str, dest: str, patches) -> str:
         with open(path) as f:
             text = f.read()
         for old, new in edits:
+            if old is None:
+                text += new
+                continue
             if text.count(old) != 1:
                 raise ValueError(f"{name}: an edit's anchor occurs "
                                  f"{text.count(old)} times, not once:\n{old}")
@@ -251,19 +386,22 @@ def patched_csrc(csrc: str, dest: str, patches) -> str:
     return out
 
 
-def design_of(csrc: str) -> str:
-    """The name in DESIGNS whose every anchor is in `csrc`'s sources."""
-    for name, kernels in DESIGNS.items():
+def design_of(csrc: str, designs=None) -> str:
+    """The name in `designs` (default DESIGNS) whose every anchor is in
+    `csrc`'s sources."""
+    designs = DESIGNS if designs is None else designs
+    for name, kernels in designs.items():
         ok = True
         for copies in kernels.values():
             for patches in copies.values():
                 for fname, edits in patches.items():
                     with open(os.path.join(csrc, fname)) as f:
                         text = f.read()
-                    ok &= all(text.count(old) == 1 for old, _ in edits)
+                    ok &= all(text.count(old) == 1 for old, _ in edits
+                              if old is not None)
         if ok:
             return name
-    raise ValueError(f"no design of {sorted(DESIGNS)} fits {csrc}")
+    raise ValueError(f"no design of {sorted(designs)} fits {csrc}")
 
 
 def _frame(dev, n, res, mpt):
@@ -345,22 +483,23 @@ def _stamps(rc, lib_name, fn, iters=5):
     import numpy as np
     import torch
     lib = rc._library(lib_name)
-    lib.ga_stamps.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    lib.ga_stamps.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     fn()
     torch.cuda.synchronize()
     acc = np.zeros(16, np.uint64)
     blk = np.zeros(2 * MAX_BLOCKS, np.uint64)
-    if lib.ga_stamps(None, None, 1):
+    sm = np.zeros(MAX_BLOCKS, np.uint32)
+    if lib.ga_stamps(None, None, None, 1):
         raise RuntimeError("clearing the stamps failed")
     for _ in range(iters):
         fn()
     torch.cuda.synchronize()
-    if lib.ga_stamps(acc.ctypes.data, blk.ctypes.data, 0):
+    if lib.ga_stamps(acc.ctypes.data, blk.ctypes.data, sm.ctypes.data, 0):
         raise RuntimeError("reading the stamps failed")
     start, end = blk[:MAX_BLOCKS].astype(np.int64), \
         blk[MAX_BLOCKS:].astype(np.int64)
     used = start > 0
-    start, end = start[used], end[used]
+    start, end, sm = start[used], end[used], sm[used]
     t0 = start.min()
     span = float(end.max() - t0)
     dur = end - start
@@ -372,6 +511,7 @@ def _stamps(rc, lib_name, fn, iters=5):
         "block_us_median": float(np.median(dur)) / 1e3,
         "block_us_max": float(dur.max()) / 1e3,
         "longest_block_starts_at_share": float(start[longest] - t0) / span,
+        "sms": int(len(np.unique(sm))),
     }
 
 
@@ -427,12 +567,118 @@ def measure(root: str, case_names, reps: int, log, out=None):
     return list(recs.values())
 
 
+def _list_frame(dev, n, res, tile, mpt, chunk, group4, group5):
+    """The list wrappers' inputs at one case, as `chip_smoke.py` makes
+    them: natural order for K3 and K5, count-sorted for K4."""
+    import torch
+    from gaussiananything_tpu_torch.data.synthetic import make_object
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.render import cameras
+    g = make_object(0, n=n, kind="sphere", device=dev)
+    cam = cameras.pose_to_gs_camera(
+        cameras.generate_input_camera(1.8, [(20, 45)])[0], device=dev)
+    sp = rz.preprocess_splats(g, cam["cam_view"], cam["cam_view_proj"],
+                              res, res)
+    lists, counts = rz.build_tile_lists(sp, res, res, tile, mpt)
+    geom, feat = rz.pack_tile_inputs(rz.pad_dead_splat(sp), lists)
+    geom, feat = geom.contiguous(), feat.contiguous()
+    px, py = rz.tile_pixel_tables(
+        torch.arange(counts.shape[0], device=dev), res // tile, tile)
+    order = torch.sort(-counts, stable=True).indices
+    cs = counts[order]
+    grouped = (cs.reshape(-1, group4).amax(1).int().contiguous(),
+               geom[order].contiguous(), feat[order].contiguous(),
+               px[order].contiguous(), py[order].contiguous(),
+               cs.float()[:, None].contiguous())
+    return {"natural": (geom, feat, counts, res // tile, tile, chunk),
+            "grouped": grouped, "inv": torch.sort(order, stable=True).indices,
+            "chunk": chunk, "group4": group4, "group5": group5,
+            "P": tile * tile}
+
+
+def _list_runners(rc, frames):
+    """{kernel: {case: fn}} of the list wrappers of the imported package."""
+    out = {"K3": {}, "K4": {}, "K5": {}}
+    for case, f in frames.items():
+        out["K3"][case] = lambda f=f: rc.composite_lists(*f["natural"])
+        out["K4"][case] = lambda f=f: rc.composite_lists_grouped(
+            *f["grouped"], f["group4"], f["chunk"])
+        out["K5"][case] = lambda f=f: rc.composite_lists_unrolled(
+            *f["natural"], f["group5"])
+    return out
+
+
+def measure_lists(root: str, case_names, reps: int, log, out=None):
+    """K3, K4 and K5 at the list cases: times, bit-equality with K3 and
+    between runs, and K4's and K5's block timelines and occupancy."""
+    import torch
+    from gaussiananything_tpu_torch.ops import rasterize_cuda as rc
+    csrc = os.path.dirname(rc.SOURCES["fwd"])
+    design = design_of(csrc, LIST_DESIGNS)
+    dev = torch.device("cuda")
+    frames = {c: _list_frame(dev, *LIST_CASES[c]) for c in case_names}
+    recs = {(k, c): {"root": root, "design": design, "kernel": k, "case": c}
+            for k in ("K3", "K4", "K5") for c in case_names}
+    with tempfile.TemporaryDirectory() as tmp:
+        _use(rc, patched_csrc(csrc, os.path.join(tmp, "whole"), {}))
+        runners = _list_runners(rc, frames)
+        for c in case_names:
+            ref = runners["K3"][c]()
+            for k in ("K4", "K5"):
+                a, b = runners[k][c](), runners[k][c]()
+                nat = (lambda x: x[frames[c]["inv"]]) if k == "K4" else \
+                    (lambda x: x)
+                recs[(k, c)]["equal_to_K3"] = bool(torch.equal(nat(a), ref))
+                recs[(k, c)]["runs_equal"] = bool(torch.equal(a, b))
+                recs[(k, c)]["max_abs_vs_K3"] = float(
+                    (nat(a) - ref).abs().max())
+            for k in ("K3", "K4", "K5"):
+                recs[(k, c)]["ms"] = _median_ms(runners[k][c], reps)
+            log(json.dumps(recs[("K3", c)]))
+        keep = False
+        for line in rc.build_log.splitlines():
+            if "Compiling entry" in line:
+                keep = "composite_lists" in line or "tile_order" in line
+            if keep and any(w in line for w in ("Compiling entry",
+                                                "registers", "spill")):
+                log(f"ptxas: {line.strip()}")
+        for kernel, copies in LIST_DESIGNS[design].items():
+            _use(rc, patched_csrc(csrc, os.path.join(tmp, kernel),
+                                  copies["stamps"]))
+            for case, fn in _list_runners(rc, frames)[kernel].items():
+                rec = recs[(kernel, case)]
+                _, rec["timeline"] = _stamps(rc, "v1", fn)
+                rec["stamped ms"] = _median_ms(fn, reps)
+                f = frames[case]
+                lib = rc._library("v1")
+                lib.ga_occupancy.argtypes = [ctypes.c_int] * 4 + \
+                    [ctypes.c_void_p] * 2
+                blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+                err = lib.ga_occupancy(
+                    int(kernel[1]), f["P"], f["chunk"],
+                    f["group4"] if kernel == "K4" else f["group5"],
+                    ctypes.byref(blocks), ctypes.byref(clusters))
+                if err:
+                    raise RuntimeError(f"occupancy query: error {err}")
+                rec["blocks_per_sm"] = blocks.value
+                rec["active_clusters"] = clusters.value
+                if kernel == "K4" and design == "cluster":
+                    rec["cluster"] = rc.cluster_size(
+                        f["group4"], rc.cluster_limit(f["P"], f["chunk"]))
+            for case in case_names:
+                log(json.dumps(recs[(kernel, case)]))
+                if out:
+                    with open(out, "a") as f:
+                        f.write(json.dumps(recs[(kernel, case)]) + "\n")
+    return list(recs.values())
+
+
 def main(argv=None, log=print):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=None,
                     help="checkout whose kernels to measure (default: this)")
-    ap.add_argument("--cases", nargs="+", default=list(CASES),
-                    choices=list(CASES))
+    ap.add_argument("--cases", nargs="+", default=[*CASES, *LIST_CASES],
+                    choices=[*CASES, *LIST_CASES])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None, help="also write the lines here")
     ap.add_argument("--inner", action="store_true", help=argparse.SUPPRESS)
@@ -456,7 +702,14 @@ def main(argv=None, log=print):
     log(f"card: {smi.stdout.strip().splitlines()[0]}")
     if a.out:
         os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
-    return measure(root, a.cases, a.reps, log, a.out)
+    recs = []
+    train = [c for c in a.cases if c in CASES]
+    lists = [c for c in a.cases if c in LIST_CASES]
+    if train:
+        recs += measure(root, train, a.reps, log, a.out)
+    if lists:
+        recs += measure_lists(root, lists, a.reps, log, a.out)
+    return recs
 
 
 if __name__ == "__main__":

@@ -443,6 +443,139 @@ def test_k5_matches_plain(card, n, res, tile, mpt, chunk, group):
     assert float(got[..., 6].abs().max()) == 0.0
 
 
+def _k4_args(geom, feat, counts, px, py, group):
+    """K4's inputs as `rasterize_tiled_v2` forms them, and the permutation
+    back to natural order."""
+    order = torch.sort(-counts, stable=True).indices
+    counts_s = counts[order]
+    args = (counts_s.reshape(-1, group).amax(1).int().contiguous(),
+            geom[order].contiguous(), feat[order].contiguous(),
+            px[order].contiguous(), py[order].contiguous(),
+            counts_s.float()[:, None].contiguous())
+    return args, torch.sort(order, stable=True).indices
+
+
+# (tile, max_per_tile, chunk, group, opacity or None): 6,144 splats at 256²
+K345_CASES = [(tile, mpt, chunk, group, None)
+              for tile, mpt, chunk in ((8, 512, 128), (16, 1024, 128))
+              for group in (2, 4, 8, 16)]
+K345_CASES += [(8, 512, 64, 16, 0.95), (16, 1024, 64, 16, 0.95),
+               (8, 512, 128, 32, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,mpt,chunk,group,opacity", K345_CASES)
+def test_k4_and_k5_equal_k3_bit_for_bit(card, tile, mpt, chunk, group,
+                                        opacity):
+    """K3, K4 and K5 share `composite_list_rows`; skipping a chunk per tile
+    (K3), per cluster (K4) or not at all (K5) changes no bit. Runs of the
+    same inputs are bit-equal. K4 at group 32 runs clusters of 16."""
+    geom, feat, counts, px, py = _lists(card, 6144, 256, tile, mpt, opacity)
+    tiles_x = 256 // tile
+    k3 = rasterize_cuda.composite_lists(geom, feat, counts, tiles_x, tile,
+                                        chunk)
+    args, inv = _k4_args(geom, feat, counts, px, py, group)
+    k4 = [rasterize_cuda.composite_lists_grouped(*args, group, chunk)
+          for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(k4[0][inv], k3)
+    assert torch.equal(k4[0], k4[1])
+    if group == 32:     # K5 at the same frame is one of the cases above
+        assert rasterize_cuda.cluster_size(
+            group, rasterize_cuda.cluster_limit(tile * tile, chunk)) == 16
+        return
+    k5 = [rasterize_cuda.composite_lists_unrolled(
+        geom, feat, counts, tiles_x, tile, chunk, group) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(k5[0], k3)
+    assert torch.equal(k5[0], k5[1])
+
+
+@pytest.mark.cuda
+def test_k4_runs_each_group_of_16_as_one_cluster(card):
+    """The card schedules clusters of 16 K4 blocks at every frame the repo
+    launches K4 at, so a group of up to 16 is one cluster."""
+    for P, chunk in ((256, 256), (64, 128), (256, 64), (256, 128)):
+        assert rasterize_cuda.cluster_limit(P, chunk) == 16
+        assert rasterize_cuda._library("v1").ga_grouped_clusters(
+            16, P, chunk) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 16])
+def test_k5_takes_the_tiles_heaviest_first(card, tile):
+    """The order K5's blocks take the tiles in, which the launch computes on
+    the card and writes: by descending count, ties by id, as a stable sort
+    gives it; the output in natural order all the same."""
+    geom, feat, counts, px, py = _lists(card, 6144, 256, tile, 512)
+    n_tiles, M = counts.shape[0], geom.shape[1]
+    lib = rasterize_cuda._library("v1")
+    order = torch.full((n_tiles,), -1, dtype=torch.int32, device=card)
+    out = torch.empty((n_tiles, tile * tile, rz.LIST_OUT_W), device=card)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    assert lib.ga_composite_lists_unrolled(
+        geom.data_ptr(), feat.data_ptr(), counts.data_ptr(),
+        order.data_ptr(), n_tiles, M, 256 // tile, tile, 128, 4, 0,
+        out.data_ptr(), stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(order, torch.sort(counts, descending=True,
+                                         stable=True).indices.int())
+    assert int(counts[order[0]]) == int(counts.max())
+    assert torch.equal(out, rasterize_cuda.composite_lists_unrolled(
+        geom, feat, counts, 256 // tile, tile, 128, 4))
+
+
+@pytest.mark.cuda
+def test_k4_k5_wrappers_refuse_bad_inputs(card):
+    """What the cluster and double-buffer launches do not take raises: a
+    tile other than 8 or 16, a chunk above 256 rows (whose two buffers K3's
+    limit keeps within 48 KB), a group that does not divide the tiles; at
+    the C interface, the same chunk and a cluster that does not divide the
+    group."""
+    geom, feat, counts, px, py = _lists(card, 1024, 64, 16, 256)
+    args, _ = _k4_args(geom, feat, counts, px, py, 4)
+    with pytest.raises(ValueError, match="8x8 or 16x16"):
+        rasterize_cuda.composite_lists_unrolled(geom, feat, counts, 4, 12,
+                                                64, 4)
+    with pytest.raises(ValueError, match="64 or 256 pixels"):
+        rasterize_cuda.composite_lists_grouped(
+            args[0], *args[1:3], args[3][:, :100].contiguous(),
+            args[4][:, :100].contiguous(), args[5], 4, 64)
+    g2, f2 = geom.repeat(1, 8, 1), feat.repeat(1, 8, 1)   # 2048 rows
+    args2, _ = _k4_args(g2, f2, counts, px, py, 4)
+    with pytest.raises(ValueError, match="at most 256 splats"):
+        rasterize_cuda.composite_lists_unrolled(g2, f2, counts, 4, 16, 512,
+                                                4)
+    with pytest.raises(ValueError, match="at most 256 splats"):
+        rasterize_cuda.composite_lists_grouped(*args2, 4, 512)
+    with pytest.raises(ValueError, match="not a multiple of the group 3"):
+        rasterize_cuda.composite_lists_grouped(*args, 3, 64)
+    lib = rasterize_cuda._library("v1")
+    out = torch.empty((16, 256, rz.LIST_OUT_W), device=card)
+    gmax, g, f, x, y, cnt = args
+    stream = torch.cuda.current_stream(card).cuda_stream
+    assert lib.ga_composite_lists_grouped(
+        gmax.data_ptr(), g.data_ptr(), f.data_ptr(), x.data_ptr(),
+        y.data_ptr(), cnt.data_ptr(), 16, 4, 3, 256, 256, 64, out.data_ptr(),
+        stream) != 0
+    gmax2, g2s, f2s, x2, y2, cnt2 = args2
+    assert lib.ga_composite_lists_grouped(
+        gmax2.data_ptr(), g2s.data_ptr(), f2s.data_ptr(), x2.data_ptr(),
+        y2.data_ptr(), cnt2.data_ptr(), 16, 4, 4, 256, 2048, 512,
+        out.data_ptr(), stream) != 0
+    order = torch.empty(16, dtype=torch.int32, device=card)
+    assert lib.ga_composite_lists_unrolled(
+        g2.data_ptr(), f2.data_ptr(), counts.data_ptr(), order.data_ptr(), 16,
+        2048, 4, 16, 512, 4, 0, out.data_ptr(), stream) != 0
+    before = rasterize_cuda.composite_lists_grouped.launches
+    with pytest.raises(RuntimeError, match="K4 launch failed"):
+        rasterize_cuda._raise_on(lib.ga_composite_lists_grouped(
+            gmax.data_ptr(), g.data_ptr(), f.data_ptr(), x.data_ptr(),
+            y.data_ptr(), cnt.data_ptr(), 16, 4, 17, 256, 256, 64,
+            out.data_ptr(), stream), "K4")
+    assert rasterize_cuda.composite_lists_grouped.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
 @pytest.mark.parametrize("field_major", [False, True])

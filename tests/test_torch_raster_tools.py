@@ -127,3 +127,26 @@ def test_attribution_copies_fit_the_sources(tmp_path):
     for path in (*rasterize_cuda.SOURCES.values(), *rasterize_cuda.HEADERS):
         with open(path) as f:
             assert "ga_stamps" not in f.read()
+
+
+def test_attribution_list_copies_fit_the_sources(tmp_path):
+    """The K4 and K5 copies of `kernel_attribution` apply to this checkout's
+    `rasterize_v1.cu` (each anchor once): its design is the cluster one,
+    not the shared-state groups it replaced, and each stamped copy carries
+    one start and one end stamp and the occupancy query."""
+    from gaussiananything_tpu_torch.tools import kernel_attribution as ka
+    csrc = os.path.dirname(rasterize_cuda.SOURCES["v1"])
+    assert ka.design_of(csrc, ka.LIST_DESIGNS) == "cluster"
+    old = ka.LIST_DESIGNS["shared-state"]
+    with pytest.raises(ValueError, match="no design"):
+        ka.design_of(csrc, {"shared-state": old})
+    for kernel, copies in ka.LIST_DESIGNS["cluster"].items():
+        assert list(copies) == ["stamps"]
+        out = ka.patched_csrc(csrc, str(tmp_path / kernel),
+                              copies["stamps"])
+        with open(os.path.join(out, "rasterize_v1.cu")) as f:
+            text = f.read()
+        assert text.count("GA_BEGIN();") == 1, kernel
+        assert text.count("GA_END();") == 1, kernel
+        assert 'extern "C" int ga_occupancy(' in text
+        assert "ga_stamps" in text
