@@ -873,7 +873,7 @@ def k3_phase(dev):
     at the bench shape, a small shape and, with aux, the dist scene (dist to
     DIST_REL of its size); against K1 at the bench shape; the gradient of
     `rasterize_tiled_v1_fused` against the plain route's. Timed at the
-    bench shape."""
+    bench shape, in turns with K4 and K5 on the same frame."""
     import torch
     from gaussiananything_tpu_torch.ops import rasterize as rz
     from gaussiananything_tpu_torch.ops import rasterize_cuda
@@ -931,11 +931,25 @@ def k3_phase(dev):
                             counts, res // tile, tile, chunk)
     ms = time_cuda(run, reps=30)
     aux_ms = time_cuda(lambda: run(with_aux=True), reps=30)
+    # K4 and K5 (group 16) on the same frame, in turns with K3
+    order = torch.sort(-counts, stable=True).indices
+    cs = counts[order]
+    k4_args = (cs.reshape(-1, 16).amax(1).int().contiguous(),
+               geom[order].contiguous(), feat[order].contiguous(),
+               px[order].contiguous(), py[order].contiguous(),
+               cs.float()[:, None].contiguous())
+    k4_ms = time_cuda(lambda: rasterize_cuda.composite_lists_grouped(
+        *k4_args, 16, chunk), reps=30)
+    k5_ms = time_cuda(lambda: rasterize_cuda.composite_lists_unrolled(
+        geom, feat, counts, res // tile, tile, chunk, 16), reps=30)
+    again_ms = time_cuda(run, reps=30)
+    print(f"[K3] bench, medians of 30 in turns: K3 {ms:.4f} ms (with aux "
+          f"{aux_ms:.4f}), K4 {k4_ms:.4f}, K5 {k5_ms:.4f}, K3 again "
+          f"{again_ms:.4f}", flush=True)
     plain_ms = time_cuda(lambda: rz.composite_lists_plain(
         geom, feat, counts, px, py, chunk), reps=3, warmup=1)
     steps = sum(int(_chunk_steps(counts, c, chunk)[live].sum()) for c, live
                 in enumerate(_live_levels(geom, feat, counts, px, py, chunk)))
-    print(f"[K3] bench with aux: {aux_ms:.4f} ms", flush=True)
     return _list_record("K3",
                         "gaussiananything_tpu/ops/rasterize_pallas.py:59",
                         max_err, ms, plain_ms, steps, counts, tile * tile)
@@ -1093,33 +1107,58 @@ def k5_phase(dev):
                         tile * tile)
 
 
+def _stage_check(name, got, ref):
+    """A stage kernel's output against `stage_plain`'s; returns max|Δ|."""
+    import torch
+    err = float((got - ref).abs().max())
+    if not (torch.isfinite(got).all() and torch.allclose(
+            got, ref, atol=LIST_ATOL, rtol=LIST_RTOL)):
+        fail(f"{name} disagrees with its plain version: max|Δ| "
+             f"{err:.3g} of max|ref| {float(ref.abs().max()):.3g}")
+    return err
+
+
 def stages_phase(dev):
     """The eight stage instantiations (stage 0-3, row- and field-major)
-    against `stage_plain` on the card, on seeded splats at the shape of
-    `tools/kernel_stages.py`, to atol 2e-5 / rtol 1e-4; each timed and
-    bounded by the chunks its groups execute."""
+    against `stage_plain` on the card, to atol 2e-5 / rtol 1e-4, on seeded
+    splats at the shape of `tools/kernel_stages.py` and on its witness
+    scene (`make_witness`: tile 0 saturates at the end of chunk 1 while
+    its group runs on, where a per-tile exit would differ beyond the
+    tolerance; printed for stages 2 and 3); each timed and bounded by the
+    chunks its groups execute on the seeded scene."""
     import torch
     from gaussiananything_tpu_torch.ops import rasterize as rz
     from gaussiananything_tpu_torch.ops import rasterize_cuda
     from gaussiananything_tpu_torch.tools import kernel_stages as ks
 
     gmax, *row = ks.make_inputs(1, dev)
+    w_gmax, *w_row = ks.make_witness(1, dev)
     n_tiles, M, _ = row[0].shape
     P = row[2].shape[1]
     records = []
-    for field, args in ((False, tuple(row)), (True, ks.to_field_major(*row))):
+    for field in (False, True):
+        args = ks.to_field_major(*row) if field else tuple(row)
+        w_args = ks.to_field_major(*w_row) if field else tuple(w_row)
         for stage in range(4):
-            def run(fn):
-                return fn(stage, gmax, *args, ks.G, ks.CHUNK,
-                          field_major=field)
+            def run(fn, g=gmax, a=args, group=ks.G):
+                return fn(stage, g, *a, group, ks.CHUNK, field_major=field)
+            name = f"B{2 if field else 1}.{stage}"
             got, ref = run(rasterize_cuda.stage), run(rz.stage_plain)
             torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            name = f"B{2 if field else 1}.{stage}"
-            if not (torch.isfinite(got).all() and torch.allclose(
-                    got, ref, atol=LIST_ATOL, rtol=LIST_RTOL)):
-                fail(f"{name} disagrees with its plain version: max|Δ| "
-                     f"{err:.3g} of max|ref| {float(ref.abs().max()):.3g}")
+            err = _stage_check(name, got, ref)
+            w_got = run(rasterize_cuda.stage, w_gmax, w_args)
+            w_ref = run(rz.stage_plain, w_gmax, w_args)
+            w_err = _stage_check(f"{name} (witness)", w_got, w_ref)
+            # the per-tile exit the kernel must not take: tile 0's T
+            twin = run(rz.stage_plain, w_gmax.repeat_interleave(ks.G),
+                       w_args, 1)
+            pick = (lambda x: x[0, 0]) if field else (lambda x: x[0, :, 0])
+            gap = float((pick(twin) - pick(w_ref)).abs().max())
+            print(f"[stages] {name} witness: max|Δ| {w_err:.3g}; a per-tile "
+                  f"exit would differ on tile 0's T by {gap:.3g}", flush=True)
+            if stage >= 2 and gap <= LIST_ATOL:
+                fail(f"the witness scene does not witness the group test "
+                     f"({name}: {gap:.3g})")
             ms = time_cuda(lambda: run(rasterize_cuda.stage), reps=20)
             plain_ms = time_cuda(lambda: run(rz.stage_plain), reps=3,
                                  warmup=1)
@@ -1148,8 +1187,9 @@ def stages_phase(dev):
                   flush=True)
             tool = "tools/pallas_bisect2.py:30" if field else \
                 "tools/pallas_bisect.py:25"
-            records.append(_record(name, "rasterize_v1.cu", tool, err, ms,
-                                   plain_ms, n_bytes, n_ops))
+            records.append(_record(name, "rasterize_v1.cu", tool,
+                                   max(err, w_err), ms, plain_ms, n_bytes,
+                                   n_ops))
     return records
 
 

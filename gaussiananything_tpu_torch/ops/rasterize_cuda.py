@@ -23,8 +23,8 @@
     `_make_unrolled_kernel` (`:555`); K4 launches a thread-block cluster
     per group (`cluster_size`, `cluster_limit`). `stage` launches the
     stage-cut instantiations, the counterparts of `make_kernel(stage)` in
-    `tools/pallas_bisect.py:25` and `tools/pallas_bisect2.py:30`. Source
-    `csrc/rasterize_v1.cu`.
+    `tools/pallas_bisect.py:25` and `tools/pallas_bisect2.py:30`, each
+    group one cluster (`stage_clusters`). Source `csrc/rasterize_v1.cu`.
 
 The design notes on what bounds each kernel are in the CUDA sources. Each
 source is compiled with `nvcc` for `sm_90a` into a shared library with a
@@ -65,7 +65,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 # rows a kernel stages per chunk
 MAX_CHUNK = {"fwd": 256, "bwd": 128, "seg": 256, "v1": 256}
-MAX_SHARED = 232448     # bytes of shared memory a block of this card can use
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -150,18 +149,18 @@ def _library(name: str) -> ctypes.CDLL:
             seg.ga_composite_v4_seg.argtypes = \
                 [ptr] * 4 + [i] * 4 + [ptr] * 2
             v1 = ctypes.CDLL(paths["v1"])
-            v1.ga_composite_lists.argtypes = [ptr] * 3 + [i] * 7 + [ptr] * 2
+            v1.ga_composite_lists.argtypes = [ptr] * 4 + [i] * 7 + [ptr] * 2
             v1.ga_composite_lists_unrolled.argtypes = \
                 [ptr] * 4 + [i] * 7 + [ptr] * 2
             v1.ga_composite_lists_grouped.argtypes = \
                 [ptr] * 6 + [i] * 6 + [ptr] * 2
             v1.ga_stage.argtypes = [i] * 2 + [ptr] * 5 + [i] * 5 + [ptr] * 2
             v1.ga_grouped_clusters.argtypes = [i] * 3
-            v1.ga_stage_shared_bytes.argtypes = [i] * 3
+            v1.ga_stage_clusters.argtypes = [i] * 5
             for fn in (seg.ga_composite_v4_seg, v1.ga_composite_lists,
                        v1.ga_composite_lists_unrolled,
                        v1.ga_composite_lists_grouped, v1.ga_stage,
-                       v1.ga_grouped_clusters, v1.ga_stage_shared_bytes):
+                       v1.ga_grouped_clusters, v1.ga_stage_clusters):
                 fn.restype = i
             _libs.update(fwd=fwd, bwd=bwd, seg=seg, v1=v1)
     return _libs[name]
@@ -492,8 +491,8 @@ def _check_lists(geom, feat, n_tiles, chunk, tile=None, P=None):
 def _composite_natural(wrapper, kernel, geom, feat, counts, tiles_x, tile,
                        chunk, row0, with_aux=False, group=None):
     """K3 (`group` None) or K5 on tiles in natural order: the plain version
-    for CPU tensors, else one launch, counted on `wrapper`. Returns
-    (T, tile², LIST_OUT_W)."""
+    for CPU tensors, else one launch, counted on `wrapper`, whose blocks
+    take the tiles heaviest first. Returns (T, tile², LIST_OUT_W)."""
     n_tiles = counts.shape[0]
     if group is not None and (group < 1 or n_tiles % group):
         raise ValueError(f"{n_tiles} tiles are not a multiple of the group "
@@ -507,18 +506,17 @@ def _composite_natural(wrapper, kernel, geom, feat, counts, tiles_x, tile,
     _check(counts, "counts", torch.int32, (n_tiles,))
     out = torch.empty((n_tiles, tile * tile, rz.LIST_OUT_W),
                       dtype=torch.float32, device=geom.device)
+    # the tiles by descending count, which the launch writes
+    order = torch.empty(n_tiles, dtype=torch.int32, device=geom.device)
     stream = torch.cuda.current_stream(geom.device).cuda_stream
     lib = _library("v1")
     with _logged(kernel):
         if group is None:
             err = lib.ga_composite_lists(
-                geom.data_ptr(), feat.data_ptr(), counts.data_ptr(), n_tiles,
-                M, tiles_x, tile, chunk, row0, int(with_aux), out.data_ptr(),
-                stream)
+                geom.data_ptr(), feat.data_ptr(), counts.data_ptr(),
+                order.data_ptr(), n_tiles, M, tiles_x, tile, chunk, row0,
+                int(with_aux), out.data_ptr(), stream)
         else:
-            # the tiles by descending count, which the kernel writes
-            order = torch.empty(n_tiles, dtype=torch.int32,
-                                device=geom.device)
             err = lib.ga_composite_lists_unrolled(
                 geom.data_ptr(), feat.data_ptr(), counts.data_ptr(),
                 order.data_ptr(), n_tiles, M, tiles_x, tile, chunk, group,
@@ -532,7 +530,8 @@ def composite_lists(geom: torch.Tensor, feat: torch.Tensor,
                     counts: torch.Tensor, tiles_x: int, tile: int,
                     chunk: int, row0: int = 0, with_aux: bool = False
                     ) -> torch.Tensor:
-    """K3: composite every tile's dense list, one block per tile.
+    """K3: composite every tile's dense list, one block per tile, the
+    tiles heaviest first, each leaving once its tile is saturated.
 
     geom (T, M, GEOM_W), feat (T, M, FEAT_W) float32 from
     `rasterize.pack_tile_inputs`, counts (T,) int32; tile t covers the
@@ -650,13 +649,40 @@ def composite_lists_grouped(gmax: torch.Tensor, geom: torch.Tensor,
 composite_lists_grouped.launches = 0
 
 
+_stage_cluster_counts: Dict[tuple, int] = {}
+
+
+def stage_clusters(stage_id: int, field_major: bool, group: int, P: int,
+                   chunk: int) -> int:
+    """How many clusters of `group` blocks of the stage kernel (P threads
+    at `chunk`) the card holds at once (`cudaOccupancyMaxActiveClusters`):
+    0 where it schedules no such cluster, above CLUSTER_MAX blocks among
+    them."""
+    lib = _library("v1")
+    key = (id(lib), stage_id, bool(field_major), group, P, chunk)
+    if key not in _stage_cluster_counts:
+        n = lib.ga_stage_clusters(stage_id, int(field_major), group, P, chunk)
+        _raise_on(max(-n, 0), "stage")
+        _stage_cluster_counts[key] = n
+    return _stage_cluster_counts[key]
+
+
 def stage(stage_id: int, gmax: torch.Tensor, geom: torch.Tensor,
           feat: torch.Tensor, px: torch.Tensor, py: torch.Tensor, group: int,
           chunk: int, field_major: bool = False) -> torch.Tensor:
     """K4 cut off after stage `stage_id` (0..3), on row-major or
     field-major inputs: shapes and result as `rasterize.stage_plain`, which
-    CPU tensors take. CUDA tensors launch the instantiation and count one
-    launch in `stage.launches[(stage_id, field_major)]`."""
+    CPU tensors take. CUDA tensors launch the instantiation, a block per
+    tile and each group of `group` tiles ONE thread-block cluster, and
+    count one launch in `stage.launches[(stage_id, field_major)]`.
+
+    The kernels have no prune, so a saturated tile whose group is live
+    walks on and its sums show it: the group test cannot be split per tile
+    or per part of a group. A `group` the card does not schedule as one
+    cluster at this P and chunk (above CLUSTER_MAX, or too large for its
+    occupancy; `stage_clusters`) raises ValueError before the launch, as
+    does a field-major chunk that is not a multiple of 4 rows (each field's
+    run of the chunk is one 16-byte aligned bulk copy)."""
     if stage_id not in (0, 1, 2, 3):
         raise ValueError(f"stage must be 0..3, got {stage_id}")
     if geom.device.type == "cpu":
@@ -675,17 +701,27 @@ def stage(stage_id: int, gmax: torch.Tensor, geom: torch.Tensor,
     if group < 1 or n_tiles % group or M % chunk:
         raise ValueError(f"{n_tiles} tiles of {M} rows do not split into "
                          f"groups of {group} and chunks of {chunk}")
+    if not 1 <= chunk <= MAX_CHUNK["v1"]:
+        raise ValueError(f"the kernel stages at most {MAX_CHUNK['v1']} "
+                         f"splats a chunk, got {chunk}")
+    if field_major and chunk % 4:
+        raise ValueError(f"field-major chunks are copied a field at a time "
+                         f"in 16-byte runs: chunk must be a multiple of 4, "
+                         f"got {chunk}")
     _check(geom, "geom", torch.float32, shapes[0])
     _check(feat, "feat", torch.float32, shapes[1])
     _check(px, "px", torch.float32, shapes[2])
     _check(py, "py", torch.float32, shapes[2])
     _check(gmax, "gmax", torch.int32, (n_tiles // group,))
+    if geom.data_ptr() % 16 or feat.data_ptr() % 16:
+        raise ValueError("the kernels copy geom and feat in 16-byte runs: "
+                         "both must be 16-byte aligned")
+    if stage_clusters(stage_id, field_major, group, P, chunk) < 1:
+        raise ValueError(f"the card schedules no cluster of {group} blocks "
+                         f"of {P} threads at chunk {chunk}: a group of the "
+                         f"stage kernels runs as one cluster (at most "
+                         f"{CLUSTER_MAX} blocks)")
     lib = _library("v1")
-    need = lib.ga_stage_shared_bytes(group, P, chunk)
-    if need > MAX_SHARED:
-        raise ValueError(f"a group of {group} tiles of {P} pixels at chunk "
-                         f"{chunk} needs {need} bytes of shared memory, the "
-                         f"card gives a block {MAX_SHARED}")
     out = torch.empty(shapes[3], dtype=torch.float32, device=geom.device)
     stream = torch.cuda.current_stream(geom.device).cuda_stream
     name = f"B{2 if field_major else 1}.{stage_id}"

@@ -1,10 +1,11 @@
 """Where the kernels' time goes on the card: K2a's and K2b's time split
 into the phases of their design, and the block timelines of the list
-kernels K4 and K5, from instrumented copies of their sources.
+kernels K3, K4, K5 and of the stage kernels, from instrumented copies of
+their sources.
 
     python -m gaussiananything_tpu_torch.tools.kernel_attribution \\
-        [--root DIR] [--cases "train 512" ... bench defaults] [--reps 20] \\
-        [--out FILE]
+        [--root DIR] [--cases "train 512" ... bench defaults stages] \\
+        [--reps 20] [--out FILE] [--save FILE] [--against FILE]
 
 `--root` names the checkout whose kernels are measured (default: this
 one); another checkout's package, e.g. an earlier commit unpacked with
@@ -32,14 +33,29 @@ chunk 256.
 
 The list cases ("bench": 512², tile 16, `max_per_tile` 2048, chunk 256;
 "defaults": the defaults of `rasterize_tiled_v2`/`_v3`, tile 8,
-`max_per_tile` 512, chunk 128) time K3, K4 and K5 whole, check that K4's
-and K5's outputs equal K3's (aux off) bit for bit and that two runs are
-bit-equal, and read a stamped copy of K4 and of K5: every block's start
-and end (%globaltimer) and SM (%smid), which give the span, the tail after
-the median block, the longest block and its start, and the number of SMs
-the blocks ran on; beside them the blocks (and clusters) per SM that
+`max_per_tile` 512, chunk 128) time K3 (with and without aux), K4 and K5
+whole, check that K4's and K5's outputs equal K3's (aux off) bit for bit
+and that two runs are bit-equal; the case "stages" times the eight stage
+instantiations at the stage tool's shape. Beside each median of single
+calls ("ms") stands "batched ms": `--reps` calls back to back between two
+events, over their count, the card's time without the host's way to each
+launch. Each of those kernels is read
+through a stamped copy: every block's start and end (%globaltimer) and SM
+(%smid), which give the span, the tail after the median block, the longest
+block and its start, and the number of SMs the blocks ran on; beside them
+the blocks (and clusters) per SM that
 `cudaOccupancyMaxActiveBlocksPerMultiprocessor` (and
-`cudaOccupancyMaxActiveClusters`) give for the launch.
+`cudaOccupancyMaxActiveClusters`) give for the launch (of the stamped
+copy, whose stamps may cost registers); the stamped K3 and stage copies
+also split thread 0's SM cycles into the vote (the saturation or group
+test), the feed (issuing a copy and waiting for its chunk) and the walk,
+and a cut copy with products in place of the ray-splat form's two
+divisions times K3 and the stage kernels without them; copies that walk
+one or four rows side by side in place of two time every kernel with the
+same results. `--save` writes
+K3's and the stage kernels' outputs to a file, `--against` compares this
+run's with such a file: K3 bit for bit, the stages within atol 2e-5 / rtol
+1e-4 (a parent checkout through `--root --save`, then this one).
 
 One JSON line per (kernel, case), the card's name and power limit first.
 Needs the card and nvcc.
@@ -47,6 +63,7 @@ Needs the card and nvcc.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import inspect
 import json
@@ -65,6 +82,9 @@ CASES = {"train 128": (768, 128, 1024), "train 256": (6144, 256, 1024),
 # group), as `chip_smoke.py` runs the list kernels
 LIST_CASES = {"bench": (73728, 512, 16, 2048, 256, 16, 16),
               "defaults": (73728, 512, 8, 512, 128, 16, 8)}
+# the stage kernels at the stage tool's shape (8 groups of 8 tiles of 256
+# pixels, 4 chunks of 256 rows), its seeded inputs
+STAGE_CASES = ("stages",)
 CHUNK = 128
 FWD_CHUNK = 256     # the serving path's chunk, where K1 and K6 are timed
 MAX_BLOCKS = 16384
@@ -256,67 +276,45 @@ DESIGNS = {
 }
 
 
-# The list kernels' copies, as DESIGNS. An edit whose `old` is None appends
-# `new` to the file: `ga_occupancy(kernel 4 or 5, P, chunk, group, *blocks,
-# *clusters)` writes the blocks per SM (and for a cluster launch the active
-# clusters) the occupancy calculator gives for the wrapper's launch. The
-# earlier design's anchors measure an earlier checkout through `--root`
-# (the before-and-after of PERF.md rests on them); a design's anchors go
-# once no number in PERF.md does.
+# The list and stage kernels' copies, as DESIGNS, one stamped copy per
+# source kernel: "K3" (both `aux` instantiations), "K4", "K5" and "stages"
+# (the eight instantiations). An edit whose `old` is None appends `new` to
+# the file: `ga_occupancy(kernel, P, chunk, group, *blocks, *clusters)`
+# writes the blocks per SM (and for a cluster launch the active clusters)
+# the occupancy calculator gives for the wrapper's launch, `kernel` 3, 4 or
+# 5, or 10 + 4·field_major + stage. A design's anchors measure an earlier
+# checkout through `--root` (the before-and-after of PERF.md rests on
+# them); each later redesign keeps only its parent's.
 _STAMP_END = "  GA_END();\n}\n"
-LIST_DESIGNS = {
-    # the design before the clusters: K4 one block per count-sorted group, the G tiles'
-    # states in shared memory, the tiles walked one after another each
-    # chunk; K5 one block per G consecutive tiles, walked one after another
-    "shared-state": {
-        "K4": {"stamps": {"rasterize_v1.cu": [
-            ("  float* state =\n      reinterpret_cast<float*>(rows + chunk * "
-             "(kGeomF4 + kFeatF4));\n",
-             "  GA_BEGIN();\n  float* state =\n      reinterpret_cast<float*>"
-             "(rows + chunk * (kGeomF4 + kFeatF4));\n"),
-            ("    store_list_pixel(s, out + ((size_t)(g * group + j) * P + "
-             "lid) * kOutW);\n  }\n}\n",
-             "    store_list_pixel(s, out + ((size_t)(g * group + j) * P + "
-             "lid) * kOutW);\n  }\n" + _STAMP_END),
-            (None, """
-extern "C" int ga_occupancy(int kernel, int P, int chunk, int group,
-                            int* blocks, int* clusters) {
-  *clusters = 0;
-  if (kernel == 4) {
-    const int smem = ga_grouped_shared_bytes(group, P, chunk);
-    const cudaError_t err = allow_shared(composite_lists_grouped_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, composite_lists_grouped_kernel, P, smem);
-  }
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, composite_lists_unrolled_kernel, P, rows_bytes(chunk));
+# `ga_occupancy` for a design's source; the placeholders name what differs
+# between designs
+_OCCUPANCY = """
+template <typename Kernel>
+int stage_occupancy(Kernel kernel, int stage, bool field, int P, int chunk,
+                    int group, int* blocks, int* clusters) {
+  const int smem = %(stage_smem)s;
+  const cudaError_t err = %(stage_prepare)s;
+  if (err != cudaSuccess) return (int)err;%(stage_clusters)s
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                            P, smem);
 }
-"""),
-        ]}},
-        "K5": {"stamps": {"rasterize_v1.cu": [
-            ("  extern __shared__ float4 rows[];\n  for (int j = 0; j < group; "
-             "++j) {\n    const int t = blockIdx.x * group + j;\n",
-             "  extern __shared__ float4 rows[];\n  GA_BEGIN();\n"
-             "  for (int j = 0; j < group; ++j) {\n"
-             "    const int t = blockIdx.x * group + j;\n"),
-            ("                                 tiles_x, tile, chunk, row0, "
-             "rows, out);\n  }\n}\n",
-             "                                 tiles_x, tile, chunk, row0, "
-             "rows, out);\n  }\n" + _STAMP_END),
-        ]}},
-    },
-}
-_CLUSTER_OCCUPANCY = (None, """
 extern "C" int ga_occupancy(int kernel, int P, int chunk, int group,
                             int* blocks, int* clusters) {
   const int smem = list_buffers_bytes(chunk);
   *clusters = 0;
+  if (kernel == 3) {
+    const int k3_smem = %(k3_smem)s;
+    const cudaError_t err = allow_shared(composite_lists_kernel<false>,
+                                         k3_smem);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, composite_lists_kernel<false>, P, k3_smem);
+  }
   if (kernel == 4) {
-    const cudaError_t err = prepare_grouped(smem);
+    const cudaError_t err = %(k4_prepare)s;
     if (err != cudaSuccess) return (int)err;
     for (int size = 16; size >= 1; --size) {
-      if (group % size) continue;
+      if (group %% size) continue;
       *clusters = ga_grouped_clusters(size, P, chunk);
       if (*clusters < 0) return -*clusters;
       if (*clusters > 0) break;
@@ -324,40 +322,168 @@ extern "C" int ga_occupancy(int kernel, int P, int chunk, int group,
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks, composite_lists_grouped_kernel, P, smem);
   }
+  if (kernel >= 10 && kernel < 18) {
+    const int s = (kernel - 10) %% 4;
+    const bool f = kernel >= 14;
+#define GA_OCC(S, F) if (s == S && f == F) return stage_occupancy( \
+    stage_kernel<S, F>, S, F, P, chunk, group, blocks, clusters);
+    GA_OCC(0, false) GA_OCC(1, false) GA_OCC(2, false) GA_OCC(3, false)
+    GA_OCC(0, true) GA_OCC(1, true) GA_OCC(2, true) GA_OCC(3, true)
+#undef GA_OCC
+  }
   const cudaError_t err = allow_shared(composite_lists_unrolled_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, composite_lists_unrolled_kernel, P, smem);
 }
-""")
-# the current design: K4 a block per tile, a cluster per group, the states
-# in registers, the group test through distributed shared memory; K5 a
-# block per tile, heaviest first; both fed by bulk copies into a double
-# buffer
-LIST_DESIGNS["cluster"] = {
-    "K4": {"stamps": {"rasterize_v1.cu": [
-        ("  __shared__ int live[2];          // this block's vote, by chunk "
-         "parity\n",
-         "  __shared__ int live[2];\n  GA_BEGIN();\n"),
-        ("  cluster.sync();   // no block leaves while another may read its "
-         "votes\n}\n",
-         "  cluster.sync();\n" + _STAMP_END),
-        _CLUSTER_OCCUPANCY,
-    ]}},
-    "K5": {"stamps": {"rasterize_v1.cu": [
-        ("  const int t = order[blockIdx.x];\n",
-         "  const int t = order[blockIdx.x];\n  GA_BEGIN();\n"),
-        ("    __syncthreads();    // the readers of buffer c & 1, before chunk "
-         "c + 2\n  }\n  store_list_pixel(s, out + ((size_t)t * blockDim.x + "
-         "lid) * kOutW);\n}\n",
-         "    __syncthreads();\n  }\n  store_list_pixel(s, out + ((size_t)t "
-         "* blockDim.x + lid) * kOutW);\n" + _STAMP_END),
-        _CLUSTER_OCCUPANCY,
-    ]}},
+"""
+_CLUSTER_OCCUPANCY = (None, _OCCUPANCY % {
+    "stage_smem": "ga_stage_shared_bytes(group, P, chunk)",
+    "stage_prepare": "allow_shared(kernel, smem)", "stage_clusters": "",
+    "k3_smem": "rows_bytes(chunk)", "k4_prepare": "prepare_grouped(smem)"})
+_PAIRED_OCCUPANCY = (None, _OCCUPANCY % {
+    "stage_smem": "list_buffers_bytes(chunk)",
+    "stage_prepare": "prepare_cluster(kernel, smem)",
+    "stage_clusters": "\n  *clusters = ga_stage_clusters(stage, field, group, "
+                      "P, chunk);\n  if (*clusters < 0) return -*clusters;",
+    "k3_smem": "smem",
+    "k4_prepare": "prepare_cluster(composite_lists_grouped_kernel, smem)"})
+# a cut copy (wrong results, read for its time): the ray-splat form's two
+# IEEE divisions become products
+_PRODUCTS = {"rasterize_v1.cu": [(
+    "    u[j] = p0[j] / safe[j];\n    v[j] = p1[j] / safe[j];\n",
+    "    u[j] = p0[j] * safe[j];\n    v[j] = p1[j] * safe[j];\n")]}
+# the walk with another number of rows side by side (its results are the
+# kernel's, bit for bit; read for its time)
+_WALK_ROWS = {
+    f"{word} at a time": {"rasterize_v1.cu": [(
+        "constexpr int kWalkRows = 2;",
+        f"constexpr int kWalkRows = {rows};")]}
+    for word, rows in (("one row", 1), ("four rows", 4))}
+# the phases of the stamped copies that mark them (thread 0's SM cycles)
+LIST_PHASES = {0: "prologue and epilogue", 1: "vote", 2: "feed",
+               3: "walk"}
+LIST_DESIGNS = {
+    # the cluster design: K3 a block per tile in natural order, its rows
+    # staged by synchronous copies, walked one row at a time; K4 a block per
+    # tile, a cluster per group, the group test through distributed shared
+    # memory; K5 a block per tile, heaviest first, K4 and K5 fed by bulk
+    # copies into a double buffer; the stage kernels a block per group, the
+    # G tiles walked one after another each chunk, their states in shared
+    # memory
+    "cluster": {
+        "K3": {"stamps": {"rasterize_v1.cu": [
+            ("  extern __shared__ float4 rows[];\n  const int t = blockIdx.x;\n"
+             "  composite_tile<kAux, true>(geom, feat, t, counts[t], "
+             "max_per_tile, tiles_x,\n                             tile, "
+             "chunk, row0, rows, out);\n}\n",
+             "  extern __shared__ float4 rows[];\n  const int t = blockIdx.x;\n"
+             "  GA_BEGIN();\n  composite_tile<kAux, true>(geom, feat, t, "
+             "counts[t], max_per_tile, tiles_x, tile, chunk, row0, rows, "
+             "out);\n" + _STAMP_END),
+            _CLUSTER_OCCUPANCY]}},
+        "K4": {"stamps": {"rasterize_v1.cu": [
+            ("  __shared__ int live[2];          // this block's vote, by "
+             "chunk parity\n",
+             "  __shared__ int live[2];\n  GA_BEGIN();\n"),
+            ("  cluster.sync();   // no block leaves while another may read "
+             "its votes\n}\n",
+             "  cluster.sync();\n" + _STAMP_END),
+            _CLUSTER_OCCUPANCY]}},
+        "K5": {"stamps": {"rasterize_v1.cu": [
+            ("  const int t = order[blockIdx.x];\n",
+             "  const int t = order[blockIdx.x];\n  GA_BEGIN();\n"),
+            ("    __syncthreads();    // the readers of buffer c & 1, before "
+             "chunk c + 2\n  }\n  store_list_pixel(s, out + ((size_t)t * "
+             "blockDim.x + lid) * kOutW);\n}\n",
+             "    __syncthreads();\n  }\n  store_list_pixel(s, out + "
+             "((size_t)t * blockDim.x + lid) * kOutW);\n" + _STAMP_END),
+            _CLUSTER_OCCUPANCY]}},
+        "stages": {"stamps": {"rasterize_v1.cu": [
+            ("  const int g = blockIdx.x;\n  float* state = rows + chunk * "
+             "24;\n",
+             "  const int g = blockIdx.x;\n  GA_BEGIN();\n  float* state = "
+             "rows + chunk * 24;\n"),
+            ("        out[((size_t)t * P + lid) * kOutW + ch] = val;\n      }"
+             "\n    }\n  }\n}\n",
+             "        out[((size_t)t * P + lid) * kOutW + ch] = val;\n      }"
+             "\n    }\n  }\n" + _STAMP_END),
+            _CLUSTER_OCCUPANCY]}},
+    },
+    # the paired design: every kernel fed by bulk copies into a double
+    # buffer and walked two rows at a time; K3 a block per tile, heaviest
+    # first, leaving once its tile saturates; the stage kernels K4's grid, a
+    # group one cluster, the states in registers
+    "paired": {
+        "K3": {"stamps": {"rasterize_v1.cu": [
+            ("  ListState s;\n  int c = 0;\n  for (; c < n_chunks; ++c) {\n",
+             "  GA_BEGIN();\n  ListState s;\n  int c = 0;\n"
+             "  for (; c < n_chunks; ++c) {\n    GA_MARK(1);\n"),
+            ("    if (!__syncthreads_or(s.T > kTEps)) break;\n"
+             "    if (lid == 0 && c + 1 < n_chunks)\n",
+             "    if (!__syncthreads_or(s.T > kTEps)) break;\n    GA_MARK(2);\n"
+             "    if (lid == 0 && c + 1 < n_chunks)\n"),
+            ("    buf.wait(c);\n    composite_list_rows<kAux>(",
+             "    buf.wait(c);\n    GA_MARK(3);\n    composite_list_rows<kAux>("),
+            ("  // a copy started for a chunk the tile skips lands before exit\n",
+             "  GA_MARK(0);\n"),
+            ("  if (lid == 0 && c < n_chunks) buf.wait(c);\n  store_list_pixel("
+             "s, out + ((size_t)t * blockDim.x + lid) * kOutW);\n}\n",
+             "  if (lid == 0 && c < n_chunks) buf.wait(c);\n  store_list_pixel("
+             "s, out + ((size_t)t * blockDim.x + lid) * kOutW);\n"
+             + _STAMP_END),
+            _PAIRED_OCCUPANCY]},
+               "with products for the divisions": _PRODUCTS, **_WALK_ROWS,
+               "at 4 blocks per SM": {"rasterize_v1.cu": [(
+                   "template <bool kAux>\n__global__ void "
+                   "composite_lists_kernel(",
+                   "template <bool kAux>\n__global__ void "
+                   "__launch_bounds__(256, 4) composite_lists_kernel(")]}},
+        "K4": {"stamps": {"rasterize_v1.cu": [
+            ("  __shared__ int live[2];          // this block's votes, by "
+             "chunk parity\n",
+             "  __shared__ int live[2];\n  GA_BEGIN();\n"),
+            ("  store_list_pixel(s, out + ((size_t)t * P + lid) * kOutW);\n"
+             "  cluster.sync();   // no block leaves while another may read "
+             "its votes\n}\n",
+             "  store_list_pixel(s, out + ((size_t)t * P + lid) * kOutW);\n"
+             "  cluster.sync();\n" + _STAMP_END),
+            _PAIRED_OCCUPANCY]}, **_WALK_ROWS},
+        "K5": {"stamps": {"rasterize_v1.cu": [
+            ("  __syncthreads();\n  ListState s;\n"
+             "  for (int c = 0; c < n_chunks; ++c) {\n",
+             "  __syncthreads();\n  GA_BEGIN();\n  ListState s;\n"
+             "  for (int c = 0; c < n_chunks; ++c) {\n"),
+            ("    __syncthreads();    // the readers of buffer c & 1, before "
+             "chunk c + 2\n  }\n  store_list_pixel(s, out + ((size_t)t * "
+             "blockDim.x + lid) * kOutW);\n}\n",
+             "    __syncthreads();\n  }\n  store_list_pixel(s, out + "
+             "((size_t)t * blockDim.x + lid) * kOutW);\n" + _STAMP_END),
+            _PAIRED_OCCUPANCY]}, **_WALK_ROWS},
+        "stages": {"stamps": {"rasterize_v1.cu": [
+            ("  __shared__ int live[2];\n  const ChunkBuffers buf{rows, full, "
+             "chunk};\n",
+             "  __shared__ int live[2];\n  GA_BEGIN();\n"
+             "  const ChunkBuffers buf{rows, full, chunk};\n"),
+            ("    if (!cluster_any(cluster, live, c, s.T > kTEps)) break;\n"
+             "    if (c + 1 < c_end) issue(c + 1);\n    buf.wait(c);\n",
+             "    GA_MARK(1);\n"
+             "    if (!cluster_any(cluster, live, c, s.T > kTEps)) break;\n"
+             "    GA_MARK(2);\n    if (c + 1 < c_end) issue(c + 1);\n"
+             "    buf.wait(c);\n    GA_MARK(3);\n"),
+            ("  // a copy started for a chunk the group did not run lands "
+             "before exit\n", "  GA_MARK(0);\n"),
+            ("    o4[3] = zero;\n  }\n  cluster.sync();   // no block leaves "
+             "while another may read its votes\n}\n",
+             "    o4[3] = zero;\n  }\n  cluster.sync();\n" + _STAMP_END),
+            _PAIRED_OCCUPANCY]},
+            "with products for the divisions": _PRODUCTS, **_WALK_ROWS},
+    },
 }
-# the K5 copy reads its occupancy through the same appended function
-LIST_DESIGNS["shared-state"]["K5"]["stamps"]["rasterize_v1.cu"].append(
-    LIST_DESIGNS["shared-state"]["K4"]["stamps"]["rasterize_v1.cu"][-1])
+# the stamped copy of each source kernel and the wrappers' kernels it serves
+STAMPED_KERNELS = {"K3": ("K3", "K3 aux"), "K4": ("K4",), "K5": ("K5",),
+                   "stages": tuple(f"B{b}.{s}" for b in (1, 2)
+                                   for s in range(4))}
 
 
 def patched_csrc(csrc: str, dest: str, patches) -> str:
@@ -441,6 +567,24 @@ def _median_ms(fn, reps):
     return statistics.median(times)
 
 
+def _batched_ms(fn, n):
+    """Milliseconds per call of `fn` over `n` calls back to back between
+    two CUDA events: the card's time per launch once the host's enqueueing
+    runs ahead of it (a median of single calls, `_median_ms`, also counts
+    the host's way to each launch)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def _runners(rc, frames, forward=False):
     """{kernel: {case: fn}} calling the wrappers of the imported package;
     with `forward`, K1 and K6 too, at chunk FWD_CHUNK (their walk is
@@ -466,6 +610,19 @@ def _runners(rc, frames, forward=False):
             lambda a=(tab, pairs, starts, counts, bg, ct, *state, order, seg,
                       res, res): rc.composite_backward(*a, chunk=CHUNK))
     return out
+
+
+@contextlib.contextmanager
+def _copies(rc):
+    """A temporary directory for a measurement's copies; the wrappers build
+    from their own sources again after it."""
+    saved = (rc.SOURCES, rc.HEADERS, rc.BUILD_DIR)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            yield tmp
+    finally:
+        rc.SOURCES, rc.HEADERS, rc.BUILD_DIR = saved
+        rc._libs.clear()
 
 
 def _use(rc, csrc):
@@ -526,7 +683,7 @@ def measure(root: str, case_names, reps: int, log, out=None):
     phases = PHASES[design]
     recs = {(k, c): {"root": root, "design": design, "kernel": k, "case": c}
             for k in ("K2a", "K2b", "K1", "K6") for c in case_names}
-    with tempfile.TemporaryDirectory() as tmp:
+    with _copies(rc) as tmp:
         _use(rc, patched_csrc(csrc, os.path.join(tmp, "whole"), {}))
         for k, cases in _runners(rc, frames, forward=True).items():
             for c, fn in cases.items():
@@ -596,11 +753,33 @@ def _list_frame(dev, n, res, tile, mpt, chunk, group4, group5):
             "P": tile * tile}
 
 
+def _stage_frame(dev):
+    """The stage kernels' inputs at the stage tool's shape (seeded), both
+    layouts."""
+    from gaussiananything_tpu_torch.tools import kernel_stages as ks
+    gmax, *row = ks.make_inputs(1, dev)
+    return {"gmax": gmax, "row": tuple(row),
+            "field": tuple(ks.to_field_major(*row)), "group": ks.G,
+            "chunk": ks.CHUNK, "P": row[2].shape[1]}
+
+
 def _list_runners(rc, frames):
-    """{kernel: {case: fn}} of the list wrappers of the imported package."""
-    out = {"K3": {}, "K4": {}, "K5": {}}
+    """{kernel: {case: fn}} of the list and stage wrappers of the imported
+    package."""
+    out = {k: {} for k in ("K3", "K3 aux", "K4", "K5",
+                           *STAMPED_KERNELS["stages"])}
     for case, f in frames.items():
+        if case in STAGE_CASES:
+            for name in STAMPED_KERNELS["stages"]:
+                field, stage = name[1] == "2", int(name[-1])
+                out[name][case] = (
+                    lambda f=f, s=stage, fm=field: rc.stage(
+                        s, f["gmax"], *f["field" if fm else "row"],
+                        f["group"], f["chunk"], field_major=fm))
+            continue
         out["K3"][case] = lambda f=f: rc.composite_lists(*f["natural"])
+        out["K3 aux"][case] = lambda f=f: rc.composite_lists(
+            *f["natural"], with_aux=True)
         out["K4"][case] = lambda f=f: rc.composite_lists_grouped(
             *f["grouped"], f["group4"], f["chunk"])
         out["K5"][case] = lambda f=f: rc.composite_lists_unrolled(
@@ -608,22 +787,63 @@ def _list_runners(rc, frames):
     return out
 
 
-def measure_lists(root: str, case_names, reps: int, log, out=None):
-    """K3, K4 and K5 at the list cases: times, bit-equality with K3 and
-    between runs, and K4's and K5's block timelines and occupancy."""
+def _occupancy_code(kernel):
+    """`ga_occupancy`'s kernel number of a wrapper's kernel."""
+    if kernel.startswith("B"):
+        return 10 + 4 * (kernel[1] == "2") + int(kernel[-1])
+    return int(kernel[1])
+
+
+def _compare(recs, outputs, against):
+    """Each output saved by the run of `--save` against this run's: K3
+    bit for bit, the stage kernels within atol 2e-5 / rtol 1e-4."""
+    import torch
+    other = torch.load(against)
+    for key, got in outputs.items():
+        if key not in other:
+            continue
+        ref = other[key]
+        rec = recs[key]
+        rec["max_abs_vs_other"] = float((got - ref).abs().max())
+        rec["equal_to_other"] = bool(torch.equal(got, ref))
+        if key[0].startswith("B"):
+            rec["close_to_other"] = bool(torch.allclose(got, ref, atol=2e-5,
+                                                        rtol=1e-4))
+
+
+def measure_lists(root: str, case_names, reps: int, log, out=None,
+                  save=None, against=None):
+    """K3 (both aux), K4 and K5 at the list cases and the eight stage
+    instantiations at the stage case: times, K4's and K5's bit-equality
+    with K3 and between runs, every kernel's block timeline and occupancy
+    from its stamped copy. `save` writes K3's and the stages' outputs to a
+    file; `against` compares this run's with such a file."""
     import torch
     from gaussiananything_tpu_torch.ops import rasterize_cuda as rc
     csrc = os.path.dirname(rc.SOURCES["fwd"])
     design = design_of(csrc, LIST_DESIGNS)
     dev = torch.device("cuda")
-    frames = {c: _list_frame(dev, *LIST_CASES[c]) for c in case_names}
+    frames = {c: (_stage_frame(dev) if c in STAGE_CASES
+                  else _list_frame(dev, *LIST_CASES[c])) for c in case_names}
+    names = [k for kernels in STAMPED_KERNELS.values() for k in kernels]
     recs = {(k, c): {"root": root, "design": design, "kernel": k, "case": c}
-            for k in ("K3", "K4", "K5") for c in case_names}
-    with tempfile.TemporaryDirectory() as tmp:
+            for k in names for c in case_names
+            if (c in STAGE_CASES) == k.startswith("B")}
+    outputs = {}
+    with _copies(rc) as tmp:
         _use(rc, patched_csrc(csrc, os.path.join(tmp, "whole"), {}))
         runners = _list_runners(rc, frames)
         for c in case_names:
+            if c in STAGE_CASES:
+                for k in STAMPED_KERNELS["stages"]:
+                    outputs[(k, c)] = runners[k][c]().cpu()
+                    recs[(k, c)]["ms"] = _median_ms(runners[k][c], reps)
+                    recs[(k, c)]["batched ms"] = _batched_ms(runners[k][c],
+                                                             reps)
+                continue
             ref = runners["K3"][c]()
+            outputs[("K3", c)] = ref.cpu()
+            outputs[("K3 aux", c)] = runners["K3 aux"][c]().cpu()
             for k in ("K4", "K5"):
                 a, b = runners[k][c](), runners[k][c]()
                 nat = (lambda x: x[frames[c]["inv"]]) if k == "K4" else \
@@ -632,55 +852,83 @@ def measure_lists(root: str, case_names, reps: int, log, out=None):
                 recs[(k, c)]["runs_equal"] = bool(torch.equal(a, b))
                 recs[(k, c)]["max_abs_vs_K3"] = float(
                     (nat(a) - ref).abs().max())
-            for k in ("K3", "K4", "K5"):
+            for k in ("K3", "K3 aux", "K4", "K5"):
                 recs[(k, c)]["ms"] = _median_ms(runners[k][c], reps)
-            log(json.dumps(recs[("K3", c)]))
+                recs[(k, c)]["batched ms"] = _batched_ms(runners[k][c], reps)
+        if save:
+            torch.save(outputs, save)
+        if against:
+            _compare(recs, outputs, against)
         keep = False
         for line in rc.build_log.splitlines():
             if "Compiling entry" in line:
-                keep = "composite_lists" in line or "tile_order" in line
+                keep = any(w in line for w in ("composite_lists",
+                                               "tile_order", "stage_kernel"))
             if keep and any(w in line for w in ("Compiling entry",
                                                 "registers", "spill")):
                 log(f"ptxas: {line.strip()}")
-        for kernel, copies in LIST_DESIGNS[design].items():
-            _use(rc, patched_csrc(csrc, os.path.join(tmp, kernel),
-                                  copies["stamps"]))
-            for case, fn in _list_runners(rc, frames)[kernel].items():
-                rec = recs[(kernel, case)]
-                _, rec["timeline"] = _stamps(rc, "v1", fn)
-                rec["stamped ms"] = _median_ms(fn, reps)
-                f = frames[case]
-                lib = rc._library("v1")
-                lib.ga_occupancy.argtypes = [ctypes.c_int] * 4 + \
-                    [ctypes.c_void_p] * 2
-                blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
-                err = lib.ga_occupancy(
-                    int(kernel[1]), f["P"], f["chunk"],
-                    f["group4"] if kernel == "K4" else f["group5"],
-                    ctypes.byref(blocks), ctypes.byref(clusters))
-                if err:
-                    raise RuntimeError(f"occupancy query: error {err}")
-                rec["blocks_per_sm"] = blocks.value
-                rec["active_clusters"] = clusters.value
-                if kernel == "K4" and design == "cluster":
-                    rec["cluster"] = rc.cluster_size(
-                        f["group4"], rc.cluster_limit(f["P"], f["chunk"]))
-            for case in case_names:
-                log(json.dumps(recs[(kernel, case)]))
+        for source_kernel, copies in LIST_DESIGNS[design].items():
+            done = []
+            for i, (copy, patches) in enumerate(copies.items()):
+                _use(rc, patched_csrc(
+                    csrc, os.path.join(tmp, f"{source_kernel}{i}"), patches))
+                runners = _list_runners(rc, frames)
+                for kernel in STAMPED_KERNELS[source_kernel]:
+                    for case, fn in runners[kernel].items():
+                        rec = recs[(kernel, case)]
+                        if copy == "stamps":
+                            _stamped(rc, fn, frames[case], kernel, case, rec,
+                                     reps)
+                            done.append(rec)
+                        else:
+                            rec[f"{copy} ms"] = _median_ms(fn, reps)
+            for rec in done:
+                log(json.dumps(rec))
                 if out:
-                    with open(out, "a") as f:
-                        f.write(json.dumps(recs[(kernel, case)]) + "\n")
+                    with open(out, "a") as fh:
+                        fh.write(json.dumps(rec) + "\n")
     return list(recs.values())
+
+
+def _stamped(rc, fn, f, kernel, case, rec, reps):
+    """A stamped copy's block timeline, phase shares (where its source
+    marks them), time and occupancy, into `rec`."""
+    acc, rec["timeline"] = _stamps(rc, "v1", fn)
+    block = sum(acc[i] for i in LIST_PHASES)
+    if block and any(acc[i] for i in LIST_PHASES if i):
+        rec["block_cycle_shares"] = {
+            name: acc[i] / block for i, name in LIST_PHASES.items()}
+    rec["stamped ms"] = _median_ms(fn, reps)
+    lib = rc._library("v1")
+    lib.ga_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    group = f["group"] if case in STAGE_CASES else \
+        f["group4"] if kernel == "K4" else f["group5"]
+    err = lib.ga_occupancy(_occupancy_code(kernel), f["P"], f["chunk"],
+                           group, ctypes.byref(blocks),
+                           ctypes.byref(clusters))
+    if err:
+        raise RuntimeError(f"occupancy query: error {err}")
+    rec["blocks_per_sm"] = blocks.value
+    rec["active_clusters"] = clusters.value
+    if kernel == "K4":
+        rec["cluster"] = rc.cluster_size(
+            group, rc.cluster_limit(f["P"], f["chunk"]))
 
 
 def main(argv=None, log=print):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=None,
                     help="checkout whose kernels to measure (default: this)")
-    ap.add_argument("--cases", nargs="+", default=[*CASES, *LIST_CASES],
-                    choices=[*CASES, *LIST_CASES])
+    ap.add_argument("--cases", nargs="+",
+                    default=[*CASES, *LIST_CASES, *STAGE_CASES],
+                    choices=[*CASES, *LIST_CASES, *STAGE_CASES])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None, help="also write the lines here")
+    ap.add_argument("--save", default=None,
+                    help="write K3's and the stage kernels' outputs here")
+    ap.add_argument("--against", default=None,
+                    help="compare those outputs with a file of --save")
     ap.add_argument("--inner", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     here = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -691,8 +939,9 @@ def main(argv=None, log=print):
         env = dict(os.environ, PYTHONPATH=root)
         args = [sys.executable, os.path.abspath(__file__), "--inner",
                 "--root", root, "--reps", str(a.reps), "--cases", *a.cases]
-        if a.out:
-            args += ["--out", a.out]
+        for flag in ("out", "save", "against"):
+            if getattr(a, flag):
+                args += [f"--{flag}", os.path.abspath(getattr(a, flag))]
         return subprocess.run(args, env=env, check=True)
     from gaussiananything_tpu_torch.utils.device import resolve_device
     resolve_device("cuda")
@@ -704,11 +953,12 @@ def main(argv=None, log=print):
         os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
     recs = []
     train = [c for c in a.cases if c in CASES]
-    lists = [c for c in a.cases if c in LIST_CASES]
+    lists = [c for c in a.cases if c not in CASES]
     if train:
         recs += measure(root, train, a.reps, log, a.out)
     if lists:
-        recs += measure_lists(root, lists, a.reps, log, a.out)
+        recs += measure_lists(root, lists, a.reps, log, a.out, a.save,
+                              a.against)
     return recs
 
 

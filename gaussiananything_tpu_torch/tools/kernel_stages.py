@@ -15,6 +15,13 @@ first use; the build's seconds are printed once, then for each stage its
 first call's seconds, its steady milliseconds and the digest (the sum of the
 output state), as the JAX tools print them.
 
+On the card a tile is a block and a group of `--group` tiles one
+thread-block cluster, which tests the group's transmittance once per chunk:
+the card schedules clusters of at most 16 blocks, so `--group` is at most
+16 there (`rasterize_cuda.stage` refuses a group it cannot schedule as one
+cluster at the given pixels and chunk; `--chunk` a multiple of 4 for the
+field-major layout).
+
 Inputs: all ones, as in the JAX tools, or with `--seed` random splats (the
 inputs the tests and `chip_smoke.py` hold the kernels to `stage_plain`
 on). Shape: the JAX tools' 8 groups of 8 tiles of 256 pixels, 4 chunks of 256
@@ -34,6 +41,8 @@ from gaussiananything_tpu_torch.utils.device import resolve_device
 
 # the JAX tools' constants (`tools/pallas_bisect.py:9-11`)
 G, P, CHUNK, NC, NG = 8, 256, 256, 4, 8
+# the witness's tile 0 ends chunk 1 with T near this, below T_EPS = 1e-4
+WITNESS_T = 8e-5
 
 
 def make_inputs(seed: Optional[int], device, group: int = G, pixels: int = P,
@@ -84,6 +93,35 @@ def make_inputs(seed: Optional[int], device, group: int = G, pixels: int = P,
                  for x in (gmax, geom, feat, px, py))
 
 
+def make_witness(seed: int, device, group: int = G, pixels: int = P,
+                 chunk: int = CHUNK, n_chunks: int = NC, n_groups: int = NG
+                 ) -> Tuple[torch.Tensor, ...]:
+    """`make_inputs(seed)` with tile 0 saturating just below T_EPS at the
+    end of chunk 1 while its group partner, tile 1, stays live: the scene
+    on which a per-tile exit differs from the group test.
+
+    Tile 0's first two chunks are one splat far larger than the tile
+    (scale 1000 px, centred on it), opacity `op` with (1 - op)^(2·chunk) =
+    WITNESS_T, so every pixel ends chunk 1 near it; its later chunks are
+    the seeded splats, which keep shrinking T while the group runs on.
+    Tile 1's first two chunks keep their splats at 1/100 of their opacity
+    (T stays above 1e-2). Group 0 runs every chunk (gmax = M). Needs
+    `group` >= 2 and `n_chunks` >= 3."""
+    gmax, geom, feat, px, py = make_inputs(seed, device, group, pixels,
+                                           chunk, n_chunks, n_groups)
+    geom = geom.clone()
+    side = int(round(pixels ** 0.5))
+    head = 2 * chunk
+    op = 1.0 - WITNESS_T ** (1.0 / head)
+    cx, cy, scale = 0.5 * side, 0.5 * side, 1000.0
+    row = torch.tensor([scale, 0.0, cx, 0.0, scale, cy, 0.0, 0.0, 1.0, 0.0,
+                        0.0, 2.0, cx, cy, 2.0, op], dtype=geom.dtype)
+    geom[0, :head] = row.to(geom.device)
+    geom[1, :head, 15] *= 0.01
+    gmax[0] = geom.shape[1]
+    return gmax, geom, feat, px, py
+
+
 def to_field_major(geom, feat, px, py):
     """Row-major (T, M, F) inputs → the field-major layout (F, T, M) of
     `tools/pallas_bisect2.py`, pixel tables (1, T, P)."""
@@ -103,7 +141,9 @@ def main(argv: Optional[Sequence[str]] = None,
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--groups", type=int, default=NG)
-    ap.add_argument("--group", type=int, default=G)
+    ap.add_argument("--group", type=int, default=G,
+                    help="tiles per group: one thread-block cluster on the "
+                    "card, so at most 16 there")
     ap.add_argument("--pixels", type=int, default=P)
     ap.add_argument("--chunks", type=int, default=NC)
     ap.add_argument("--chunk", type=int, default=CHUNK)

@@ -593,6 +593,113 @@ def test_stage_kernels_match_plain(card, stage, field_major):
                             field_major=field_major), atol=2e-5, rtol=1e-4)
 
 
+def _stage_scene(card, scene, group):
+    """The stage tool's 64 tiles in groups of `group`, seeded (some groups'
+    gmax short of M) or its witness (tile 0 saturating at the end of chunk
+    1 while its group runs on)."""
+    from gaussiananything_tpu_torch.tools import kernel_stages as ks
+    make = ks.make_witness if scene == "witness" else ks.make_inputs
+    gmax, *row = make(1, card, group=group, n_groups=64 // group)
+    return gmax, row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["seeded", "witness"])
+@pytest.mark.parametrize("group", [1, 2, 8, 16])
+@pytest.mark.parametrize("field_major", [False, True])
+def test_stage_kernels_hold_plain_at_every_group(card, scene, group,
+                                                 field_major):
+    """Each group one cluster, up to 16 blocks: every stage against
+    `stage_plain` to atol 2e-5 / rtol 1e-4, on the seeded scene (some
+    groups stop at their gmax) and on the witness (a per-tile exit would
+    differ there)."""
+    from gaussiananything_tpu_torch.tools import kernel_stages as ks
+    gmax, row = _stage_scene(card, scene, group)
+    M = row[0].shape[1]
+    if scene == "seeded":
+        assert int(gmax.min()) < M
+    args = ks.to_field_major(*row) if field_major else row
+    assert rasterize_cuda.stage_clusters(3, field_major, group, ks.P,
+                                         ks.CHUNK) >= 1
+    for stage in range(4):
+        got = rasterize_cuda.stage(stage, gmax, *args, group, ks.CHUNK,
+                                   field_major=field_major)
+        ref = rz.stage_plain(stage, gmax, *args, group, ks.CHUNK,
+                             field_major=field_major)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-4)
+        assert torch.equal(got, rasterize_cuda.stage(
+            stage, gmax, *args, group, ks.CHUNK, field_major=field_major))
+
+
+@pytest.mark.cuda
+def test_stage_kernels_take_an_odd_row_major_chunk(card):
+    """The paired walk's last pair of an odd chunk holds one row."""
+    from gaussiananything_tpu_torch.tools import kernel_stages as ks
+    gmax, *row = ks.make_witness(2, card, chunk=31, n_chunks=4)
+    for stage in range(4):
+        torch.testing.assert_close(
+            rasterize_cuda.stage(stage, gmax, *row, ks.G, 31),
+            rz.stage_plain(stage, gmax, *row, ks.G, 31), atol=2e-5,
+            rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_stage_wrapper_refuses_a_group_or_chunk_it_cannot_run(card):
+    """A group is one cluster: 32 tiles, which the card does not schedule
+    as one cluster, raise before the launch (no launch counted); so does a
+    field-major chunk that is not a multiple of 4 (each field's run is one
+    16-byte aligned bulk copy). The C interface refuses both."""
+    from gaussiananything_tpu_torch.tools import kernel_stages as ks
+    gmax, row = _stage_scene(card, "seeded", 32)
+    assert rasterize_cuda.stage_clusters(2, False, 32, ks.P, ks.CHUNK) == 0
+    before = dict(rasterize_cuda.stage.launches)
+    with pytest.raises(ValueError, match="one cluster"):
+        rasterize_cuda.stage(2, gmax, *row, 32, ks.CHUNK)
+    gmax30, *row30 = ks.make_inputs(1, card, chunk=30, n_chunks=2)
+    field30 = ks.to_field_major(*row30)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        rasterize_cuda.stage(2, gmax30, *field30, ks.G, 30, field_major=True)
+    assert rasterize_cuda.stage.launches == before
+    lib = rasterize_cuda._library("v1")
+    stream = torch.cuda.current_stream(card).cuda_stream
+    out = torch.empty((64, ks.P, 16), device=card)
+    ptrs = [x.data_ptr() for x in (gmax, *row)]
+    assert lib.ga_stage(2, 0, *ptrs, 64, 32, ks.P, row[0].shape[1],
+                        ks.CHUNK, out.data_ptr(), stream) != 0
+    ptrs30 = [x.data_ptr() for x in (gmax30, *field30)]
+    assert lib.ga_stage(2, 1, *ptrs30, 64, ks.G, ks.P, 60, 30,
+                        out.data_ptr(), stream) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_aux", [False, True])
+def test_k3_takes_the_tiles_heaviest_first_and_repeats(card, with_aux):
+    """K3's blocks take the tiles by descending count, ties by id, on a
+    frame whose counts are not in that order; the output stays in natural
+    order, equal to the wrapper's and bit-equal run to run."""
+    geom, feat, counts, px, py = _lists(card, 6144, 256, 16, 512)
+    n_tiles, M = counts.shape[0], geom.shape[1]
+    heaviest = torch.sort(counts, descending=True, stable=True).indices
+    assert not torch.equal(heaviest, torch.arange(n_tiles, device=card))
+    lib = rasterize_cuda._library("v1")
+    order = torch.full((n_tiles,), -1, dtype=torch.int32, device=card)
+    out = torch.empty((n_tiles, 256, rz.LIST_OUT_W), device=card)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    assert lib.ga_composite_lists(
+        geom.data_ptr(), feat.data_ptr(), counts.data_ptr(),
+        order.data_ptr(), n_tiles, M, 16, 16, 128, 0, int(with_aux),
+        out.data_ptr(), stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(order, heaviest.int())
+    runs = [rasterize_cuda.composite_lists(geom, feat, counts, 16, 16, 128,
+                                           with_aux=with_aux)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(out, runs[0])
+    assert torch.equal(runs[0], runs[1])
+
+
 @pytest.mark.cuda
 def test_v1_fused_gradient_matches_plain_route(card):
     """`rasterize_tiled_v1_fused`: K3 forward, the K2a/K2b route recomputed

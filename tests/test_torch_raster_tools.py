@@ -130,23 +130,44 @@ def test_attribution_copies_fit_the_sources(tmp_path):
 
 
 def test_attribution_list_copies_fit_the_sources(tmp_path):
-    """The K4 and K5 copies of `kernel_attribution` apply to this checkout's
-    `rasterize_v1.cu` (each anchor once): its design is the cluster one,
-    not the shared-state groups it replaced, and each stamped copy carries
-    one start and one end stamp and the occupancy query."""
+    """The K3, K4, K5 and stage copies of `kernel_attribution` apply to
+    this checkout's `rasterize_v1.cu` (each anchor once): its design is the
+    paired one, not the cluster design it replaced; each stamped copy
+    carries one start and one end stamp and the occupancy query, each cut
+    copy none."""
     from gaussiananything_tpu_torch.tools import kernel_attribution as ka
     csrc = os.path.dirname(rasterize_cuda.SOURCES["v1"])
-    assert ka.design_of(csrc, ka.LIST_DESIGNS) == "cluster"
-    old = ka.LIST_DESIGNS["shared-state"]
+    assert ka.design_of(csrc, ka.LIST_DESIGNS) == "paired"
+    old = ka.LIST_DESIGNS["cluster"]
     with pytest.raises(ValueError, match="no design"):
-        ka.design_of(csrc, {"shared-state": old})
-    for kernel, copies in ka.LIST_DESIGNS["cluster"].items():
-        assert list(copies) == ["stamps"]
-        out = ka.patched_csrc(csrc, str(tmp_path / kernel),
-                              copies["stamps"])
-        with open(os.path.join(out, "rasterize_v1.cu")) as f:
-            text = f.read()
-        assert text.count("GA_BEGIN();") == 1, kernel
-        assert text.count("GA_END();") == 1, kernel
-        assert 'extern "C" int ga_occupancy(' in text
-        assert "ga_stamps" in text
+        ka.design_of(csrc, {"cluster": old})
+    assert set(ka.LIST_DESIGNS) == {"cluster", "paired"}
+    for kernel, copies in ka.LIST_DESIGNS["paired"].items():
+        assert list(copies)[0] == "stamps"
+        assert kernel in ka.STAMPED_KERNELS
+        for i, (copy, patches) in enumerate(copies.items()):
+            out = ka.patched_csrc(csrc, str(tmp_path / f"{kernel}{i}"),
+                                  patches)
+            with open(os.path.join(out, "rasterize_v1.cu")) as f:
+                text = f.read()
+            stamped = int(copy == "stamps")
+            assert text.count("GA_BEGIN();") == stamped, (kernel, copy)
+            assert text.count("GA_END();") == stamped, (kernel, copy)
+            assert text.count('extern "C" int ga_occupancy(') == stamped
+            assert text.count("ga_stamps") == stamped
+
+
+def test_attribution_copies_leave_the_wrappers_sources():
+    """After a measurement's copies the wrappers build from their own
+    sources again, so one run can take the training and the list cases in
+    turn (the second once read the first's deleted copy)."""
+    from gaussiananything_tpu_torch.tools import kernel_attribution as ka
+    before = (dict(rasterize_cuda.SOURCES), list(rasterize_cuda.HEADERS),
+              rasterize_cuda.BUILD_DIR)
+    csrc = os.path.dirname(rasterize_cuda.SOURCES["v1"])
+    with ka._copies(rasterize_cuda) as tmp:
+        ka._use(rasterize_cuda, ka.patched_csrc(csrc, tmp, {}))
+        assert rasterize_cuda.SOURCES != before[0]
+    assert (rasterize_cuda.SOURCES, rasterize_cuda.HEADERS,
+            rasterize_cuda.BUILD_DIR) == before
+    assert ka.design_of(csrc, ka.LIST_DESIGNS) == "paired"
