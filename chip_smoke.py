@@ -29,11 +29,21 @@ Phases, in order; any failure exits non-zero:
    batch cut to TRAIN_BATCH), checking losses, the step count, that
    parameters and EMA moved, the kernels' launch counts, and timing the
    step's stages;
-8. rasterizer tools: the rasterizer's own entry points at the release
+8. small adv train: an adversarial generator step (adaptive weight,
+   seeded VGG-LPIPS), a discriminator step and a two-micro-batch
+   accumulation step at small widths on the card against the CPU;
+9. adv train: the release VAE recipe at the `vae-release` preset's full
+   width through `cli/train_vae.py` (`--adv --lpips-npz --data-dir
+   --holdout 1 --canonicalize --eval-every 2`, 3 steps, then a resume),
+   on a 512² dataset that the port's `export_synthetic_dataset` writes
+   and seeded LPIPS weights that numpy writes, checking the kernels'
+   launch counts against the steps, discriminator steps and evaluations,
+   the losses, the evaluation PNGs and both networks' checkpoints;
+10. rasterizer tools: the rasterizer's own entry points at the release
    shape through `tools/rasterizer_timing.py --all`, `tools/bench.py` and
    `tools/kernel_stages.py`, checking every kernel's launch count against
    what the arguments predict;
-9. report: one JSON line of kernel records, the kernels launched, the
+11. report: one JSON line of kernel records, the kernels launched, the
    card's name and power limit, then the `{"ok": true, ...}` line last.
 
 It imports nothing of JAX; the port's package must sit beside this file.
@@ -53,6 +63,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -508,6 +519,35 @@ def _float64_witness(dev, scene, chunk):
             for name, got in (("kernel", kernel), ("plain float32", plain))}
 
 
+def _retained_backward_check(dev, scene, chunk):
+    """The adaptive GAN weight's pattern: gradients under two cotangents,
+    then the first again, through ONE K2a forward whose graph is retained
+    (K2b three times on the tensors it saved). Each must be bit-equal to
+    K2b after a fresh forward under the same cotangent."""
+    import torch
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+    tab, *frame = _k1_inputs(dev, *scene)
+    gen = torch.Generator().manual_seed(7)
+    cts = [torch.randn((rz.N_OUT,) + tuple(frame[-2:]),
+                       generator=gen).to(dev) for _ in range(2)]
+    leaf = tab.clone().requires_grad_(True)
+    buf = rasterize_cuda.composite_train(leaf, *frame, chunk=chunk)
+    got = [torch.autograd.grad((buf * ct).sum(), leaf, retain_graph=True)[0]
+           for ct in (cts[0], cts[1], cts[0])]
+    equal = [torch.equal(got[0], got[2])]
+    for ct, g in zip(cts, got):
+        fresh = tab.clone().requires_grad_(True)
+        want, = torch.autograd.grad((rasterize_cuda.composite_train(
+            fresh, *frame, chunk=chunk) * ct).sum(), fresh)
+        equal.append(torch.equal(g, want))
+    print(f"[K2b] three backwards through one retained K2a forward: "
+          f"bit-equal to each other and to fresh ones: {all(equal)}",
+          flush=True)
+    if not all(equal):
+        fail("K2b on a retained K2a forward differs from a fresh one")
+
+
 def k2b_phase(dev):
     """K2b (through the autograd Function, K2a in front) against the plain
     pair on the card: the gradient with respect to the 13-channel surfels
@@ -521,7 +561,9 @@ def k2b_phase(dev):
     phase prints. (On the other scenes dist is a difference of sums that
     cancel to its fp32 floor, and its true gradient is under the rounding
     of either version.) Every kernel gradient is taken twice and must be
-    bit-equal. Timed at every K2_TIMED case; the record is "train 512"."""
+    bit-equal, and at "train 512" three times through one retained K2a
+    forward (`_retained_backward_check`). Timed at every K2_TIMED case;
+    the record is "train 512"."""
     import torch
     from gaussiananything_tpu_torch.ops import rasterize as rz
     from gaussiananything_tpu_torch.ops import rasterize_cuda
@@ -596,6 +638,7 @@ def k2b_phase(dev):
     _print_k2_times("K2b", times)
 
     *scene, chunk = K2_CASES["train 512"]
+    _retained_backward_check(dev, scene, chunk)
     (tab, pairs, starts, counts, bg, ct, off, entries, n_exec, marks, order,
      seg, res, _) = backward_frame(scene, chunk)
     ms = times["train 512"]
@@ -1364,7 +1407,6 @@ def raster_tools_phase(dev):
     the bench (8 batches of 20 frames) and the stage tool. Launch counts
     are set to 0 just before and read just after, and must be what the
     arguments predict."""
-    import math
     from gaussiananything_tpu_torch.tools import (bench, kernel_stages,
                                                   rasterizer_timing)
 
@@ -1558,6 +1600,244 @@ def _train_run(dev, logdir):
     return launches
 
 
+def small_adv_train_phase(dev):
+    """The release recipe's steps at small widths on the card against the
+    same weights, batch and draws on the CPU: an adversarial generator
+    step (adaptive weight on, seeded VGG-LPIPS as the perceptual term), a
+    discriminator step, then a gradient accumulation step over two
+    micro-batches. The first two run at the warm-up's lr 0, so all three
+    see the same weights on both sides. Held: losses within 2e-3; the
+    gradient norms and the adaptive weight (a ratio of two gradient norms)
+    within 1e-2."""
+    import copy
+    import torch
+    from gaussiananything_tpu_torch.data.synthetic import make_batch
+    from gaussiananything_tpu_torch.models.vae import PointVAE
+    from gaussiananything_tpu_torch.train.losses import (PatchDiscriminator,
+                                                         VGGLPIPS)
+    from gaussiananything_tpu_torch.train.state import (TrainState,
+                                                        TrainStateConfig)
+    from gaussiananything_tpu_torch.train.vae_trainer import (
+        VAELossConfig, make_accum_train_step, make_disc_step,
+        make_train_step)
+    torch.manual_seed(0)
+    K, ZC = 48, 8
+    cpu = {"model": PointVAE(latent_num=K, z_channels=ZC, encoder_width=96,
+                             decoder_width=128, decoder_depth=2,
+                             decoder_heads=2, up_factors=(8,),
+                             up_depths=(1,), release_parity=False,
+                             with_encoder=True),
+           "disc": PatchDiscriminator(ch=32, layers=2),
+           "lpips": VGGLPIPS().requires_grad_(False)}
+    batch = make_batch(seed=0, batch=2, n_views_in=2, n_views_sup=2, res=64,
+                       n_pts=256, n_splats=512)
+    batch.pop("gt_gaussians")
+    loss_cfg = VAELossConfig(lod_resolutions=(32, 64), normal_start_step=0,
+                             dist_start_step=0, kl_anneal_steps=2,
+                             adv_weight=0.05)
+    tx_cfg = TrainStateConfig(lr=1e-3, warmup_steps=1)
+    gen = torch.Generator().manual_seed(2)
+    g_draws = {"noise": torch.randn((2, K, ZC), generator=gen),
+               "lpips_lod": 1}
+    d_draws = {"noise": torch.randn((2, K, ZC), generator=gen)}
+    a_draws = [{"noise": torch.randn((1, K, ZC), generator=gen),
+                "lpips_lod": i} for i in range(2)]
+    card = {k: copy.deepcopy(v).to(dev) for k, v in cpu.items()}
+    rows = {}
+    for name, m, device in (("cpu", cpu, torch.device("cpu")),
+                            ("card", card, dev)):
+        b = {k: v.to(device) for k, v in batch.items()}
+
+        def on(d):
+            return {k: (v.to(device) if torch.is_tensor(v) else v)
+                    for k, v in d.items()}
+
+        state = TrainState.create(m["model"])
+        dstate = TrainState.create(m["disc"])
+        g = make_train_step(m["model"], loss_cfg, tx_cfg,
+                            perceptual_net=m["lpips"],
+                            disc_model=m["disc"])(state, b,
+                                                  draws=on(g_draws))
+        d = make_disc_step(m["model"], m["disc"], loss_cfg, tx_cfg)(
+            dstate, b, draws=on(d_draws))
+        a = make_accum_train_step(m["model"], loss_cfg, 2, tx_cfg,
+                                  perceptual_net=m["lpips"],
+                                  disc_model=m["disc"])(
+            state, b, draws=[on(x) for x in a_draws])
+        rows[name] = {"g_total": g["total"], "g_loss": g["g_loss"],
+                      "adaptive_w": g["adaptive_w"],
+                      "g_grad_norm": g["grad_norm"], "d_loss": d["d_loss"],
+                      "accum_total": a["total"],
+                      "accum_grad_norm": a["grad_norm"]}
+        rows[name] = {k: float(v) for k, v in rows[name].items()}
+    rel = {k: abs(rows["card"][k] - v) / max(abs(v), 1e-30)
+           for k, v in rows["cpu"].items()}
+    print(f"[small adv train] card {json.dumps(rows['card'])}; CPU "
+          f"{json.dumps(rows['cpu'])}; relative differences "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in rel.items()})}",
+          flush=True)
+    bad = [k for k, v in rel.items()
+           if v > (1e-2 if k in ("adaptive_w", "g_grad_norm",
+                                 "accum_grad_norm") else 2e-3)]
+    if bad or not all(math.isfinite(v) for v in rows["card"].values()):
+        fail(f"the small adversarial steps on the card disagree with the "
+             f"CPU in {bad}")
+
+
+# the release-width adversarial run: a packed dataset of ADV_INSTANCES
+# instances (the last held out) of ADV_VIEWS 512² views, and the step
+# counts of the recipe's documented command
+ADV_INSTANCES, ADV_VIEWS, ADV_STEPS, ADV_EVAL_EVERY = 3, 8, 3, 2
+
+
+def _seeded_lpips_npz(path: str, seed: int = 0):
+    """VGG-LPIPS weights drawn from `seed` by numpy (He-scaled 3x3 kernels,
+    zero biases, positive 1x1 `lins`), written in the JAX package's npz
+    layout: flax HWIO kernels under params/net/features.N and
+    params/lins.k."""
+    import numpy as np
+    from gaussiananything_tpu_torch.train.losses import (_VGG_CONVS,
+                                                         LPIPS_CHANNELS)
+    from gaussiananything_tpu_torch.utils.param_io import save_params_npz
+    r = np.random.default_rng(seed)
+    tree, c_in = {"net": {}}, 3
+    for idx, ch in _VGG_CONVS:
+        tree["net"][f"features.{idx}"] = {
+            "kernel": (r.standard_normal((3, 3, c_in, ch))
+                       * math.sqrt(2.0 / (9 * c_in))).astype(np.float32),
+            "bias": np.zeros(ch, np.float32)}
+        c_in = ch
+    for k, ch in enumerate(LPIPS_CHANNELS):
+        tree[f"lins.{k}"] = {"kernel": np.abs(
+            r.standard_normal((1, 1, ch, 1)) * 0.1).astype(np.float32)}
+    save_params_npz(path, {"params": tree})
+
+
+def adv_train_phase(dev):
+    """The release VAE recipe at the `vae-release` preset's full width
+    through the port's training CLI, as its documented command runs it:
+    `--adv --adv-start 0 --lpips-npz W --data-dir D --holdout 1
+    --canonicalize --eval-every 2 --steps 3 --batch 2`, then `--resume`
+    for one step more. D is written by the port's
+    `export_synthetic_dataset` (ADV_INSTANCES instances of ADV_VIEWS 512²
+    views, through K1), W by `_seeded_lpips_npz`; both inside the counted
+    run. Cut: seeded random weights, procedural scenes, 4 steps, batch 2
+    (the preset's 8 does not fit; PERF.md §4)."""
+    with tempfile.TemporaryDirectory() as root:
+        return _adv_train_run(dev, root)
+
+
+def _adv_train_run(dev, root):
+    import torch
+    from gaussiananything_tpu_torch.cli import train_vae
+    from gaussiananything_tpu_torch.config import preset
+    from gaussiananything_tpu_torch.data.gbuffer import \
+        export_synthetic_dataset
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+
+    cfg = preset("vae-release")
+    data, npz = os.path.join(root, "data"), os.path.join(root, "lpips.npz")
+    logdir = os.path.join(root, "run")
+    args = ["--preset", "vae-release", "--adv", "--adv-start", "0",
+            "--lpips-npz", npz, "--data-dir", data, "--holdout", "1",
+            "--canonicalize", "--eval-every", str(ADV_EVAL_EVERY),
+            "--batch", str(TRAIN_BATCH), "--logdir", logdir, "--device",
+            str(dev)]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    rasterize_cuda.event_log = []
+    seconds, timers = {}, []
+    try:
+        t0 = time.perf_counter()
+        export_synthetic_dataset(data, n_instances=ADV_INSTANCES,
+                                 n_views=ADV_VIEWS, res=cfg.data.resolution,
+                                 n_splats=cfg.data.n_points, device=dev)
+        torch.cuda.synchronize()
+        seconds["export"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _seeded_lpips_npz(npz)
+        seconds["lpips npz"] = time.perf_counter() - t0
+        peaks = {"export": torch.cuda.max_memory_allocated()}
+        runs = []
+        for name, extra in (("train", []), ("resume", [
+                "--resume", os.path.join(logdir, "ckpt")])):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = train_vae.main(
+                args + ["--steps", str(ADV_STEPS + len(runs))] + extra,
+                timers=timers)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            peaks[name] = torch.cuda.max_memory_allocated()
+            # keep the logs and step counts; the first run's networks go
+            # before the resume builds its own
+            runs.append({k: res[k] for k in ("logs", "d_logs", "evals")})
+            runs[-1]["steps"] = (res["state"].step, res["disc_state"].step)
+            del res
+        events = rasterize_cuda.event_log
+    finally:
+        rasterize_cuda.event_log = None
+    launches = _read_launches()
+    kernel_s = {k: sum(a.elapsed_time(b) for n, a, b in events if n == k)
+                / 1e3 for k in ("K1", "K2a", "K2b")}
+    used = {k: v for k, v in launches.items() if v}
+    print(f"[adv train] vae-release width, batch {TRAIN_BATCH}, "
+          f"{ADV_STEPS} + 1 steps; wall seconds "
+          f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
+          f"(model builds included); peak memory GiB "
+          f"{json.dumps({k: round(v / 2**30, 2) for k, v in peaks.items()})}"
+          f"; launches {json.dumps(used)}", flush=True)
+    logs, d_logs, evals = ([x for r in runs for x in r[k]]
+                           for k in ("logs", "d_logs", "evals"))
+    for i, (lg, tm) in enumerate(zip(logs, timers)):
+        print(f"[adv train] step {i}: total {lg['total']:.6g}, g_loss "
+              f"{lg['g_loss']:.6g}, adaptive_w {lg['adaptive_w']:.6g}, "
+              f"grad_norm {lg['grad_norm']:.6g}; seconds by stage "
+              f"{json.dumps({k: round(v, 4) for k, v in tm.items()})}",
+              flush=True)
+    print(f"[adv train] d_loss {[round(d['d_loss'], 6) for d in d_logs]}; "
+          f"evaluations {json.dumps(evals)}; kernel seconds (K1 in export, "
+          f"disc_step and eval, K2a in render, K2b in adversarial and "
+          f"backward): "
+          f"{json.dumps({k: round(v, 5) for k, v in kernel_s.items()})}",
+          flush=True)
+
+    steps = ADV_STEPS + 1
+    B, V, L = TRAIN_BATCH, cfg.data.n_views_sup, \
+        len(cfg.render.lod_resolutions)
+    n_disc = sum(i % 2 == 1 for i in range(steps))
+    n_eval = sum((i + 1) % ADV_EVAL_EVERY == 0 for i in range(steps))
+    expect = {
+        # export, the discriminator's finest render, the held-out batch of
+        # one instance at every LoD
+        "K1": ADV_INSTANCES * ADV_VIEWS + n_disc * B * V + n_eval * V * L,
+        "K2a": steps * B * V * L,
+        # the step's backward, and the adaptive weight's two gradients
+        # through the finest render the step's forward made
+        "K2b": steps * (B * V * L + 2 * B * V)}
+    expect.update({k: 0 for k in launches if k not in expect})
+    if launches != expect:
+        fail(f"launches {launches}, expected {expect}")
+    if runs[-1]["steps"][0] != steps or len(logs) != steps:
+        fail(f"the step counter is {runs[-1]['steps'][0]}")
+    if runs[-1]["steps"][1] != n_disc or len(d_logs) != n_disc:
+        fail(f"the discriminator took {runs[-1]['steps'][1]} steps, "
+             f"expected {n_disc}: it did not resume")
+    values = [lg[k] for lg in logs for k in ("total", "g_loss",
+                                             "adaptive_w", "grad_norm")]
+    values += [d["d_loss"] for d in d_logs]
+    values += [v for m in evals for v in m.values()]
+    if len(evals) != n_eval or not all(math.isfinite(v) for v in values):
+        fail("a loss, the adaptive weight or an evaluation is not finite")
+    for name in [f"eval/eval_{i + 1:07d}.png" for i in range(steps)
+                 if (i + 1) % ADV_EVAL_EVERY == 0] + [
+            f"ckpt/step_{steps:08d}.pt", f"ckpt_disc/step_{n_disc:08d}.pt"]:
+        path = os.path.join(logdir, name)
+        if not (os.path.exists(path) and os.path.getsize(path)):
+            fail(f"{name} was not written")
+    return launches
+
+
 def probe_one(batch: int):
     import torch
     from gaussiananything_tpu_torch.cli import train_vae
@@ -1612,10 +1892,12 @@ def main():
     paths = {"cascade": cascade_phase(dev)}
     small_train_phase(dev)
     paths["train"] = train_phase(dev)
+    small_adv_train_phase(dev)
+    paths["adv_train"] = adv_train_phase(dev)
     paths["raster_tools"] = raster_tools_phase(dev)
     for rec in records:
         # a kernel's launches over the main paths, each read just after its
-        # run: K1 is on all three, K2a and K2b on training and the tools
+        # run: K1 is on all of them, K2a and K2b on training and the tools
         rec["launches"] = sum(p.get(rec["name"], 0) for p in paths.values())
         if rec["launches"] < 1:
             fail(f"{rec['name']} was not launched on a main path")

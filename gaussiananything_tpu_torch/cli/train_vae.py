@@ -1,25 +1,32 @@
 """VAE training entry point (port of
-`gaussiananything_tpu/cli/train_vae.py`):
+`gaussiananything_tpu/cli/train_vae.py`; the reference's
+`scripts/vit_triplane_train.py` under
+`shell_scripts/release/train/stage-1-vae3d/vae3d-adv-512.sh`):
 
     python -m gaussiananything_tpu_torch.cli.train_vae --preset vae-release \
-        --steps 3 --batch 1 --logdir logs/vae
+        --adv --lpips-npz lpips_vgg.npz --data-dir data/ --holdout 1 \
+        --canonicalize --eval-every 500 --steps 1000 --batch 2 \
+        --logdir logs/vae
 
-Trains on seeded random weights and the procedural scenes of
-`data/synthetic.py`, on the card unless `--device cpu` is given. The GAN
-path, VGG-LPIPS weights, the packed g-buffer dataset, held-out evaluation
-and submodule warm starts of the JAX CLI are not ported; their flags are
-rejected by the parser.
+Weights start from a random draw of the config's seed (or `--resume`, or
+a grafted submodule); the data is the packed g-buffer dataset of `--data-dir`
+(`data/gbuffer.py`), else procedural scenes (`data/synthetic.py`). Runs on
+the card unless `--device cpu` is given; the JAX CLI's `--platform` is
+`--device` here.
 """
 from __future__ import annotations
 
 import argparse
+import glob
 import os
 import time
 
 
 def main(argv=None, timers=None):
     """Runs the training loop; returns {"state", "model", "logs" (one dict
-    of floats per step)}. `timers`: optional list that receives one
+    of floats per step), "disc_state" (None without `--adv`), "d_logs"
+    and "evals" (one dict of floats per discriminator step and per
+    evaluation)}. `timers`: optional list that receives one
     `StageTimer.seconds` dict per step (each stage then ends in a device
     synchronise)."""
     p = argparse.ArgumentParser(allow_abbrev=False)
@@ -28,11 +35,36 @@ def main(argv=None, timers=None):
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--logdir", default=None)
     p.add_argument("--batch", type=int, default=None)
+    p.add_argument("--adv", action="store_true",
+                   help="PatchGAN: adversarial weight 0.05, discriminator "
+                        "steps on odd steps")
+    p.add_argument("--adv-start", type=int, default=0,
+                   help="step from which the generator's adversarial term "
+                        "counts")
+    p.add_argument("--lpips-npz", default=None,
+                   help="VGG-LPIPS weights in the JAX package's npz layout "
+                        "(its save_params_npz of convert_lpips_vgg); "
+                        "default: the seeded pyramid")
     p.add_argument("--resume", default=None,
-                   help="checkpoint directory to continue from")
+                   help="checkpoint directory to continue from (and "
+                        "<resume>_disc for the discriminator)")
+    p.add_argument("--load-submodule", default=None, metavar="NAME=CKPT",
+                   help="warm start: graft one top-level submodule (e.g. "
+                        "encoder=/path/to/ckpt) from a checkpoint")
+    p.add_argument("--eval-every", type=int, default=500)
     p.add_argument("--save-every", type=int, default=1000)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--data-dir", default=None,
+                   help="packed g-buffer npz dataset; procedural scenes "
+                        "otherwise")
+    p.add_argument("--canonicalize", action="store_true",
+                   help="frame-0-as-canonical rebase of each sample's poses "
+                        "and point cloud")
+    p.add_argument("--holdout", type=int, default=0,
+                   help="with --data-dir: the LAST N instances are never "
+                        "trained on; each evaluation reports on one fixed "
+                        "batch of min(N, 4) of them")
     args = p.parse_args(argv)
 
     import torch
@@ -40,13 +72,17 @@ def main(argv=None, timers=None):
     from gaussiananything_tpu_torch.config import RunConfig, preset
     from gaussiananything_tpu_torch.data.synthetic import make_batch
     from gaussiananything_tpu_torch.models.vae import PointVAE
+    from gaussiananything_tpu_torch.train.evaluation import eval_novelview
     from gaussiananything_tpu_torch.train.logging import MetricLogger
+    from gaussiananything_tpu_torch.train.losses import PatchDiscriminator
     from gaussiananything_tpu_torch.train.state import (TrainState,
                                                         TrainStateConfig,
+                                                        load_submodule,
                                                         restore_checkpoint,
                                                         save_checkpoint)
     from gaussiananything_tpu_torch.train.vae_trainer import (StageTimer,
                                                               VAELossConfig,
+                                                              make_disc_step,
                                                               make_train_step)
     from gaussiananything_tpu_torch.utils.device import resolve_device
 
@@ -72,7 +108,58 @@ def main(argv=None, timers=None):
     n_params = sum(p.numel() for p in model.parameters())
     print(f"VAE params: {n_params / 1e6:.2f}M; device: {dev}", flush=True)
 
-    loss_cfg = VAELossConfig(lod_resolutions=cfg.render.lod_resolutions)
+    eval_batch_fixed = stream = None
+    if args.data_dir:
+        from gaussiananything_tpu_torch.data.gbuffer import MultiViewDataset
+        files = sorted(glob.glob(os.path.join(args.data_dir, "*.npz")))
+        if len(files) <= args.holdout:
+            raise ValueError(f"{len(files)} instances under {args.data_dir} "
+                             f"leave none to train on beside "
+                             f"--holdout {args.holdout}")
+        split = len(files) - args.holdout
+        data_kw = dict(n_views_in=cfg.data.n_views_in,
+                       n_views_sup=cfg.data.n_views_sup,
+                       n_points=cfg.data.n_points,
+                       resolution=cfg.data.resolution,
+                       canonicalize=args.canonicalize, device=dev)
+        train_ds = MultiViewDataset(args.data_dir, files=files[:split],
+                                    seed=cfg.seed, **data_kw)
+        print(f"dataset: {split} train / {args.holdout} held-out instances",
+              flush=True)
+        stream = train_ds.iterator(cfg.optim.batch_size)
+
+        def next_batch(i: int):
+            return next(stream)
+
+        if args.holdout:
+            # the SAME held-out batch at every evaluation: a clean PSNR /
+            # SSIM trajectory on instances the optimiser never sees
+            eval_batch_fixed = MultiViewDataset(
+                args.data_dir, files=files[split:], seed=12345,
+                **data_kw).batch(min(args.holdout, 4))
+    else:
+        def next_batch(i: int):
+            b = make_batch(seed=cfg.seed + i, batch=cfg.optim.batch_size,
+                           n_views_in=cfg.data.n_views_in,
+                           n_views_sup=cfg.data.n_views_sup,
+                           res=cfg.data.resolution, n_pts=cfg.data.n_points,
+                           n_splats=max(512, cfg.data.n_points), device=dev)
+            b.pop("gt_gaussians")
+            return b
+
+    loss_cfg = VAELossConfig(lod_resolutions=cfg.render.lod_resolutions,
+                             adv_weight=0.05 if args.adv else 0.0,
+                             adv_start_step=args.adv_start)
+    lpips_net = None
+    if args.lpips_npz:
+        from gaussiananything_tpu_torch.train.losses import VGGLPIPS
+        from gaussiananything_tpu_torch.utils.param_io import (
+            from_jax_params, load_params_npz)
+        lpips_net = VGGLPIPS()
+        lpips_net.load_state_dict(from_jax_params(
+            load_params_npz(args.lpips_npz), lpips_net))
+        lpips_net = lpips_net.to(dev).requires_grad_(False)
+        print(f"loaded VGG-LPIPS weights from {args.lpips_npz}", flush=True)
     tx_cfg = TrainStateConfig(lr=cfg.optim.lr,
                               weight_decay=cfg.optim.weight_decay,
                               grad_clip=cfg.optim.grad_clip,
@@ -80,52 +167,98 @@ def main(argv=None, timers=None):
                               extra_ema_decays=cfg.optim.extra_ema_decays,
                               warmup_steps=cfg.optim.warmup_steps,
                               lr_mults=cfg.optim.lr_mults)
-    step_fn = make_train_step(model, loss_cfg, tx_cfg)
     state = TrainState.create(model, cfg.optim.extra_ema_decays)
     if args.resume:
         restore_checkpoint(args.resume, state)
         print(f"resumed from {args.resume} at step {state.step}", flush=True)
+    if args.load_submodule:
+        name, _, ckpt = args.load_submodule.partition("=")
+        load_submodule(ckpt, state, name)
+        print(f"grafted submodule {name!r} from {ckpt}", flush=True)
 
-    def batch_at(i: int):
-        b = make_batch(seed=cfg.seed + i, batch=cfg.optim.batch_size,
-                       n_views_in=cfg.data.n_views_in,
-                       n_views_sup=cfg.data.n_views_sup,
-                       res=cfg.data.resolution, n_pts=cfg.data.n_points,
-                       n_splats=max(512, cfg.data.n_points), device=dev)
-        b.pop("gt_gaussians")
-        return b
+    disc = dstate = dstep_fn = None
+    if args.adv:
+        with torch.device(dev):
+            disc = PatchDiscriminator()
+        dstate = TrainState.create(disc)
+        dstep_fn = make_disc_step(model, disc, loss_cfg, tx_cfg)
+        # the discriminator's checkpoint (`nsr/train_nv_util.py:1637-1692`)
+        if args.resume and os.path.isdir(args.resume + "_disc"):
+            restore_checkpoint(args.resume + "_disc", dstate)
+            print(f"resumed discriminator at step {dstate.step}",
+                  flush=True)
+    step_fn = make_train_step(model, loss_cfg, tx_cfg,
+                              perceptual_net=lpips_net, disc_model=disc)
 
     host_gen = torch.Generator().manual_seed(cfg.seed)
-    all_logs = []
+    all_logs, d_logs, evals = [], [], []
     t0 = time.time()
     step0 = state.step
     ckpt_dir = os.path.join(logdir, "ckpt")
-    for i in range(state.step, cfg.optim.total_steps):
-        timer = StageTimer(dev) if timers is not None else None
-        if timer:
-            timer.start()
-        with torch.no_grad():
-            batch = batch_at(i)
-        if timer:
-            timer.lap("data")
-        with logger.profile("g_step"):
-            logs = step_fn(state, batch, generator=host_gen, timer=timer)
-        logs = {k: float(v) for k, v in logs.items()}
-        all_logs.append(logs)
-        if timer:
-            timers.append(timer.seconds)
-        for k, v in logs.items():
-            logger.logkv_mean(k, v)
-        if (i + 1) % 20 == 0 or i == 0:
-            logger.logkv("steps_per_s",
-                         (i + 1 - step0) / max(time.time() - t0, 1e-9))
-            logger.dumpkvs(i + 1)
-        if (i + 1) % args.save_every == 0:
-            save_checkpoint(ckpt_dir, state)
+    try:
+        for i in range(state.step, cfg.optim.total_steps):
+            timer = StageTimer(dev) if timers is not None else None
+            if timer:
+                timer.start()
+            with torch.no_grad():
+                batch = next_batch(i)
+            batch.pop("caption", None)
+            if timer:
+                timer.lap("data")
+            with logger.profile("g_step"):
+                logs = step_fn(state, batch, generator=host_gen,
+                               timer=timer)
+            logs = {k: float(v) for k, v in logs.items()}
+            all_logs.append(logs)
+            for k, v in logs.items():
+                logger.logkv_mean(k, v)
+            if args.adv and i % 2 == 1:   # alternate d-steps (`:2933-2948`)
+                if timer:
+                    timer.start()
+                with logger.profile("d_step"):
+                    dl = dstep_fn(dstate, batch, generator=host_gen)
+                dl = {k: float(v) for k, v in dl.items()}
+                if timer:
+                    timer.lap("disc_step")
+                d_logs.append(dl)
+                logger.logkv_mean("d_loss", dl["d_loss"])
+            if (i + 1) % args.eval_every == 0:
+                if timer:
+                    timer.start()
+                eval_batch = eval_batch_fixed
+                if eval_batch is None:
+                    with torch.no_grad():
+                        eval_batch = next_batch(i + 1)
+                m = eval_novelview(model, state.ema, eval_batch,
+                                   loss_cfg.lod_resolutions,
+                                   out_dir=os.path.join(logdir, "eval"),
+                                   step=i + 1, generator=host_gen)
+                if timer:
+                    timer.lap("eval")
+                evals.append(m)
+                for k, v in m.items():
+                    logger.logkv(k, v)
+                logger.dumpkvs(i + 1)
+            if timer:
+                timers.append(timer.seconds)
+            if ((i + 1) % 20 == 0 or i == 0) and (i + 1) % args.eval_every:
+                logger.logkv("steps_per_s",
+                             (i + 1 - step0) / max(time.time() - t0, 1e-9))
+                logger.dumpkvs(i + 1)
+            if (i + 1) % args.save_every == 0:
+                save_checkpoint(ckpt_dir, state)
+                if dstate is not None:
+                    save_checkpoint(ckpt_dir + "_disc", dstate)
+    finally:
+        if stream is not None:
+            stream.close()     # stops the prefetch thread
     save_checkpoint(ckpt_dir, state)
+    if dstate is not None:
+        save_checkpoint(ckpt_dir + "_disc", dstate)
     logger.close()
     print("done", flush=True)
-    return {"state": state, "model": model, "logs": all_logs}
+    return {"state": state, "model": model, "logs": all_logs,
+            "disc_state": dstate, "d_logs": d_logs, "evals": evals}
 
 
 if __name__ == "__main__":

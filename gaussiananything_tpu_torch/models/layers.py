@@ -271,8 +271,10 @@ class SameConv2d(nn.Conv2d):
     the bottom/right (torch's own padding is symmetric, which differs for a
     stride-2 kernel on an even size)."""
 
-    def __init__(self, c_in: int, c_out: int, kernel: int, stride: int = 1):
-        super().__init__(c_in, c_out, kernel, stride=stride, padding=0)
+    def __init__(self, c_in: int, c_out: int, kernel: int, stride: int = 1,
+                 bias: bool = True):
+        super().__init__(c_in, c_out, kernel, stride=stride, padding=0,
+                         bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, s = self.kernel_size[0], self.stride[0]

@@ -1,8 +1,10 @@
-"""Point-cloud losses (port of `chamfer_distance` of
-`gaussiananything_tpu/ops/pointcloud.py`; stands in for pytorch3d's,
-`nsr/train_nv_util.py:2244`)."""
+"""Point-cloud losses (port of `gaussiananything_tpu/ops/pointcloud.py`):
+the chamfer distance, standing in for pytorch3d's
+(`nsr/train_nv_util.py:2244`), and a Sinkhorn EMD, standing in for the
+reference's auction EMD (`utils/emd/emd_module.py`)."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -42,3 +44,24 @@ def chamfer_distance(a: torch.Tensor, b: torch.Tensor,
 
     out = _mean(d.amin(dim=2), xm) + _mean(d.amin(dim=1), ym)
     return out.reshape(batch)
+
+
+def sinkhorn_emd(a: torch.Tensor, b: torch.Tensor, eps: float = 0.05,
+                 iters: int = 200) -> torch.Tensor:
+    """Entropic-regularised EMD between point sets a (..., N, 3) and
+    b (..., M, 3) with uniform marginals 1/N and 1/M: `iters` log-domain
+    Sinkhorn updates of the potentials f, g, then Σ P·C with
+    P = exp((f + g − C) / eps). One value per batch element."""
+    batch = a.shape[:-2]
+    af = a.reshape((-1,) + a.shape[-2:]).float()
+    bf = b.reshape((-1,) + b.shape[-2:]).float()
+    C = _sq_dists(af, bf)                                   # (B, n, m)
+    n, m = C.shape[1], C.shape[2]
+    log_mu, log_nu = -math.log(n), -math.log(m)
+    f = C.new_zeros(C.shape[:2])
+    g = C.new_zeros((C.shape[0], m))
+    for _ in range(iters):
+        f = eps * (log_mu - torch.logsumexp((g[:, None, :] - C) / eps, 2))
+        g = eps * (log_nu - torch.logsumexp((f[:, :, None] - C) / eps, 1))
+    P = torch.exp((f[:, :, None] + g[:, None, :] - C) / eps)
+    return (P * C).sum((1, 2)).reshape(batch)

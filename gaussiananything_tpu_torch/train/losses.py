@@ -1,17 +1,18 @@
 """Loss stack for VAE training (port of
-`gaussiananything_tpu/train/losses.py`, without the GAN and VGG-LPIPS
-parts).
+`gaussiananything_tpu/train/losses.py`).
 
-`E3DGELossClass` (the reference's `nsr/losses`, lines 356, 530-653,
-776-826 of its main file): 2D
-reconstruction (L1/MSE, optionally masked), a perceptual term, alpha loss,
-scale-invariant depth, KL with linear annealing, the 2DGS normal-consistency
-and depth-distortion regularisers (`nsr/train_nv_util.py:2158-2175`) and the
-scale/opacity regularisers (`:2143-2155`).
+`E3DGELossClass` / `E3DGE_with_AdvLoss` (the reference's `nsr/losses`,
+lines 356, 530-653, 776-826 of its main file): 2D reconstruction (L1/MSE,
+optionally masked), a perceptual term, alpha loss, scale-invariant depth,
+KL with linear annealing, the 2DGS normal-consistency and depth-distortion
+regularisers (`nsr/train_nv_util.py:2158-2175`), the scale/opacity
+regularisers (`:2143-2155`) and the PatchGAN hinge adversarial loss
+(`nsr/losses/disc.py`).
 
-The perceptual term is the JAX package's fallback: a fixed, randomly
-initialised conv pyramid whose weights come from a seed (pretrained VGG
-weights are a file outside the repository).
+The perceptual term is VGG16-LPIPS when its weights are given (a
+`VGGLPIPS` loaded from an npz, `utils/param_io.load_params_npz`); without
+them it is the JAX package's fallback, a fixed conv pyramid whose weights
+come from a seed.
 """
 from __future__ import annotations
 
@@ -88,10 +89,13 @@ def default_perceptual_net(device: str = "cpu", seed: int = 0
 
 
 def perceptual_loss(a: torch.Tensor, b: torch.Tensor,
-                    net: Optional[PerceptualNet] = None) -> torch.Tensor:
-    """a, b (B, 3, H, W) in [0, 1]: per stage, the mean squared difference
-    of the channel-normalised features, summed over the stages. `net=None`
-    takes `default_perceptual_net` on a's device."""
+                    net: Optional[nn.Module] = None) -> torch.Tensor:
+    """a, b (B, 3, H, W) in [0, 1]. A `VGGLPIPS` net gives `lpips_vgg`;
+    otherwise, per stage of the pyramid, the mean squared difference of the
+    channel-normalised features, summed over the stages. `net=None` takes
+    `default_perceptual_net` on a's device."""
+    if isinstance(net, VGGLPIPS):
+        return lpips_vgg(a, b, net)
     if net is None:
         net = default_perceptual_net(str(a.device))
     total = 0.0
@@ -100,6 +104,79 @@ def perceptual_loss(a: torch.Tensor, b: torch.Tensor,
         nb = xb / (torch.linalg.vector_norm(xb, dim=1, keepdim=True) + 1e-8)
         total = total + ((na - nb) ** 2).mean()
     return total
+
+
+# ------------------------------------------------------ VGG16 LPIPS
+
+# torchvision vgg16.features: (index of each conv, its channels); a 2x2 max
+# pool sits before convs 5, 10, 17 and 24, and LPIPS taps the relus after
+# convs 2, 7, 14, 21 and 28 (relu1_2, 2_2, 3_3, 4_3, 5_3)
+_VGG_CONVS = ((0, 64), (2, 64), (5, 128), (7, 128), (10, 256), (12, 256),
+              (14, 256), (17, 512), (19, 512), (21, 512), (24, 512),
+              (26, 512), (28, 512))
+_VGG_TAPS = (2, 7, 14, 21, 28)
+_VGG_POOL_BEFORE = (5, 10, 17, 24)
+LPIPS_CHANNELS = (64, 128, 256, 512, 512)
+
+
+class VGG16Features(nn.Module):
+    """The torchvision VGG16 feature trunk up to relu5_3, as the Sequential
+    `features` with torchvision's indices (conv `features.N`); returns the
+    five relu taps of LPIPS. Input (B, 3, H, W), already LPIPS-scaled."""
+
+    def __init__(self):
+        super().__init__()
+        layers, c_in = [], 3
+        for idx, ch in _VGG_CONVS:
+            if idx in _VGG_POOL_BEFORE:
+                layers.append(nn.MaxPool2d(2, 2))
+            layers += [nn.Conv2d(c_in, ch, 3, padding=1), nn.ReLU()]
+            c_in = ch
+        self.features = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor):
+        feats = []
+        for i, layer in enumerate(self.features):
+            x = layer(x)
+            if i - 1 in _VGG_TAPS:
+                feats.append(x)
+        return feats
+
+
+class VGGLPIPS(nn.Module):
+    """LPIPS(net="vgg") (pip `lpips`, consumed at `nsr/losses/builder.py:
+    530`): the scaling layer, the VGG taps, channel unit-normalisation
+    (x · rsqrt(Σx² + 1e-10)), squared difference, the bias-free 1x1 convs
+    `lins.k`, the mean over (C, H, W), summed over the taps, then the mean
+    over the batch. Inputs (B, 3, H, W) in [-1, 1]."""
+
+    def __init__(self):
+        super().__init__()
+        self.net = VGG16Features()
+        self.lins = nn.ModuleList(nn.Conv2d(c, 1, 1, bias=False)
+                                  for c in LPIPS_CHANNELS)
+        self.register_buffer(
+            "shift", torch.tensor([-0.030, -0.088, -0.188]).view(1, 3, 1, 1),
+            persistent=False)
+        self.register_buffer(
+            "scale", torch.tensor([0.458, 0.448, 0.450]).view(1, 3, 1, 1),
+            persistent=False)
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        fa = self.net((a - self.shift) / self.scale)
+        fb = self.net((b - self.shift) / self.scale)
+        total = 0.0
+        for lin, xa, xb in zip(self.lins, fa, fb):
+            na = xa * torch.rsqrt((xa * xa).sum(1, keepdim=True) + 1e-10)
+            nb = xb * torch.rsqrt((xb * xb).sum(1, keepdim=True) + 1e-10)
+            total = total + lin((na - nb) ** 2).mean(dim=(1, 2, 3))
+        return total.mean()
+
+
+def lpips_vgg(a: torch.Tensor, b: torch.Tensor, net: VGGLPIPS
+              ) -> torch.Tensor:
+    """a, b (B, 3, H, W) in [0, 1]."""
+    return net(a * 2 - 1, b * 2 - 1)
 
 
 # ----------------------------------------------------------------- ssim
@@ -216,6 +293,50 @@ def opacity_reg(gaussians: torch.Tensor) -> torch.Tensor:
     """Push opacities towards {0, 1} (`nsr/train_nv_util.py:2149-2155`)."""
     o = torch.clamp(gaussians[..., 3], 1e-4, 1 - 1e-4)
     return -(o * torch.log(o) + (1 - o) * torch.log(1 - o)).mean()
+
+
+# ------------------------------------------------------------------ GAN
+
+class PatchDiscriminator(nn.Module):
+    """PatchGAN `NLayerDiscriminator` (`nsr/losses/disc.py`) as the JAX
+    package builds it: a 4x4 stride-2 conv and LeakyReLU(0.2), then
+    `layers` bias-free 4x4 convs (stride 2, the last stride 1) each with
+    GroupNorm(32, eps 1e-6) and LeakyReLU(0.2), then a 4x4 conv to one
+    logit per patch. Every conv pads as flax's "SAME" (`SameConv2d`: at
+    stride 1 a 4x4 kernel pads 1 before and 2 after), which torch's
+    `padding=1` does not. Input (B, 3, H, W); `convs.i` and `norms.i` are
+    flax's `Conv_i` and `GroupNorm_i`."""
+
+    def __init__(self, ch: int = 64, layers: int = 3):
+        super().__init__()
+        convs = [SameConv2d(3, ch, 4, stride=2)]
+        norms = []
+        c_in = ch
+        for i in range(1, layers + 1):
+            c = min(ch * 2 ** i, 512)
+            convs.append(SameConv2d(c_in, c, 4, stride=2 if i < layers
+                                    else 1, bias=False))
+            norms.append(nn.GroupNorm(32, c, eps=1e-6))
+            c_in = c
+        convs.append(SameConv2d(c_in, 1, 4))
+        self.convs = nn.ModuleList(convs)
+        self.norms = nn.ModuleList(norms)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.leaky_relu(self.convs[0](x), 0.2)
+        for conv, norm in zip(self.convs[1:-1], self.norms):
+            h = F.leaky_relu(norm(conv(h)), 0.2)
+        return self.convs[-1](h)
+
+
+def hinge_d_loss(logits_real: torch.Tensor, logits_fake: torch.Tensor
+                 ) -> torch.Tensor:
+    return 0.5 * (F.relu(1.0 - logits_real).mean()
+                  + F.relu(1.0 + logits_fake).mean())
+
+
+def hinge_g_loss(logits_fake: torch.Tensor) -> torch.Tensor:
+    return -logits_fake.mean()
 
 
 def kl_coeff_schedule(step: int, target: float = 1e-5,

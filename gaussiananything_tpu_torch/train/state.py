@@ -146,15 +146,55 @@ def save_checkpoint(path: str, state: TrainState, keep: int = 3) -> str:
     return target
 
 
-def restore_checkpoint(path: str, state: TrainState,
-                       step: Optional[int] = None) -> TrainState:
-    """Load the newest (or the given) step of `path` into `state`."""
+def _load(path: str, state: TrainState, step: Optional[int]) -> dict:
+    """The newest (or the given) step of `path`, on the state's device."""
     if step is None:
         steps = _steps(path) if os.path.isdir(path) else []
         if not steps:
             raise FileNotFoundError(f"no checkpoint under {path}")
         step = steps[-1]
-    sd = torch.load(os.path.join(path, f"step_{step:08d}.pt"),
-                    map_location=next(iter(state.params.values())).device)
-    state.load_state_dict(sd)
+    return torch.load(os.path.join(path, f"step_{step:08d}.pt"),
+                      map_location=next(iter(state.params.values())).device)
+
+
+def restore_checkpoint(path: str, state: TrainState,
+                       step: Optional[int] = None) -> TrainState:
+    """Load the newest (or the given) step of `path` into `state`."""
+    state.load_state_dict(_load(path, state, step))
+    return state
+
+
+@torch.no_grad()
+def load_submodule(path: str, state: TrainState, submodule: str,
+                   step: Optional[int] = None, ema: bool = False
+                   ) -> TrainState:
+    """Graft ONE top-level submodule (the entries named `submodule.*`) of a
+    checkpoint into `state`: its parameters, its EMA and every extra-rate
+    EMA copy, in place; the other entries, the optimiser's moments and the
+    step stay (`load_submodule_name`, `nsr/train_util.py:78,582-605`: warm
+    starting a run from a pretrained encoder). `ema=True` grafts the
+    checkpoint's EMA copy instead of its parameters. The checkpoint may
+    come from a model whose other submodules differ.
+
+    Raises KeyError naming the available submodules when the checkpoint
+    has no `submodule`, ValueError when its entries' names or shapes differ
+    from the state's."""
+    src = _load(path, state, step)["ema" if ema else "params"]
+    prefix = submodule + "."
+    sub = {k: v for k, v in src.items() if k.startswith(prefix)}
+    if not sub:
+        raise KeyError(f"checkpoint has no submodule {submodule!r}; "
+                       f"available: {sorted({k.split('.')[0] for k in src})}")
+    cur = [k for k in state.params if k.startswith(prefix)]
+    if sorted(cur) != sorted(sub):
+        raise ValueError(f"structure mismatch grafting {submodule!r}: "
+                         f"{len(cur)} vs {len(sub)} entries")
+    for k in cur:
+        if sub[k].shape != state.params[k].shape:
+            raise ValueError(f"shape mismatch grafting {submodule!r} at {k}: "
+                             f"{tuple(state.params[k].shape)} vs "
+                             f"{tuple(sub[k].shape)}")
+    for tree in (state.params, state.ema, *state.ema_extra.values()):
+        for k in cur:
+            tree[k].copy_(sub[k])
     return state

@@ -1,9 +1,8 @@
-"""VAE training step: multi-view reconstruction with per-LoD rendering, KL
-annealing and the 2DGS geometry regularisers (port of
-`gaussiananything_tpu/train/vae_trainer.py`, without the GAN path and
-gradient accumulation).
+"""VAE training: multi-view reconstruction with per-LoD rendering, KL
+annealing, the 2DGS geometry regularisers and the optional PatchGAN (port
+of `gaussiananything_tpu/train/vae_trainer.py`).
 
-`TrainLoop3DRecNVPatchSingleForwardMV_NoCrop` (`nsr/train_nv_util.py:
+`TrainLoop3DRecNVPatchSingleForwardMV_NoCrop(_adv)` (`nsr/train_nv_util.py:
 1771-3048`): the batch carries input views (15 channels) and supervision
 views (rgb, alpha, depth); encode with FPS anchors → decode every LoD →
 render each LoD at its own resolution (the release ladder 128/256/384/512,
@@ -12,12 +11,16 @@ coarse LoD and the finest, `:1550-1591`); losses per LoD (L1, alpha, the
 perceptual term on one drawn LoD, scale-invariant depth), KL on the
 bottleneck, normal and distortion regularisers on the finest render after
 their start steps (`:2158-2175`), scale/opacity regularisers
-(`:2143-2155`), optional chamfer supervision (`:2244-2246`).
+(`:2143-2155`), optional chamfer supervision (`:2244-2246`), and with a
+discriminator the generator's hinge loss under the adaptive weight
+(`:2877-3014`). `make_disc_step` is the discriminator's step,
+`make_accum_train_step` the gradient accumulation over micro-batches.
 
 The renders go through the differentiable rasterizer (`impl="cuda"`: the
-training kernels on the card, their plain versions on the CPU). The step's
-random draws come from a `torch.Generator` or are passed in (`draws`), so
-two implementations can be fed the same noise.
+training kernels on the card, their plain versions on the CPU; without
+gradient, as in the discriminator's step, the forward-only kernel). The
+step's random draws come from a `torch.Generator` or are passed in
+(`draws`), so two implementations can be fed the same noise.
 """
 from __future__ import annotations
 
@@ -54,6 +57,12 @@ class VAELossConfig:
     # render resolution per LoD, coarse → fine; (128, 256, 384, 512) is
     # the release ladder
     lod_resolutions: Tuple[int, ...] = (64, 128, 192, 256)
+    adv_weight: float = 0.0
+    # the generator's adversarial term starts at this step and is balanced
+    # against the reconstruction gradient (`nsr/train_nv_util.py:
+    # 2877-3014`, `dnnlib/util.py:41`)
+    adv_start_step: int = 0
+    adaptive_adv: bool = True
     # supervise ONE random coarse LoD and the finest per step instead of
     # all LoDs (`vit/vit_triplane.py:1550-1591`)
     rand_coarse_lod: bool = False
@@ -121,30 +130,40 @@ def draw_step_randomness(n_lod: int, cfg: VAELossConfig,
     return {"coarse_idx": None, "lpips_lod": randint(n_lod)}
 
 
+def _noise(model, batch, generator, draws) -> torch.Tensor:
+    """The latent noise of `draws`, else drawn on the host from
+    `generator` (so a seed gives the same noise on the card and the CPU),
+    on the batch's device."""
+    noise = (draws or {}).get("noise")
+    if noise is None:
+        noise = torch.randn(
+            (batch["images_in"].shape[0],) + model.latent_shape,
+            generator=generator)
+    return noise.to(batch["images_in"].device)
+
+
 def vae_loss_fn(model, batch: Dict[str, torch.Tensor], step: int,
                 cfg: VAELossConfig,
                 generator: Optional[torch.Generator] = None,
                 draws: Optional[dict] = None, perceptual_net=None,
-                timer: Optional[StageTimer] = None):
+                timer: Optional[StageTimer] = None, disc_model=None):
     """Returns (total, (logs, renders, lods)).
 
     batch: images_in (B, V_in, 15, H, W); pcd (B, P, 3); cam_view and
-    cam_view_proj (B, V_sup, 4, 4); tanfov scalar; images_sup (B, V_sup, 3,
-    H, W); alpha_sup and optionally depth_sup (B, V_sup, 1, H, W).
+    cam_view_proj (B, V_sup, 4, 4); tanfov scalar or (B, V_sup);
+    images_sup (B, V_sup, 3, H, W); alpha_sup and optionally depth_sup
+    (B, V_sup, 1, H, W).
 
     draws: optional {"noise": (B, K, z) latent noise, "lpips_lod": int,
     "coarse_idx": int}; what is absent is drawn from `generator`, a CPU
-    generator (the noise is drawn on the host and moved to the batch's
-    device, so a seed gives the same step on the card and on the CPU).
+    generator. `perceptual_net`: as for `losses.perceptual_loss` (a
+    `VGGLPIPS` for LPIPS). `disc_model`: the discriminator, whose hinge
+    loss joins the total when `cfg.adv_weight` > 0.
     """
     draws = dict(draws or {})
     dev = batch["images_in"].device
-    if "noise" not in draws:
-        draws["noise"] = torch.randn(
-            (batch["images_in"].shape[0],) + model.latent_shape,
-            generator=generator)
     out = model(batch["images_in"], batch["pcd"],
-                noise=draws["noise"].to(dev))
+                noise=_noise(model, batch, generator, draws))
     lods = out["lods"]
     n_lod = len(lods)
     if "lpips_lod" not in draws:
@@ -240,36 +259,163 @@ def vae_loss_fn(model, batch: Dict[str, torch.Tensor], step: int,
         total = total + cfg.chamfer_weight * cd
         logs["chamfer"] = cd
 
+    if cfg.adv_weight > 0 and disc_model is not None:
+        if timer:
+            timer.lap("loss")
+        img = fin["image"]
+        g_loss = L.hinge_g_loss(disc_model(img.flatten(0, 1)))
+        w_adapt = 1.0
+        if cfg.adaptive_adv:
+            # `calculate_adaptive_weight` (`dnnlib/util.py:41`):
+            # ‖∇rec‖ / (‖∇adv‖ + 1e-4) clipped to [0, 1e4], without
+            # gradient; as in the JAX package, the gradients are taken
+            # with respect to the finest gaussians, not the decoder's last
+            # layer. Both run back through the step's own finest render
+            # (its graph retained): the JAX package renders a detached
+            # copy again, which gives the same numbers, since the forward
+            # is deterministic, for one render more. `autograd.grad` with
+            # these inputs leaves every parameter's `.grad` untouched.
+            rec = cfg.l1_weight * L.l1(img, _resize_to(
+                batch["images_sup"], cfg.lod_resolutions[n_lod - 1]))
+            g_rec, = torch.autograd.grad(rec, lods[-1], retain_graph=True)
+            g_adv, = torch.autograd.grad(g_loss, lods[-1],
+                                         retain_graph=True)
+            w_adapt = torch.clamp(torch.linalg.vector_norm(g_rec)
+                                  / (torch.linalg.vector_norm(g_adv)
+                                     + 1e-4), 0.0, 1e4).detach()
+            logs["adaptive_w"] = w_adapt
+        total = total + cfg.adv_weight * float(step >= cfg.adv_start_step) \
+            * w_adapt * g_loss
+        logs["g_loss"] = g_loss
+        if timer:
+            timer.lap("adversarial")
+
     logs["total"] = total
     if timer:
         timer.lap("loss")
     return total, (logs, renders, lods)
 
 
+def _loss_and_grads(model, state: TrainState, batch, cfg: VAELossConfig,
+                    generator, draws, perceptual_net, disc_model, timer):
+    """The loss's logs (detached) and its gradient for every entry of
+    `state.params` (zeros where the loss does not reach)."""
+    total, (logs, _, _) = vae_loss_fn(
+        model, batch, state.step, cfg, generator=generator, draws=draws,
+        perceptual_net=perceptual_net, timer=timer, disc_model=disc_model)
+    names = list(state.params)
+    grads = torch.autograd.grad(total, [state.params[k] for k in names],
+                                allow_unused=True)
+    grads = {k: torch.zeros_like(state.params[k]) if g is None else g
+             for k, g in zip(names, grads)}
+    if timer:
+        timer.lap("backward")
+    logs = {k: v.detach() if torch.is_tensor(v) else torch.tensor(v)
+            for k, v in logs.items()}
+    return logs, grads
+
+
 def make_train_step(model, cfg: VAELossConfig,
                     tx_cfg: Optional[TrainStateConfig] = None,
-                    perceptual_net=None) -> Callable:
+                    perceptual_net=None, disc_model=None) -> Callable:
     """Returns train_step(state, batch, generator=None, draws=None,
     timer=None) → logs (detached scalars, `grad_norm` among them): loss,
-    gradients, the optimiser and EMA updates of `state` (in place)."""
+    gradients, the optimiser and EMA updates of `state` (in place).
+    `perceptual_net` and `disc_model` as for `vae_loss_fn`; the
+    discriminator's parameters are read as they are at each call."""
     tx_cfg = tx_cfg or TrainStateConfig()
 
     def train_step(state: TrainState, batch, generator=None, draws=None,
                    timer: Optional[StageTimer] = None):
         if timer:
             timer.start()
-        total, (logs, _, _) = vae_loss_fn(
-            model, batch, state.step, cfg, generator=generator, draws=draws,
-            perceptual_net=perceptual_net, timer=timer)
-        names = list(state.params)
-        grads = torch.autograd.grad(total, [state.params[k] for k in names],
-                                    allow_unused=True)
-        grads = {k: torch.zeros_like(state.params[k]) if g is None else g
-                 for k, g in zip(names, grads)}
+        logs, grads = _loss_and_grads(model, state, batch, cfg, generator,
+                                      draws, perceptual_net, disc_model,
+                                      timer)
+        logs["grad_norm"] = global_norm(grads)
+        state.apply_gradients(grads, tx_cfg)
         if timer:
-            timer.lap("backward")
-        logs = {k: v.detach() if torch.is_tensor(v) else torch.tensor(v)
-                for k, v in logs.items()}
+            timer.lap("optimizer")
+        return logs
+
+    return train_step
+
+
+def make_disc_step(model, disc_model, cfg: VAELossConfig,
+                   tx_cfg: Optional[TrainStateConfig] = None) -> Callable:
+    """Returns disc_step(disc_state, batch, generator=None, draws=None) →
+    {"d_loss"}: the hinge loss of `disc_model` on the supervision images
+    (resized to the finest LoD's resolution) against the finest render of
+    the model's reconstruction, then one optimiser and EMA update of
+    `disc_state` (in place; `nsr/train_nv_util.py:2877-3014`). The model's
+    forward and the render run without gradient (the forward-only kernel on
+    the card). draws: optional {"noise"}, else drawn from `generator`."""
+    tx_cfg = tx_cfg or TrainStateConfig()
+
+    def disc_step(disc_state: TrainState, batch, generator=None,
+                  draws=None):
+        res = cfg.lod_resolutions[-1]
+        with torch.no_grad():
+            out = model(batch["images_in"], batch["pcd"],
+                        noise=_noise(model, batch, generator, draws))
+            bg = torch.ones(3, dtype=torch.float32,
+                            device=batch["images_in"].device)
+            fin = render_lods(out["lods"][-1:], batch["cam_view"],
+                              batch["cam_view_proj"], bg, [res])[0]
+            fake = fin["image"].flatten(0, 1)
+            real = _resize_to(batch["images_sup"], res).flatten(0, 1)
+        d_loss = L.hinge_d_loss(disc_model(real), disc_model(fake))
+        names = list(disc_state.params)
+        grads = torch.autograd.grad(
+            d_loss, [disc_state.params[k] for k in names])
+        disc_state.apply_gradients(dict(zip(names, grads)), tx_cfg)
+        return {"d_loss": d_loss.detach()}
+
+    return disc_step
+
+
+def _micro_slice(x, i: int, n_micro: int):
+    """Slice i of n_micro along the leading dimension of a tensor with
+    one; anything else (a 0-dim tensor, a scalar) passes whole."""
+    if not torch.is_tensor(x) or x.dim() == 0:
+        return x
+    if x.shape[0] % n_micro:
+        raise ValueError(f"a leading dimension of {x.shape[0]} does not "
+                         f"split into {n_micro} micro-batches")
+    m = x.shape[0] // n_micro
+    return x[i * m:(i + 1) * m]
+
+
+def make_accum_train_step(model, cfg: VAELossConfig, n_micro: int,
+                          tx_cfg: Optional[TrainStateConfig] = None,
+                          perceptual_net=None, disc_model=None) -> Callable:
+    """Gradient accumulation (the reference's micro-batch loop,
+    `nsr/train_util.py:95`): the gradients of `n_micro` sequential slices
+    of the batch's leading dimension, summed and divided by `n_micro`, then
+    ONE optimiser step. Returns train_step(state, batch, generator=None,
+    draws=None, timer=None) → logs, each the mean over the micro-batches,
+    and `grad_norm` that of the averaged gradient. draws: optional list of
+    one draws dict per micro-batch (the JAX package draws micro-batch i
+    from `fold_in(rng, i)`). Peak memory is one micro-batch's."""
+    tx_cfg = tx_cfg or TrainStateConfig()
+
+    def train_step(state: TrainState, batch, generator=None, draws=None,
+                   timer: Optional[StageTimer] = None):
+        if timer:
+            timer.start()
+        acc, all_logs = None, []
+        for i in range(n_micro):
+            sub = {k: _micro_slice(v, i, n_micro) for k, v in batch.items()}
+            logs, grads = _loss_and_grads(
+                model, state, sub, cfg, generator,
+                draws[i] if draws else None, perceptual_net, disc_model,
+                timer)
+            all_logs.append(logs)
+            acc = grads if acc is None else {k: acc[k] + g
+                                            for k, g in grads.items()}
+        grads = {k: g / n_micro for k, g in acc.items()}
+        logs = {k: torch.stack([lg[k] for lg in all_logs]).mean()
+                for k in all_logs[0]}
         logs["grad_norm"] = global_norm(grads)
         state.apply_gradients(grads, tx_cfg)
         if timer:

@@ -4,10 +4,15 @@
 dicts of numpy arrays, bare or wrapped in `{"params": ...}`) into the
 `state_dict` of the matching port module. It inverts the mappings of
 `gaussiananything_tpu/utils/param_io.py` (`convert_dinov2`,
-`convert_gaussiananything_dit`, `convert_gaussiananything_vae`): Dense
-kernels (in, out) become Linear weights (out, in), conv kernels HWIO become
-OIHW (the port's convolutions run NCHW), and the separate q/k/v kernels of
-a packed attention are fused back into one `qkv` weight.
+`convert_gaussiananything_dit`, `convert_gaussiananything_vae`,
+`convert_lpips_vgg`): Dense kernels (in, out) become Linear weights (out,
+in), conv kernels HWIO become OIHW (the port's convolutions run NCHW), and
+the separate q/k/v kernels of a packed attention are fused back into one
+`qkv` weight.
+
+`save_params_npz` / `load_params_npz` write and read such trees in the JAX
+package's npz layout: one array per leaf, keyed by the path joined with
+"/" (`gaussiananything_tpu/utils/param_io.py:18-30`).
 """
 from __future__ import annotations
 
@@ -27,7 +32,10 @@ from gaussiananything_tpu_torch.models.layers import CrossAttentionBlock
 from gaussiananything_tpu_torch.models.sd_encoder import SDEncoderTrunk
 from gaussiananything_tpu_torch.models.upsampler import GaussianUpsampler
 from gaussiananything_tpu_torch.models.vae import PointVAE
-from gaussiananything_tpu_torch.train.losses import PerceptualNet
+from gaussiananything_tpu_torch.train.losses import (_VGG_CONVS,
+                                                     LPIPS_CHANNELS,
+                                                     PatchDiscriminator,
+                                                     PerceptualNet, VGGLPIPS)
 
 Flat = Dict[str, np.ndarray]
 
@@ -41,6 +49,26 @@ def _flatten(tree: Mapping, prefix: str = "") -> Flat:
         else:
             out[key] = np.asarray(v)
     return out
+
+
+def save_params_npz(path: str, params: Mapping):
+    """Write a nested tree of arrays as a compressed npz, one entry per
+    leaf keyed "a/b/c"."""
+    np.savez_compressed(path, **_flatten(params))
+
+
+def load_params_npz(path: str) -> dict:
+    """Read an npz of "/"-joined keys back into a nested dict of numpy
+    arrays."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = z[key]
+    return tree
 
 
 class _Mapper:
@@ -60,10 +88,11 @@ class _Mapper:
             self.out[f"{tname}.bias"] = self.flat[f"{jname}/bias"]
 
     def conv(self, tname: str, jname: str):
-        """flax Conv (kernel HWIO, bias) → torch Conv2d (OIHW)."""
+        """flax Conv (kernel HWIO[, bias]) → torch Conv2d (OIHW)."""
         self.out[f"{tname}.weight"] = \
             self.flat[f"{jname}/kernel"].transpose(3, 2, 0, 1)
-        self.out[f"{tname}.bias"] = self.flat[f"{jname}/bias"]
+        if f"{jname}/bias" in self.flat:
+            self.out[f"{tname}.bias"] = self.flat[f"{jname}/bias"]
 
     def norm(self, tname: str, jname: str):
         """flax LayerNorm/RMSNorm (scale[, bias]) → weight[, bias]."""
@@ -261,6 +290,20 @@ def _perceptual_net(m: _Mapper):
         m.conv(f"conv{i}b", f"conv{i}b")
 
 
+def _patch_discriminator(m: _Mapper, module: PatchDiscriminator):
+    for i in range(len(module.convs)):
+        m.conv(f"convs.{i}", f"Conv_{i}")
+    for i in range(len(module.norms)):
+        m.norm(f"norms.{i}", f"GroupNorm_{i}")
+
+
+def _vgg_lpips(m: _Mapper):
+    for idx, _ in _VGG_CONVS:
+        m.conv(f"net.features.{idx}", f"net/features.{idx}")
+    for k in range(len(LPIPS_CHANNELS)):
+        m.conv(f"lins.{k}", f"lins.{k}")
+
+
 def _cross_attention_block(m: _Mapper, t: str = "", j: str = ""):
     m.norm(f"{t}norm_q", f"{j}LayerNorm_0")
     m.norm(f"{t}norm_kv", f"{j}LayerNorm_1")
@@ -282,6 +325,8 @@ _MAPPINGS: Dict[type, Callable[[_Mapper, nn.Module], None]] = {
     MVConvEncoder: lambda m, mod: _mv_conv_encoder(m, "", "", mod),
     HybridPCDEncoder: lambda m, mod: _hybrid_encoder(m, "", "", mod),
     PerceptualNet: lambda m, mod: _perceptual_net(m),
+    PatchDiscriminator: _patch_discriminator,
+    VGGLPIPS: lambda m, mod: _vgg_lpips(m),
 }
 
 
@@ -293,9 +338,10 @@ def from_jax_params(params_np: Mapping, module: nn.Module
     stages), `PointVAE` (both layouts; the encoder and quant-MLP entries of
     the tree are read when the module was built with its encoder),
     `HybridPCDEncoder`, `SDEncoderTrunk`, `MVConvEncoder`, `DiT2`,
-    `GaussianUpsampler`, `CrossAttentionBlock` and the perceptual pyramid
-    `PerceptualNet`. Raises if a port parameter is left without a value or
-    a shape disagrees.
+    `GaussianUpsampler`, `CrossAttentionBlock`, the perceptual pyramid
+    `PerceptualNet`, `PatchDiscriminator` (flax's `Conv_i`, `GroupNorm_i`)
+    and `VGGLPIPS` (`net/features.N`, `lins.k`). Raises if a port
+    parameter is left without a value or a shape disagrees.
     """
     if set(params_np) == {"params"}:
         params_np = params_np["params"]

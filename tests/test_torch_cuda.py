@@ -724,3 +724,86 @@ def test_v1_fused_gradient_matches_plain_route(card):
     scale = float(grads["plain"].abs().max())
     torch.testing.assert_close(grads["fused"], grads["plain"], rtol=2e-3,
                                atol=2e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,res", [(6144, 256), (73728, 512)])
+def test_k2b_runs_again_on_one_retained_k2a_forward(card, n, res):
+    """The adaptive GAN weight takes two gradients through the step's own
+    finest render before the step's backward: K2b three times on the
+    tensors one K2a forward saved (`retain_graph`). Each is bit-equal to
+    K2b after a fresh forward under the same cotangent, and the first
+    cotangent's gradient is the same again after the second's."""
+    tab, *rest = _frame(card, n, res, 1024)
+    gen = torch.Generator().manual_seed(3)
+    cts = [torch.randn((rz.N_OUT, res, res), generator=gen).to(card)
+           for _ in range(2)]
+
+    def counts():
+        return (rasterize_cuda.composite_entries.launches,
+                rasterize_cuda.composite_backward.launches)
+
+    c0 = counts()
+    leaf = tab.clone().requires_grad_(True)
+    buf = rasterize_cuda.composite_train(leaf, *rest)
+    retained = [torch.autograd.grad((buf * ct).sum(), leaf,
+                                    retain_graph=True)[0]
+                for ct in (cts[0], cts[1], cts[0])]
+    c1 = counts()
+    assert (c1[0] - c0[0], c1[1] - c0[1]) == (1, 3)
+    assert torch.equal(retained[0], retained[2])
+    for ct, got in zip(cts, retained):
+        fresh = tab.clone().requires_grad_(True)
+        want, = torch.autograd.grad(
+            (rasterize_cuda.composite_train(fresh, *rest) * ct).sum(), fresh)
+        assert torch.equal(got, want)
+    assert float(retained[0].abs().max()) > 0
+
+
+def _small_vae_and_batch(card):
+    from gaussiananything_tpu_torch.data.synthetic import make_batch
+    from gaussiananything_tpu_torch.models.vae import PointVAE
+    torch.manual_seed(0)
+    with torch.device(card):
+        model = PointVAE(latent_num=12, z_channels=4, encoder_width=64,
+                         decoder_width=64, decoder_depth=1, decoder_heads=2,
+                         up_factors=(4,), up_depths=(1,),
+                         release_parity=False, with_encoder=True)
+    batch = make_batch(seed=0, batch=2, n_views_in=2, n_views_sup=2, res=32,
+                       n_pts=64, n_splats=256, device=card)
+    batch.pop("gt_gaussians")
+    return model, batch
+
+
+@pytest.mark.cuda
+def test_disc_step_and_evaluation_launch_only_k1(card):
+    """Renders without gradient stay on the forward-only kernel: the
+    discriminator's step launches K1 once per view of the finest LoD, the
+    evaluation once per view of every LoD, neither K2a nor K2b."""
+    from gaussiananything_tpu_torch.train.evaluation import eval_novelview
+    from gaussiananything_tpu_torch.train.losses import PatchDiscriminator
+    from gaussiananything_tpu_torch.train.state import TrainState
+    from gaussiananything_tpu_torch.train.vae_trainer import (VAELossConfig,
+                                                              make_disc_step)
+    model, batch = _small_vae_and_batch(card)
+    cfg = VAELossConfig(lod_resolutions=(16, 32))
+    with torch.device(card):
+        disc = PatchDiscriminator(ch=32, layers=2)
+    gen = torch.Generator().manual_seed(0)
+
+    def counts():
+        return (rasterize_cuda.composite.launches,
+                rasterize_cuda.composite_entries.launches,
+                rasterize_cuda.composite_backward.launches)
+
+    c0 = counts()
+    logs = make_disc_step(model, disc, cfg)(TrainState.create(disc), batch,
+                                            generator=gen)
+    c1 = counts()
+    assert (c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2]) == (2 * 2, 0, 0)
+    m = eval_novelview(model, dict(model.named_parameters()), batch,
+                       cfg.lod_resolutions, generator=gen)
+    c2 = counts()
+    assert (c2[0] - c1[0], c2[1] - c1[1], c2[2] - c1[2]) == (2 * 2 * 2, 0, 0)
+    assert torch.isfinite(logs["d_loss"]) and all(
+        v == v for v in m.values())

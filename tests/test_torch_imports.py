@@ -50,6 +50,7 @@ def test_port_files_found():
                  "models/sd_encoder.py", "models/encoder.py",
                  "data/postprocess.py", "train/losses.py", "train/state.py",
                  "train/vae_trainer.py", "train/logging.py",
+                 "train/evaluation.py", "data/gbuffer.py",
                  "cli/train_vae.py", "tools/rasterizer_timing.py",
                  "tools/bench.py", "tools/kernel_stages.py",
                  "tools/kernel_attribution.py"):

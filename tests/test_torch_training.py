@@ -319,11 +319,17 @@ def test_rand_coarse_lod_draws_and_runs():
 
 
 def test_train_cli_runs_and_resumes(tmp_path):
-    """`cli.train_vae.main` on the CPU at a tiny config: steps counted,
-    parameters and EMA moved, the log and checkpoint written, `--resume`
-    continues; the flags of what is not ported are refused."""
+    """`cli.train_vae.main` on the CPU at a tiny config, with the release
+    recipe's flags: the PatchGAN (`--adv`: discriminator steps on odd
+    steps), a packed dataset with one held-out instance evaluated every
+    step, and the encoder grafted from the run's own checkpoint. Steps
+    counted, parameters and EMA moved, the log, the evaluation PNGs and
+    both networks' checkpoints written, and `--resume` continues both;
+    `--platform` (the JAX CLI's) is `--device` here."""
     from gaussiananything_tpu_torch.cli import train_vae
     from gaussiananything_tpu_torch.config import preset
+    from gaussiananything_tpu_torch.data.gbuffer import \
+        export_synthetic_dataset
     cfg = preset("demo-e2e")
     cfg.data.resolution, cfg.data.n_points = 32, 64
     cfg.render.lod_resolutions = (16, 32)
@@ -332,21 +338,39 @@ def test_train_cli_runs_and_resumes(tmp_path):
     cfg.optim.batch_size, cfg.optim.warmup_steps = 1, 1
     path = tmp_path / "cfg.json"
     path.write_text(cfg.to_json())
+    data = str(tmp_path / "data")
+    export_synthetic_dataset(data, n_instances=3, n_views=4, res=32,
+                             n_splats=256)
     logdir = str(tmp_path / "run")
+    common = ["--config", str(path), "--logdir", logdir, "--device", "cpu",
+              "--adv", "--data-dir", data, "--holdout", "1",
+              "--eval-every", "1"]
     timers = []
-    res = train_vae.main(["--config", str(path), "--steps", "2", "--logdir",
-                          logdir, "--device", "cpu"], timers=timers)
+    res = train_vae.main(common + ["--steps", "2"], timers=timers)
     assert res["state"].step == 2 and len(res["logs"]) == 2
-    assert all(np.isfinite(v) for lg in res["logs"] for v in lg.values())
-    assert {"data", "forward", "render", "loss", "backward",
-            "optimizer"} <= set(timers[0])
-    assert os.path.exists(os.path.join(logdir, "progress.csv"))
-    assert os.path.exists(os.path.join(logdir, "ckpt", "step_00000002.pt"))
-    res2 = train_vae.main(["--config", str(path), "--steps", "3", "--logdir",
-                           logdir, "--device", "cpu", "--resume",
-                           os.path.join(logdir, "ckpt")])
-    assert res2["state"].step == 3 and len(res2["logs"]) == 1
-    for flag in ("--adv", "--lpips-npz", "--data-dir", "--holdout",
-                 "--canonicalize", "--load-submodule", "--platform"):
-        with pytest.raises(SystemExit):
-            train_vae.main([flag, "x", "--device", "cpu"])
+    assert res["disc_state"].step == 1 and len(res["d_logs"]) == 1
+    assert len(res["evals"]) == 2
+    assert all(np.isfinite(v) for lg in res["logs"] + res["d_logs"]
+               + res["evals"] for v in lg.values())
+    assert {"g_loss", "adaptive_w"} <= set(res["logs"][0])
+    assert {"data", "forward", "render", "adversarial", "loss", "backward",
+            "optimizer", "eval"} <= set(timers[0])
+    assert "disc_step" in timers[1]
+    for name in ("progress.csv", "eval/eval_0000001.png",
+                 "eval/eval_0000002.png", "ckpt/step_00000002.pt",
+                 "ckpt_disc/step_00000001.pt"):
+        assert os.path.exists(os.path.join(logdir, name)), name
+    state, model = res["state"], res["model"]
+    assert any(not torch.equal(state.ema[k], p.detach())
+               for k, p in state.params.items())
+    ckpt = os.path.join(logdir, "ckpt")
+    res2 = train_vae.main(common + ["--steps", "4", "--resume", ckpt,
+                                    "--load-submodule", f"encoder={ckpt}"])
+    assert res2["state"].step == 4 and len(res2["logs"]) == 2
+    assert res2["disc_state"].step == 2
+    saved = torch.load(os.path.join(ckpt, "step_00000002.pt"))
+    assert not any(torch.equal(saved["params"][k], v.detach())
+                   for k, v in res2["state"].params.items()
+                   if k.startswith("encoder."))
+    with pytest.raises(SystemExit):
+        train_vae.main(["--platform", "cpu", "--device", "cpu"])
