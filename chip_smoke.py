@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every kernel from `csrc/` with nvcc, the sources in
-   parallel, and print what ptxas says of each;
+   parallel, and print what ptxas says of each; compile the mesh export's
+   host library from `native/surface_nets.cc`;
 3. kernels: hold each kernel (K1 forward, K2a forward with entry states,
    K2b backward, K6 segment-fed forward, K3/K4/K5 dense-list forwards, the
    eight stage instantiations of K4) against its plain PyTorch version on
@@ -62,6 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
@@ -160,6 +162,13 @@ def build_phase():
         if any(w in line for w in ("Compiling entry", "registers", "spill",
                                    "smem")):
             print(f"[build]   {line.strip()}", flush=True)
+    # the mesh export's host library (native/surface_nets.cc)
+    from gaussiananything_tpu_torch import native_bindings
+    t0 = time.perf_counter()
+    native_bindings.library()
+    print(f"[build] {native_bindings.SOURCE} with "
+          f"{native_bindings.build_log.splitlines()[0] if native_bindings.build_log else 'a cached build'}: "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
 
 
 def _golden_errors(got, ref, names):
@@ -257,9 +266,10 @@ def _pair_steps(tab, pairs, starts, counts, bg, res, _res, chunk):
 
 
 def k1_phase(dev):
-    """K1 against its plain version on the card in every K1_CASES case, to
-    the golden criteria, and dist to DIST_REL of its size on the dist
-    scene; both timed at the slice's render shape ("turntable")."""
+    """K1 against its plain version on the card in every K1_CASES case and
+    on every view of the mesh export's sweep, to the golden criteria, and
+    dist to DIST_REL of its size on the dist scene; both timed at the
+    slice's render shape ("turntable") and on a mesh-sweep view."""
     import torch
     from gaussiananything_tpu_torch.ops import rasterize as rz
     from gaussiananything_tpu_torch.ops import rasterize_cuda
@@ -293,22 +303,9 @@ def k1_phase(dev):
         if name == "turntable":
             timed = args
 
-    tab, _, _, counts, _, res, _ = timed
-    chunk, tile = K1_CASES["turntable"][-1], 16
-    ms = time_cuda(lambda: rasterize_cuda.composite(*timed, chunk=chunk),
-                   reps=50)
-    plain_ms = time_cuda(lambda: rz.composite_plain(*timed, chunk=chunk),
-                         reps=5, warmup=1)
-    steps = _pair_steps(*timed, chunk)
-    n_tiles = (res // tile) ** 2
-    n_bytes = (tab.numel() * 4 + int(counts.sum()) * 4 + 2 * n_tiles * 4
-               + 3 * 4 + rz.N_OUT * res * res * 4)
-    n_ops = steps * tile * tile * K1_OPS_PER_STEP
-    t_bytes = n_bytes / H100_HBM_BYTES_S * 1e3
-    t_ops = n_ops / H100_FP32_FLOPS * 1e3
-    print(f"[K1] turntable: {ms:.4f} ms (median of 50), plain "
-          f"{plain_ms:.2f} ms; pairs {int(counts.sum())}, pair steps "
-          f"{steps}, bytes {n_bytes}, ops {n_ops}", flush=True)
+    ms, plain_ms, t_bytes, t_ops = _k1_timing(timed, K1_CASES["turntable"][-1],
+                                              "turntable")
+    max_err = max(max_err, _mesh_sweep_case(dev))
     return {
         "name": "K1", "route": "cuda",
         "source": "gaussiananything_tpu_torch/csrc/rasterize_v4.cu",
@@ -319,6 +316,103 @@ def k1_phase(dev):
         # no single PyTorch call composites 2DGS surfels
         "library_ms": None,
     }
+
+
+def _k1_timing(args, chunk, name, reps=50):
+    """K1 and its plain version timed on one frame's inputs, and the
+    frame's least time by bytes and by operations (ms each)."""
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+    tab, _, _, counts, _, res, _ = args
+    tile = 16
+    ms = time_cuda(lambda: rasterize_cuda.composite(*args, chunk=chunk),
+                   reps=reps)
+    plain_ms = time_cuda(lambda: rz.composite_plain(*args, chunk=chunk),
+                         reps=5, warmup=1)
+    steps = _pair_steps(*args, chunk)
+    n_tiles = (res // tile) ** 2
+    n_bytes = (tab.numel() * 4 + int(counts.sum()) * 4 + 2 * n_tiles * 4
+               + 3 * 4 + rz.N_OUT * res * res * 4)
+    n_ops = steps * tile * tile * K1_OPS_PER_STEP
+    t_bytes = n_bytes / H100_HBM_BYTES_S * 1e3
+    t_ops = n_ops / H100_FP32_FLOPS * 1e3
+    print(f"[K1] {name}: {ms:.4f} ms (median of {reps}), plain "
+          f"{plain_ms:.2f} ms; pairs {int(counts.sum())}, pair steps "
+          f"{steps}, bytes {n_bytes}, ops {n_ops}; bound "
+          f"{max(t_bytes, t_ops):.4f} ms by "
+          f"{'bytes' if t_bytes >= t_ops else 'operations'}", flush=True)
+    return ms, plain_ms, t_bytes, t_ops
+
+
+# the mesh export's sweep (`render/tsdf.mesh_from_gaussians`, as the JAX
+# export: `uni_mesh_path(10)`, 10 azimuths at 5 elevations, 50 views) at
+# 256², max_per_tile 1024, chunk 256, of a release-width bf16 decode
+# (73,728 surfels, fp32 as the rasterizer reads them)
+MESH_AZIMUTHS, MESH_RES, MESH_MPT, MESH_CHUNK = 10, 256, 1024, 256
+MESH_VIEWS = 5 * MESH_AZIMUTHS
+
+
+def _mesh_sweep_case(dev):
+    """K1 against its plain version on every view of the mesh sweep of the
+    release VAE decoder's gaussians (bf16, seeded random weights, anchors
+    on a sphere), to the golden criteria; one view timed and bounded.
+    Returns the largest error."""
+    import torch
+    from gaussiananything_tpu_torch.config import preset, release_config
+    from gaussiananything_tpu_torch.data.synthetic import make_object
+    from gaussiananything_tpu_torch.models.vae import PointVAE
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+    from gaussiananything_tpu_torch.render import cameras
+    torch.manual_seed(0)
+    cfg = release_config(preset("demo-e2e"))
+    with torch.device(dev):
+        vae = PointVAE.from_config(cfg.vae, dtype=torch.bfloat16).eval()
+    g = torch.Generator(device=dev).manual_seed(0)
+    K = cfg.vae.latent_num
+    anchors = make_object(0, n=K, kind="sphere", device=dev)[None, :, :3]
+    with torch.no_grad():
+        gauss = vae.decode(torch.randn((1, K, cfg.vae.z_channels),
+                                       generator=g, device=dev),
+                           anchors)[-1][0]
+    del vae
+    cams = cameras.pose_to_gs_camera(cameras.uni_mesh_path(MESH_AZIMUTHS),
+                                     device=dev)
+    bg = torch.ones(3, device=dev)
+    max_err, worst = 0.0, {}
+    for v in range(MESH_VIEWS):
+        sp = rz.preprocess_splats(gauss, cams["cam_view"][v],
+                                  cams["cam_view_proj"][v], MESH_RES,
+                                  MESH_RES)
+        pairs, starts, counts = rz.build_tile_pairs(sp, MESH_RES, MESH_RES,
+                                                    16, MESH_MPT)
+        args = (rz.splat_table(sp, MESH_RES, MESH_RES).contiguous(), pairs,
+                starts, counts, bg, MESH_RES, MESH_RES)
+        got = rz.split_outputs(rasterize_cuda.composite(*args,
+                                                        chunk=MESH_CHUNK))
+        ref = rz.split_outputs(rz.composite_plain(*args, chunk=MESH_CHUNK))
+        ok, errs = _golden_errors(got, ref, GOLDEN_TOL)
+        if not ok:
+            flips = (got["depth_median"] - ref["depth_median"]).abs() > \
+                GOLDEN_TOL["depth_median"]
+            fail(f"K1 disagrees with its plain version beyond the golden "
+                 f"criteria on mesh-sweep view {v}: {json.dumps(errs)}; "
+                 f"alpha at the median-depth flips (K1, plain): "
+                 f"{got['alpha'][flips].tolist()}, "
+                 f"{ref['alpha'][flips].tolist()}")
+        if not all(torch.isfinite(x).all() for x in got.values()):
+            fail(f"K1 output is not finite (mesh sweep view {v})")
+        err = max(r["max_abs"] for r in errs.values())
+        if err >= max_err:
+            max_err, worst = err, errs
+        if v == 0:
+            timed = args
+    print(f"[K1] mesh sweep ({MESH_VIEWS} views of {gauss.shape[0]} "
+          f"decoded splats, {MESH_RES}², max_per_tile {MESH_MPT}, chunk "
+          f"{MESH_CHUNK}) vs plain, worst view: "
+          f"{json.dumps(worst, sort_keys=True)}", flush=True)
+    _k1_timing(timed, MESH_CHUNK, "mesh sweep view 0")
+    return max_err
 
 
 # K2a/K2b's cases: the trainer's render call (`render_lods`: max_per_tile
@@ -1369,6 +1463,411 @@ def _cascade_run(dev, num, steps, out_dir):
     return launches
 
 
+SMALL_W = 64
+
+
+def _rel_err(got, ref) -> float:
+    """max|got − ref| over max(max|ref|, 1), on the CPU."""
+    ref = ref.float().cpu()
+    return float((got.float().cpu() - ref).abs().max()) / max(
+        float(ref.abs().max()), 1.0)
+
+
+def small_serving_phase(dev):
+    """The serving modules at small widths on the card against the same
+    weights and inputs on the CPU: the text conditioners (bytes, OpenCLIP)
+    and the scratch image conditioner to 1e-4 of their scale, `u2netp` at
+    64² and `matting_alpha` to 1e-4, `integrate_tsdf` to 2e-5; a
+    text-conditioned `sample_request` (the t23d release layout, 2 Heun
+    steps) with the mesh, stage outputs to 1e-3 of their scale, LoDs to 1e-3, the meshes'
+    vertex counts within 5% and mean radii within 0.02; and the bf16
+    cascade against the card's own fp32 one stage by stage (each stage on
+    the fp32 stage's input), within 0.05·max(scale, 1) (latents) and 0.05
+    (LoDs, which are fp32)."""
+    import copy
+    import numpy as np
+    import torch
+    from gaussiananything_tpu_torch.cli.sample import (ReleaseModels,
+                                                       sample_request)
+    from gaussiananything_tpu_torch.config import RenderConfig
+    from gaussiananything_tpu_torch.models.conditioner import (
+        ImageConditioner, TextConditioner, tokenize_bytes)
+    from gaussiananything_tpu_torch.models.dit import PointDiT
+    from gaussiananything_tpu_torch.models.matting import (matting_alpha,
+                                                           u2netp)
+    from gaussiananything_tpu_torch.models.vae import PointVAE
+    from gaussiananything_tpu_torch.render.tsdf import integrate_tsdf
+    from gaussiananything_tpu_torch.train.fm_trainer import (FMConfig,
+                                                             make_sampler)
+    errs = {}
+    torch.manual_seed(0)
+    ids = torch.from_numpy(tokenize_bytes(["a wooden chair"])).long()
+    img = torch.rand((2, 3, 56, 56))
+    for name, mod, x in (
+            ("text bytes", TextConditioner(SMALL_W, 2, 4), ids),
+            ("text openclip", TextConditioner(SMALL_W, 2, 4,
+                                              backbone="openclip"), ids),
+            ("scratch image", ImageConditioner(SMALL_W, 2, 4, img_size=56,
+                                               backbone="scratch"), img)):
+        mod.eval()
+        with torch.no_grad():
+            ref = mod(x)
+            got = copy.deepcopy(mod).to(dev)(x.to(dev))
+        errs[name] = max(_rel_err(a, b) for a, b in zip(got, ref))
+    net = u2netp().eval()
+    x = torch.rand((1, 3, 64, 64))
+    with torch.no_grad():
+        ref = net(x)
+        net_dev = copy.deepcopy(net).to(dev)
+        errs["u2netp"] = _rel_err(net_dev(x.to(dev)), ref)
+    photo = torch.rand((80, 72, 3))
+    errs["matting_alpha"] = _rel_err(
+        matting_alpha(net_dev, photo.to(dev), res=64),
+        matting_alpha(net, photo, res=64))
+    r = np.random.default_rng(0)
+    V, H, W, D = 4, 33, 31, 48
+    depth = torch.from_numpy((1.5 + 0.3 * r.random((V, 1, H, W)))
+                             .astype(np.float32))
+    rgb = torch.from_numpy(r.random((V, 3, H, W)).astype(np.float32))
+    alpha = torch.from_numpy((r.random((V, 1, H, W)) > 0.2)
+                             .astype(np.float32))
+    cv = torch.eye(4).repeat(V, 1, 1)
+    cv[:, 3, 2] = 2.0 + 0.1 * torch.arange(V)
+    ref = integrate_tsdf(depth, rgb, alpha, cv, 0.6, resolution=D)
+    got = integrate_tsdf(depth.to(dev), rgb.to(dev), alpha.to(dev),
+                         cv.to(dev), 0.6, resolution=D)
+    errs["integrate_tsdf"] = max(float((a.cpu() - b).abs().max())
+                                 for a, b in zip(got, ref))
+
+    # a text-conditioned request with the mesh, t23d release layout
+    K, ZC = 12, 10
+    dk = dict(width=SMALL_W, depth=2, heads=4, cond_dim=SMALL_W,
+              vector_dim=SMALL_W, variant="text")
+    cpu = ReleaseModels(
+        cond=TextConditioner(SMALL_W, 2, 4, backbone="openclip"),
+        dit1=PointDiT(in_channels=3, **dk),
+        dit2=PointDiT(in_channels=ZC, use_xyz_pe=True, **dk),
+        vae=PointVAE(latent_num=K, decoder_width=SMALL_W, decoder_depth=2,
+                     decoder_heads=2))
+    for m in (cpu.cond, cpu.dit1, cpu.dit2, cpu.vae):
+        m.eval()
+    card = ReleaseModels(*(copy.deepcopy(m).to(dev) for m in
+                           (cpu.cond, cpu.dit1, cpu.dit2, cpu.vae)))
+    g = torch.Generator().manual_seed(1)
+    x0 = (torch.randn((1, K, 3), generator=g),
+          torch.randn((1, K, ZC), generator=g))
+    fm1 = FMConfig(stage=1, cfg_scale=4.5, num_steps=2, sampler="heun")
+    fm2 = dataclasses.replace(fm1, stage=2)
+    rcfg = RenderConfig(output_size=64, max_per_tile=256, chunk=64)
+    mesh = dict(resolution=48, n_views=4, render_size=64)
+    quiet = dict(log=lambda s: None, mesh=mesh)
+    ref = sample_request(cpu, ids, fm1, fm2, rcfg, x0_stage1=x0[0],
+                         x0_stage2=x0[1], **quiet)
+    got = sample_request(card, ids.to(dev), fm1, fm2, rcfg,
+                         x0_stage1=x0[0].to(dev), x0_stage2=x0[1].to(dev),
+                         **quiet)
+    for k in ("xyz_n", "kl"):
+        errs[f"t23d {k}"] = float((got[k].cpu() - ref[k]).abs().max()) \
+            / float(ref[k].abs().max())
+    errs["t23d lods"] = max(float((a.cpu() - b).abs().max())
+                            for a, b in zip(got["lods"], ref["lods"]))
+    (gv, gf, _), (rv, rf, _) = got["mesh"], ref["mesh"]
+    counts = (len(gv), len(rv))
+    radii = (float(np.linalg.norm(gv, axis=1).mean()) if len(gv) else 0.0,
+             float(np.linalg.norm(rv, axis=1).mean()) if len(rv) else 0.0)
+
+    # bf16 against the card's own fp32, stage by stage with the handoff
+    # pinned to the fp32 one: stage 2 reads sin/cos of xyz at up to 2⁹ per
+    # unit, so bf16's stage-1 difference alone would move it by far more
+    # than the bf16 arithmetic of the stage itself
+    c16, d116, d216 = (copy.deepcopy(m).to(torch.bfloat16) for m in
+                       (card.cond, card.dit1, card.dit2))
+    with torch.device(dev):
+        v16 = PointVAE(latent_num=K, decoder_width=SMALL_W, decoder_depth=2,
+                       decoder_heads=2, dtype=torch.bfloat16).eval()
+    v16.load_state_dict(cpu.vae.state_dict())
+    ids_d = ids.to(dev)
+    xyz32 = got["xyz"][None]
+    got16 = {
+        "xyz_n": make_sampler(d116, c16, fm1, (K, 3))(ids_d,
+                                                     x0=x0[0].to(dev)),
+        "kl": make_sampler(d216, c16, fm2, (K, ZC))(
+            ids_d, xyz=xyz32 / 0.45, x0=x0[1].to(dev))}
+    with torch.no_grad():
+        got16["lods"] = v16.decode(got["kl"], xyz32)
+    for k in ("xyz_n", "kl"):
+        errs[f"bf16 {k}"] = _rel_err(got16[k], got[k])
+    errs["bf16 lods"] = max(float((a - b).abs().max())
+                            for a, b in zip(got16["lods"], got["lods"]))
+    lods_fp32 = all(x.dtype == torch.float32 for x in got16["lods"])
+    print(f"[small serving] card vs CPU (bf16 vs the card's fp32): "
+          f"{json.dumps(errs, sort_keys=True)}; mesh vertices card/CPU "
+          f"{counts}, mean radius {radii[0]:.4f}/{radii[1]:.4f}; bf16 LoDs "
+          f"fp32: {lods_fp32}", flush=True)
+    bounds = {"text bytes": 1e-4, "text openclip": 1e-4,
+              "scratch image": 1e-4, "u2netp": 1e-4, "matting_alpha": 1e-4,
+              "integrate_tsdf": 2e-5, "t23d xyz_n": 1e-3, "t23d kl": 1e-3,
+              "t23d lods": 1e-3, "bf16 xyz_n": 0.05, "bf16 kl": 0.05,
+              "bf16 lods": 0.05}
+    bad = {k: v for k, v in errs.items() if not v <= bounds[k]}
+    if bad:
+        fail(f"small serving beyond its bounds: {bad}")
+    if not (min(counts) > 0 and abs(counts[0] - counts[1]) <= 0.05
+            * counts[1] and abs(radii[0] - radii[1]) <= 0.02):
+        fail(f"the small request's meshes differ: vertices {counts}, mean "
+             f"radii {radii}")
+    if not lods_fp32:
+        fail("the bf16 decode handed the renderer non-fp32 gaussians")
+
+
+SERVE_STEPS = 10
+
+
+def serving_phase(dev):
+    """The rest of the serving path at release width, on seeded random
+    weights and 10 Heun steps (the release takes 250):
+
+    1. `cli/sample.py --release --full --text ... --mesh --num 1`: the
+       OpenCLIP ViT-L/14 tower, the t23d DiT-Ls, the decode, the turntable
+       and the 176³ mesh; K1 launched exactly 8 + MESH_VIEWS times (no
+       demo image: the text path renders none);
+    2. `--image-dir D --bf16 --num 2` on two PNGs written here; K1 exactly
+       2 × 8 times, and every splat table reaching K1's wrapper fp32;
+    3. `cli/serve.py --release` in a thread on port 0 with stage-2 and
+       VAE checkpoints written by the port's `save_checkpoint` and a
+       seeded U²-Net npz in the JAX layout; a multipart and a raw POST,
+       their JSON, assets and /health; K1 launched 0 times.
+
+    Prints each request's seconds by stage and the mesh's."""
+    with tempfile.TemporaryDirectory() as root:
+        return _serving_run(dev, root)
+
+
+def _serving_run(dev, root):
+    import numpy as np
+    import torch
+    from PIL import Image
+    from gaussiananything_tpu_torch.cli import sample
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.ops import rasterize_cuda
+    launches = {}
+    common = ["--release", "--full", "--steps", str(SERVE_STEPS), "--seed",
+              "0", "--device", str(dev)]
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    (res,) = sample.main(common + ["--text", "a wooden chair", "--mesh",
+                                   "--num", "1", "--out",
+                                   os.path.join(root, "t23d")])
+    wall = time.perf_counter() - t0
+    n = rasterize_cuda.composite.launches
+    launches["K1"] = n
+    print(f"[serving] t23d + mesh: wall {wall:.2f}s (model build "
+          f"included); seconds {json.dumps(res['timings'])}; K1 {n}; mesh "
+          f"{len(res['mesh'][0])} vertices, {len(res['mesh'][1])} faces",
+          flush=True)
+    if n != 8 + MESH_VIEWS:
+        fail(f"the t23d request launched K1 {n} times, expected 8 + "
+             f"{MESH_VIEWS}")
+    _check_request(res, "t23d")
+    verts, faces, _ = res["mesh"]
+    if not (len(verts) > 100 and np.isfinite(verts).all()
+            and faces.max() < len(verts)):
+        fail(f"the t23d mesh is malformed: {len(verts)} vertices")
+    if not os.path.getsize(os.path.join(root, "t23d", "mesh_0.glb")):
+        fail("mesh_0.glb is empty")
+
+    img_dir = os.path.join(root, "imgs")
+    os.makedirs(img_dir)
+    r = np.random.default_rng(0)
+    for i in range(2):
+        a = np.full((600, 520, 3), 235, np.uint8)
+        a[120 + 40 * i:460, 100:420] = r.integers(20, 200, (340 - 40 * i,
+                                                             320, 3))
+        Image.fromarray(a).save(os.path.join(img_dir, f"view_{i}.png"))
+    # the splat tables `rasterize_tiled` builds and hands to K1's wrapper
+    dtypes = set()
+    real_table = rz.splat_table
+
+    def watched(*args, **kw):
+        tab = real_table(*args, **kw)
+        dtypes.add(tab.dtype)
+        return tab
+
+    _reset_launches()
+    rz.splat_table = watched
+    try:
+        t0 = time.perf_counter()
+        results = sample.main(common + ["--image-dir", img_dir, "--bf16",
+                                        "--num", "2", "--out",
+                                        os.path.join(root, "bf16")])
+    finally:
+        rz.splat_table = real_table
+    wall = time.perf_counter() - t0
+    n = rasterize_cuda.composite.launches
+    launches["K1"] += n
+    for i, res in enumerate(results):
+        print(f"[serving] bf16 image-dir request {i} seconds: "
+              f"{json.dumps(res['timings'])}", flush=True)
+        _check_request(res, f"bf16 {i}")
+    print(f"[serving] bf16 image-dir: wall {wall:.2f}s; K1 {n}; splat "
+          f"tables reaching K1: {sorted(str(d) for d in dtypes)}",
+          flush=True)
+    if n != 2 * 8:
+        fail(f"the bf16 requests launched K1 {n} times, expected 2 x 8")
+    if dtypes != {torch.float32}:
+        fail(f"K1 was handed splat tables of {dtypes} under --bf16")
+    if not all(x.dtype == torch.float32 for res in results
+               for x in res["lods"]):
+        fail("the bf16 decode's gaussians are not fp32")
+
+    _reset_launches()
+    _serve_run(dev, root)
+    n = rasterize_cuda.composite.launches
+    print(f"[serving] server: K1 {n}", flush=True)
+    if n != 0:
+        fail(f"the server launched K1 {n} times; it renders nothing")
+    return launches
+
+
+def _check_request(res, name):
+    import torch
+    lods = res["lods"]
+    if [tuple(x.shape) for x in lods] != [(1, n, 13) for n in
+                                          (768, 6144, 24576, 73728)]:
+        fail(f"{name}: LoD shapes {[tuple(x.shape) for x in lods]}")
+    for x in (res["xyz_n"], res["kl"], *lods, *res["render"].values()):
+        if not torch.isfinite(x.float()).all():
+            fail(f"{name}: non-finite values in the outputs")
+    if float((res["render"]["alpha"] > 1e-3).float().mean()) <= 0:
+        fail(f"{name}: the turntable is empty")
+
+
+def _seeded_u2net_npz(path: str, seed: int = 0):
+    """Full U²-Net weights drawn from `seed` by numpy (He-scaled kernels,
+    zero biases, BatchNorm with unit scale, zero mean and unit variance),
+    written in the JAX package's npz layout: params/stageN/<block>/conv_s1/
+    {kernel, bias} (HWIO), params/stageN/<block>/bn_{scale,bias,mean,var},
+    params/sideN and params/outconv."""
+    import numpy as np
+    from gaussiananything_tpu_torch.models.matting import REBNCONV, u2net
+    from gaussiananything_tpu_torch.utils.param_io import save_params_npz
+    r = np.random.default_rng(seed)
+
+    def conv(c):
+        o, i, kh, kw = c.weight.shape
+        return {"kernel": (r.standard_normal((kh, kw, i, o))
+                           * math.sqrt(2.0 / (kh * kw * i)))
+                .astype(np.float32), "bias": np.zeros(o, np.float32)}
+
+    tree = {}
+    for name, m in u2net().named_modules():
+        node = tree
+        if isinstance(m, REBNCONV):
+            *parents, leaf = name.split(".")
+            for p in parents:
+                node = node.setdefault(p, {})
+            ch = m.conv_s1.weight.shape[0]
+            node[leaf] = {"conv_s1": conv(m.conv_s1),
+                          "bn_scale": np.ones(ch, np.float32),
+                          "bn_bias": np.zeros(ch, np.float32),
+                          "bn_mean": np.zeros(ch, np.float32),
+                          "bn_var": np.ones(ch, np.float32)}
+        elif name.startswith("side") or name == "outconv":
+            tree[name] = conv(m)
+    save_params_npz(path, {"params": tree})
+
+
+def _serve_run(dev, root):
+    import threading
+    import urllib.request
+    import torch
+    from PIL import Image
+    import numpy as np
+    from gaussiananything_tpu_torch.cli import serve
+    from gaussiananything_tpu_torch.config import preset, release_config
+    from gaussiananything_tpu_torch.models.dit import stage2_dit_release
+    from gaussiananything_tpu_torch.models.vae import PointVAE
+    from gaussiananything_tpu_torch.train.state import (TrainState,
+                                                        save_checkpoint)
+    cfg = release_config(preset("demo-e2e"))
+    t0 = time.perf_counter()
+    torch.manual_seed(5)
+    paths = {}
+    for name, make in (("stage2", stage2_dit_release),
+                       ("vae", lambda: PointVAE.from_config(cfg.vae))):
+        with torch.device(dev):
+            state = TrainState.create(make())
+        paths[name] = os.path.join(root, f"ckpt_{name}")
+        save_checkpoint(paths[name], state)
+        del state
+    paths["u2net"] = os.path.join(root, "u2net.npz")
+    _seeded_u2net_npz(paths["u2net"])
+    t_ckpt = time.perf_counter() - t0
+    srv = serve.make_server(serve.parse_args([
+        "--release", "--stage2-ckpt", paths["stage2"], "--vae-ckpt",
+        paths["vae"], "--matting-ckpt", paths["u2net"], "--steps",
+        str(SERVE_STEPS), "--host", "127.0.0.1", "--port", "0",
+        "--assets", os.path.join(root, "assets"), "--device", str(dev)]))
+    t_build = time.perf_counter() - t0 - t_ckpt
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    base = "http://127.0.0.1:%d" % srv.server_address[1]
+
+    def get(url, data=None, headers=None):
+        req = urllib.request.Request(base + url, data=data,
+                                     headers=headers or {})
+        with opener.open(req, timeout=600) as resp:
+            return resp.status, resp.read()
+
+    try:
+        code, body = get("/health")
+        if code != 200 or json.loads(body)["status"] != "ok":
+            fail(f"/health answered {code} {body!r}")
+        code, body = get("/")
+        if code != 200 or b"/generate" not in body:
+            fail("/ did not serve the upload form")
+        a = np.full((480, 400, 3), 30, np.uint8)
+        a[100:380, 90:310] = np.random.default_rng(1).integers(
+            100, 255, (280, 220, 3))
+        buf = io.BytesIO()
+        Image.fromarray(a).save(buf, format="PNG")
+        png = buf.getvalue()
+        form = (b"--SMOKE\r\nContent-Disposition: form-data; "
+                b"name=\"image\"; filename=\"a.png\"\r\n"
+                b"Content-Type: image/png\r\n\r\n" + png
+                + b"\r\n--SMOKE--\r\n")
+        outs = []
+        for label, data, ctype in (
+                ("multipart", form, "multipart/form-data; boundary=SMOKE"),
+                ("raw", png, "image/png")):
+            t1 = time.perf_counter()
+            code, body = get("/generate?seed=3", data,
+                             {"Content-Type": ctype})
+            out = json.loads(body)
+            print(f"[serving] server POST ({label}): {code}, round trip "
+                  f"{time.perf_counter() - t1:.2f}s, latency_s "
+                  f"{out.get('latency_s')}, seconds "
+                  f"{json.dumps(out.get('timings'))}", flush=True)
+            if code != 200 or out.get("n_points") != 768 \
+                    or out.get("n_gaussians") != 73728 \
+                    or out.get("seed") != 3:
+                fail(f"/generate ({label}) answered {code} {out}")
+            for key in ("stage1_ply", "stage1_glb", "gaussians_ply"):
+                code, asset = get(out[key])
+                if code != 200 or not asset:
+                    fail(f"{out[key]} answered {code}, {len(asset)} bytes")
+            outs.append(out)
+        print(f"[serving] server: checkpoints and U²-Net npz written in "
+              f"{t_ckpt:.2f}s, pipeline built in {t_build:.2f}s", flush=True)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+    return outs
+
+
 def _launch_counters():
     """{kernel name: (object, attribute or key)} of every wrapper's count."""
     from gaussiananything_tpu_torch.ops import rasterize_cuda as rc
@@ -1890,6 +2389,8 @@ def main():
     records += stages_phase(dev)
     small_cascade_phase(dev)
     paths = {"cascade": cascade_phase(dev)}
+    small_serving_phase(dev)
+    paths["serving"] = serving_phase(dev)
     small_train_phase(dev)
     paths["train"] = train_phase(dev)
     small_adv_train_phase(dev)

@@ -13,8 +13,8 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from gaussiananything_tpu_torch.models.layers import (Attention, Mlp,
-                                                      exact_gelu)
+from gaussiananything_tpu_torch.models.layers import (Attention, LayerNorm,
+                                                      Mlp, exact_gelu)
 from gaussiananything_tpu_torch.utils.image import resize
 
 
@@ -30,10 +30,10 @@ class LayerScale(nn.Module):
 class Block(nn.Module):
     def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, heads)
         self.ls1 = LayerScale(dim)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, act=exact_gelu)
         self.ls2 = LayerScale(dim)
 
@@ -48,7 +48,7 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv2d(3, width, patch, stride=patch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj(x)
+        return self.proj(x.to(self.proj.weight.dtype))
 
 
 def interpolate_pos_embed(pos: torch.Tensor, grid: int) -> torch.Tensor:
@@ -85,7 +85,7 @@ class Dinov2ViT(nn.Module):
             torch.randn(1, num_registers, width) * 1e-6)
         self.blocks = nn.ModuleList([Block(width, heads)
                                      for _ in range(depth)])
-        self.norm = nn.LayerNorm(width, eps=1e-6)
+        self.norm = LayerNorm(width, eps=1e-6)
 
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -94,11 +94,11 @@ class Dinov2ViT(nn.Module):
         if H % self.patch or W % self.patch:
             raise ValueError(f"image {H}x{W} is not a multiple of the patch "
                              f"{self.patch}")
-        x = self.patch_embed(images.float())                # (B, D, g, g)
+        x = self.patch_embed(images)                        # (B, D, g, g)
         grid = x.shape[-1]
         x = x.flatten(2).transpose(1, 2)                    # (B, g², D)
         x = torch.cat([self.cls_token.expand(B, -1, -1), x], dim=1)
-        x = x + interpolate_pos_embed(self.pos_embed, grid)
+        x = x + interpolate_pos_embed(self.pos_embed, grid).to(x.dtype)
         # registers go in AFTER the pos add: they carry no position
         x = torch.cat([x[:, :1], self.register_tokens.expand(B, -1, -1),
                        x[:, 1:]], dim=1)

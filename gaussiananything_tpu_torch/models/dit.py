@@ -1,16 +1,33 @@
-"""The release flow-matching point DiTs (port of the `release_parity=True`
-layout of `gaussiananything_tpu/models/dit.PointDiT`).
+"""The flow-matching point DiTs (port of
+`gaussiananything_tpu/models/dit.PointDiT`).
 
-  * stage 1, `DiT-PixArt-PCD-CLAY-L` = `DiT_I23D_PCD_PixelArt_noclip`
+Release layouts (`release_parity=True`, the official checkpoints):
+
+  * i23d stage 1, `DiT-PixArt-PCD-CLAY-L` = `DiT_I23D_PCD_PixelArt_noclip`
     (`dit/dit_i23d.py:437,1516-1524`): denoises 768×3 point tokens;
-  * stage 2, `…_clay_stage2` (`dit/dit_i23d.py:664`): denoises 768×10 KL
-    tokens with the stage-1 xyz added through `xyz_pos_embed`.
+  * i23d stage 2, `…_clay_stage2` (`dit/dit_i23d.py:664`): denoises 768×10
+    KL tokens with the stage-1 xyz added through `xyz_pos_embed`;
+  * t23d stages 1 and 2, `DiT-PCD-L[-stage2-xyz2feat]`
+    (`dit/dit_trilatent.py:262,335`): the same trunk with the text blocks
+    (`variant="text"`) over 768-wide CLIP tokens.
 
 Raw t ∈ [0, 1] feeds the timestep embedder; t-embedding + LN/Linear pooled
-vector drive one shared adaLN; every CLAY block cross-attends the raw DINOv2
-tokens (bias-less, qk-normed), then runs adaLN-gated qk-norm self-attention
-and an exact-GELU MLP; the T2I final layer adds a (2, D) table to the
-combined embedding. Parameter names are the reference's state-dict names.
+vector drive one shared adaLN; the T2I final layer adds a (2, D) table to
+the combined embedding. A CLAY block cross-attends the raw DINOv2 tokens
+(bias-less, qk-normed, head dim D/heads), then runs adaLN-gated qk-norm
+self-attention and an exact-GELU MLP; a text block runs the self-attention
+first and cross-attends RMS-normalised context tokens with head dim 64.
+Parameter names are the reference's state-dict names.
+
+Without `release_parity` (the JAX package's own trained presets,
+`stage1_dit`/`stage2_dit`): t·1000 feeds the embedder, the pooled vector a
+plain Linear (`vector_proj`), the tokens are projected to the width
+(`cond_proj`), the cross-attention has biases and no qk-norm, the MLPs use
+the tanh GELU, and the final layer takes its shift/scale from a Linear on
+SiLU(t-embedding) with an RMSNorm.
+
+`dtype` is the compute dtype: the weights are held in it (`--bf16`), norms
+and softmaxes run in fp32 (`models/layers.py`); the velocity is fp32.
 """
 from __future__ import annotations
 
@@ -20,54 +37,97 @@ import torch
 import torch.nn as nn
 
 from gaussiananything_tpu_torch.models.layers import (Attention,
-                                                      CrossAttention, Mlp,
+                                                      CrossAttention,
+                                                      LayerNorm, Linear, Mlp,
                                                       RMSNorm,
                                                       TimestepEmbedder,
-                                                      XYZPosEmbed, exact_gelu,
+                                                      XYZPosEmbed,
+                                                      approx_gelu, exact_gelu,
                                                       modulate)
 
 
 class ClayDiTBlock(nn.Module):
     """`ImageCondDiTBlockPixelArtRMSNormClayLRM`
-    (`dit/dit_models_xformers.py:717-787`): CA → SA → FFN."""
+    (`dit/dit_models_xformers.py:717-787`): CA → SA → FFN; or, with
+    `variant="text"`, `PixelArtTextCondDiTBlock` (`:329-376`): SA → CA →
+    FFN with the context RMS-normalised first (`attention_y_norm`)."""
 
     def __init__(self, dim: int, heads: int, ctx_dim: int,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, release_parity: bool = True,
+                 variant: str = "clay"):
         super().__init__()
+        if variant not in ("clay", "text"):
+            raise ValueError(f"unknown block variant {variant!r}")
+        self.variant = variant
         self.norm1 = RMSNorm(dim)
         self.norm2 = RMSNorm(dim)
         self.attn = Attention(dim, heads, qk_norm=True)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, act=exact_gelu)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim,
+                       act=exact_gelu if release_parity else approx_gelu)
         self.scale_shift_table = nn.Parameter(
             torch.randn(6, dim) * (0.02 / dim ** 0.5))
-        self.cross_attn_dino = CrossAttention(dim, ctx_dim, heads,
-                                              dim_head=dim // heads,
-                                              qk_norm=True)
-        self.prenorm_ca_dino = RMSNorm(dim)
+        if release_parity:
+            # CLAY: head dim D/heads (`:746`); text: MECA's default 64
+            # (`:346-347`); equal at every release width
+            ca = CrossAttention(dim, ctx_dim, heads,
+                                dim_head=dim // heads if variant == "clay"
+                                else 64, qk_norm=True)
+        else:
+            ca = CrossAttention(dim, ctx_dim, heads, qkv_bias=True)
+        if variant == "clay":
+            self.cross_attn_dino = ca
+            self.prenorm_ca_dino = RMSNorm(dim)
+        else:
+            self.cross_attn = ca
+            self.prenorm_ca_text = RMSNorm(dim)
+            self.attention_y_norm = RMSNorm(ctx_dim) if release_parity \
+                else None
+
+    def _cross(self, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+        if self.variant == "clay":
+            return self.cross_attn_dino(self.prenorm_ca_dino(x), ctx)
+        if self.attention_y_norm is not None:
+            ctx = self.attention_y_norm(ctx)
+        return self.cross_attn(self.prenorm_ca_text(x), ctx)
 
     def forward(self, x: torch.Tensor, cond_tokens: torch.Tensor,
                 ada: torch.Tensor) -> torch.Tensor:
         """x (B,N,D); cond_tokens (B,L,C); ada (B,6,D) shared adaLN."""
         mod = ada + self.scale_shift_table[None]
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = (mod[:, i, None] for i in range(6))
-        x = x + self.cross_attn_dino(self.prenorm_ca_dino(x), cond_tokens)
+        if self.variant == "clay":
+            x = x + self._cross(x, cond_tokens)
         x = x + g_a * self.attn(modulate(self.norm1(x), sh_a, sc_a))
+        if self.variant == "text":
+            x = x + self._cross(x, cond_tokens)
         return x + g_m * self.mlp(modulate(self.norm2(x), sh_m, sc_m))
 
 
 class FinalLayer(nn.Module):
-    """`T2IFinalLayer` (`dit/dit_models_xformers.py:62-85`)."""
+    """`T2IFinalLayer` (`dit/dit_models_xformers.py:62-85`); without
+    `release_parity` the shift/scale come from `adaLN_modulation` on the
+    t-embedding and the norm is an RMSNorm."""
 
-    def __init__(self, dim: int, out_ch: int):
+    def __init__(self, dim: int, out_ch: int, release_parity: bool = True):
         super().__init__()
-        self.norm_final = nn.LayerNorm(dim, elementwise_affine=False,
-                                       eps=1e-6)
-        self.linear = nn.Linear(dim, out_ch)
+        if release_parity:
+            self.norm_final = LayerNorm(dim, elementwise_affine=False,
+                                        eps=1e-6)
+            self.adaLN_modulation = None
+        else:
+            self.norm_final = RMSNorm(dim)
+            self.adaLN_modulation = nn.Sequential(nn.SiLU(),
+                                                  Linear(dim, 2 * dim))
+        self.linear = Linear(dim, out_ch)
         self.scale_shift_table = nn.Parameter(
             torch.randn(2, dim) * (0.02 / dim ** 0.5))
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        t2 = self.scale_shift_table[None] + c[:, None, :]
+        if self.adaLN_modulation is None:
+            t2 = self.scale_shift_table[None] + c[:, None, :]
+        else:
+            t2 = self.adaLN_modulation(c).reshape(c.shape[0], 2, -1) \
+                + self.scale_shift_table[None]
         shift, scale = t2[:, 0, None], t2[:, 1, None]
         return self.linear(modulate(self.norm_final(x), shift, scale))
 
@@ -75,20 +135,40 @@ class FinalLayer(nn.Module):
 class PointDiT(nn.Module):
     def __init__(self, in_channels: int = 3, width: int = 1024,
                  depth: int = 24, heads: int = 16, cond_dim: int = 1024,
-                 vector_dim: int = 1024, use_xyz_pe: bool = False):
+                 vector_dim: int = 1024, use_xyz_pe: bool = False,
+                 release_parity: bool = True, variant: str = "clay",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_channels = in_channels
         self.width = width
+        self.release_parity = release_parity
         self.x_embedder = Mlp(in_channels, width, width)
         self.t_embedder = TimestepEmbedder(width)
-        self.pooled_vec_embedder = nn.Sequential(
-            nn.LayerNorm(vector_dim, eps=1e-5), nn.Linear(vector_dim, width))
+        if release_parity:
+            # the t23d checkpoints name it `cap_embedder`
+            self.vec_name = ("cap_embedder" if variant == "text"
+                             else "pooled_vec_embedder")
+            self.add_module(self.vec_name, nn.Sequential(
+                LayerNorm(vector_dim, eps=1e-5), Linear(vector_dim, width)))
+            self.cond_proj = None
+        else:
+            self.vec_name = "vector_proj"
+            self.vector_proj = Linear(vector_dim, width)
+            self.cond_proj = Linear(cond_dim, width)
         self.adaLN_modulation = nn.Sequential(nn.SiLU(),
-                                              nn.Linear(width, 6 * width))
-        self.blocks = nn.ModuleList([ClayDiTBlock(width, heads, cond_dim)
-                                     for _ in range(depth)])
-        self.final_layer = FinalLayer(width, in_channels)
+                                              Linear(width, 6 * width))
+        ctx_dim = cond_dim if release_parity else width
+        self.blocks = nn.ModuleList([
+            ClayDiTBlock(width, heads, ctx_dim,
+                         release_parity=release_parity, variant=variant)
+            for _ in range(depth)])
+        self.final_layer = FinalLayer(width, in_channels, release_parity)
         self.xyz_pos_embed = XYZPosEmbed(width) if use_xyz_pe else None
+        self.to(dtype)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.final_layer.linear.weight.dtype
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 cond_tokens: torch.Tensor, cond_vector: torch.Tensor,
@@ -101,25 +181,64 @@ class PointDiT(nn.Module):
             if xyz is None:
                 raise ValueError("the stage-2 DiT needs the stage-1 xyz")
             h = h + self.xyz_pos_embed(xyz)
-        c = self.t_embedder(t) + self.pooled_vec_embedder(cond_vector.float())
+        t_emb = self.t_embedder(t if self.release_parity else t * 1000.0)
+        c = t_emb + getattr(self, self.vec_name)(cond_vector)
         ada = self.adaLN_modulation(c).reshape(c.shape[0], 6, self.width)
-        ctx = cond_tokens.float()
+        if self.cond_proj is None:
+            ctx = cond_tokens.to(self.dtype)
+        else:
+            ctx = self.cond_proj(cond_tokens)
         for blk in self.blocks:
             h = blk(h, ctx, ada)
-        return self.final_layer(h, c).float()
+        return self.final_layer(
+            h, c if self.release_parity else t_emb).float()
+
+
+_SIZES = {"L": dict(depth=24, width=1024, heads=16),
+          "B": dict(depth=12, width=768, heads=12),
+          "S": dict(depth=6, width=384, heads=6)}
+
+
+def stage1_dit(size: str = "L", **kw) -> PointDiT:
+    """The JAX package's own stage-1 geometry DiT (non-release layout)."""
+    cfg = dict(_SIZES[size])
+    cfg.update(kw)
+    return PointDiT(in_channels=3, use_xyz_pe=False, release_parity=False,
+                    **cfg)
+
+
+def stage2_dit(size: str = "L", z_channels: int = 10, **kw) -> PointDiT:
+    """The JAX package's own stage-2 texture DiT (non-release layout)."""
+    cfg = dict(_SIZES[size])
+    cfg.update(kw)
+    return PointDiT(in_channels=z_channels, use_xyz_pe=True,
+                    release_parity=False, **cfg)
+
+
+def _release(in_channels: int, cond: int, variant: str, **kw) -> PointDiT:
+    cfg = dict(depth=24, width=1024, heads=16, cond_dim=cond,
+               vector_dim=cond)
+    cfg.update(kw)
+    return PointDiT(in_channels=in_channels, use_xyz_pe=in_channels != 3,
+                    release_parity=True, variant=variant, **cfg)
 
 
 def stage1_dit_release(**kw) -> PointDiT:
     """The released stage-1 geometry denoiser (i23d-stage1.sh)."""
-    cfg = dict(depth=24, width=1024, heads=16, cond_dim=1024,
-               vector_dim=1024)
-    cfg.update(kw)
-    return PointDiT(in_channels=3, use_xyz_pe=False, **cfg)
+    return _release(3, 1024, "clay", **kw)
 
 
 def stage2_dit_release(**kw) -> PointDiT:
     """The released stage-2 texture denoiser (i23d-stage2.sh)."""
-    cfg = dict(depth=24, width=1024, heads=16, cond_dim=1024,
-               vector_dim=1024)
-    cfg.update(kw)
-    return PointDiT(in_channels=10, use_xyz_pe=True, **cfg)
+    return _release(10, 1024, "clay", **kw)
+
+
+def t23d_stage1_dit_release(**kw) -> PointDiT:
+    """The released t23d geometry denoiser (stage1-t23d.sh: CLIP text
+    context 768)."""
+    return _release(3, 768, "text", **kw)
+
+
+def t23d_stage2_dit_release(**kw) -> PointDiT:
+    """The released t23d texture denoiser (stage2-t23d.sh)."""
+    return _release(10, 768, "text", **kw)

@@ -16,7 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from gaussiananything_tpu_torch.models.layers import (Attention, Mlp,
+from gaussiananything_tpu_torch.models.layers import (Attention, LayerNorm,
+                                                      Linear, Mlp,
                                                       approx_gelu, exact_gelu,
                                                       modulate)
 
@@ -25,13 +26,13 @@ class DiTBlock2(nn.Module):
     def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0,
                  release_parity: bool = True):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, elementwise_affine=False, eps=1e-6)
-        self.norm2 = nn.LayerNorm(dim, elementwise_affine=False, eps=1e-6)
+        self.norm1 = LayerNorm(dim, elementwise_affine=False, eps=1e-6)
+        self.norm2 = LayerNorm(dim, elementwise_affine=False, eps=1e-6)
         self.attn = Attention(dim, heads, qk_norm=release_parity)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim,
                        act=exact_gelu if release_parity else approx_gelu)
         self.adaLN_modulation = nn.Sequential(nn.SiLU(),
-                                              nn.Linear(dim, 6 * dim))
+                                              Linear(dim, 6 * dim))
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         """x, c: (B, K, D); c is the per-token conditioning."""
@@ -56,7 +57,7 @@ class DiT2(nn.Module):
         self.blocks = nn.ModuleList(
             [DiTBlock2(width, heads, release_parity=release_parity)
              for _ in range(depth)])
-        self.norm = None if release_parity else nn.LayerNorm(width, eps=1e-6)
+        self.norm = None if release_parity else LayerNorm(width, eps=1e-6)
 
     def forward(self, c: torch.Tensor) -> torch.Tensor:
         """c (B, K, D) projected latent tokens → (B, K, D)."""
@@ -69,4 +70,5 @@ class DiT2(nn.Module):
                         c.reshape(B * n, K // n, D)).reshape(B, K, D)
             else:
                 x = blk(x, c)
-        return x if self.norm is None else self.norm(x)
+        # (the JAX trunk casts the final norm back to the compute dtype)
+        return x if self.norm is None else self.norm(x).to(x.dtype)

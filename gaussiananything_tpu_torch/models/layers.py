@@ -18,12 +18,21 @@ the release checkpoints map onto them name for name:
 Attention is plain PyTorch, the same math as the JAX package's XLA path
 (`layers.py:32-68`): matmul, fp32 softmax, matmul, computed in query blocks
 once the score matrix would exceed 4096² elements.
+
+The compute dtype (the JAX modules' `dtype`, `--bf16`) is the dtype a
+module's weights are held in: `Linear` and `SameConv2d` cast their input to
+their weight's dtype, while `LayerNorm` and `RMSNorm` compute and return
+fp32 whatever their weights' dtype, as the JAX package pins every norm with
+`dtype=jnp.float32`. Attention scores and the softmax are fp32; the
+probabilities are cast back to the values' dtype for the second product
+(`jax.nn.dot_product_attention`).
 """
 from __future__ import annotations
 
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -43,18 +52,22 @@ def exact_gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
-def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-            ) -> torch.Tensor:
-    """q (B,H,T,D), k/v (B,H,S,D) → (B,H,T,D); fp32 scores and softmax."""
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B,H,T,D), k/v (B,H,S,D) → (B,H,T,D); fp32 scores and softmax;
+    `bias` (broadcast to (B,H,T,S)) is added to the scaled scores."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
         * (1.0 / math.sqrt(q.shape[-1]))
+    if bias is not None:
+        s = s + bias
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p.to(v.dtype), v)
 
 
-def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                  ) -> torch.Tensor:
-    """Exact softmax attention, q (B,T,H,D), k/v (B,S,H,D) → (B,T,H,D).
+def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Exact softmax attention, q (B,T,H,D), k/v (B,S,H,D) → (B,T,H,D);
+    `bias` is an additive score mask (1, 1, T, S), as a causal mask.
 
     Above 4096² scores per (batch, head) the queries run in blocks of 2048,
     which bounds the score memory and changes no value; under autograd
@@ -65,6 +78,11 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     T, S = q.shape[2], k.shape[2]
+    if bias is not None:
+        if T * S > _SCORES_BLOCK_THRESHOLD:
+            raise ValueError("a score bias is taken only below the block "
+                             "threshold")
+        return _attend(q, k, v, bias).transpose(1, 2)
     if T * S > _SCORES_BLOCK_THRESHOLD:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
@@ -81,7 +99,8 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 class RMSNorm(nn.Module):
-    """x · rsqrt(mean(x²) + eps) · weight (`dit/norm.py:12`, eps 1e-5)."""
+    """x · rsqrt(mean(x²) + eps) · weight (`dit/norm.py:12`, eps 1e-5);
+    fp32 whatever the dtype of x and of the weight."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -91,7 +110,25 @@ class RMSNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         ms = (x * x).mean(-1, keepdim=True)
-        return x * torch.rsqrt(ms + self.eps) * self.weight
+        return x * torch.rsqrt(ms + self.eps) * self.weight.float()
+
+
+class LayerNorm(nn.LayerNorm):
+    """`nn.LayerNorm` computed in fp32 whatever the dtype of x and of the
+    weights (flax `nn.LayerNorm(dtype=jnp.float32)`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = None if self.weight is None else self.weight.float()
+        b = None if self.bias is None else self.bias.float()
+        return F.layer_norm(x.float(), self.normalized_shape, w, b, self.eps)
+
+
+class Linear(nn.Linear):
+    """`nn.Linear` that computes in its weight's dtype: the input is cast
+    to it (flax `nn.Dense(dtype=...)`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
 
 
 class Mlp(nn.Module):
@@ -99,8 +136,8 @@ class Mlp(nn.Module):
                  act: Callable = approx_gelu):
         super().__init__()
         self.act = act
-        self.fc1 = nn.Linear(d_in, hidden)
-        self.fc2 = nn.Linear(hidden, d_out or d_in)
+        self.fc1 = Linear(d_in, hidden)
+        self.fc2 = Linear(hidden, d_out or d_in)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.act(self.fc1(x)))
@@ -115,17 +152,18 @@ class Attention(nn.Module):
         super().__init__()
         self.heads = heads
         dh = dim // heads
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
         self.q_norm = RMSNorm(dh) if qk_norm else None
         self.k_norm = RMSNorm(dh) if qk_norm else None
-        self.proj = nn.Linear(dim, dim)
+        self.proj = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, D = x.shape
         qkv = self.qkv(x).reshape(B, T, 3, self.heads, D // self.heads)
         q, k, v = qkv.unbind(2)
         if self.q_norm is not None:
-            q, k = self.q_norm(q), self.k_norm(k)
+            # the normed q, k go back to the compute dtype (JAX `Attention`)
+            q, k = self.q_norm(q).to(v.dtype), self.k_norm(k).to(v.dtype)
         o = dot_attention(q, k, v).reshape(B, T, D)
         return self.proj(o)
 
@@ -141,12 +179,12 @@ class CrossAttention(nn.Module):
         self.heads = heads
         dh = dim_head or dim // heads
         inner = dh * heads
-        self.to_q = nn.Linear(dim, inner, bias=qkv_bias)
-        self.to_k = nn.Linear(context_dim, inner, bias=qkv_bias)
-        self.to_v = nn.Linear(context_dim, inner, bias=qkv_bias)
+        self.to_q = Linear(dim, inner, bias=qkv_bias)
+        self.to_k = Linear(context_dim, inner, bias=qkv_bias)
+        self.to_v = Linear(context_dim, inner, bias=qkv_bias)
         self.q_norm = RMSNorm(dh) if qk_norm else None
         self.k_norm = RMSNorm(dh) if qk_norm else None
-        self.to_out = nn.Sequential(nn.Linear(inner, dim))
+        self.to_out = nn.Sequential(Linear(inner, dim))
 
     def forward(self, x: torch.Tensor, context: torch.Tensor
                 ) -> torch.Tensor:
@@ -157,7 +195,7 @@ class CrossAttention(nn.Module):
         k = split(self.to_k(context))
         v = split(self.to_v(context))
         if self.q_norm is not None:
-            q, k = self.q_norm(q), self.k_norm(k)
+            q, k = self.q_norm(q).to(v.dtype), self.k_norm(k).to(v.dtype)
         o = dot_attention(q, k, v)
         return self.to_out(o.reshape(o.shape[:-2] + (-1,)))
 
@@ -165,7 +203,7 @@ class CrossAttention(nn.Module):
 class PreNorm(nn.Module):
     def __init__(self, dim: int, fn: nn.Module, eps: float = 1e-5):
         super().__init__()
-        self.norm = nn.LayerNorm(dim, eps=eps)
+        self.norm = LayerNorm(dim, eps=eps)
         self.fn = fn
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -209,11 +247,11 @@ class CrossAttentionBlock(nn.Module):
     def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0,
                  qk_norm: bool = True):
         super().__init__()
-        self.norm_q = nn.LayerNorm(dim, eps=1e-5)
-        self.norm_kv = nn.LayerNorm(dim, eps=1e-5)
+        self.norm_q = LayerNorm(dim, eps=1e-5)
+        self.norm_kv = LayerNorm(dim, eps=1e-5)
         self.attn = CrossAttention(dim, dim, heads, qk_norm=qk_norm,
                                    qkv_bias=True)
-        self.norm_mlp = nn.LayerNorm(dim, eps=1e-5)
+        self.norm_mlp = LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
     def forward(self, q_tokens: torch.Tensor, kv_tokens: torch.Tensor
@@ -241,7 +279,7 @@ class XYZPosEmbed(nn.Module):
     def __init__(self, dim: int, multires: int = 10):
         super().__init__()
         self.multires = multires
-        self.xyz_projection = nn.Linear(3 * (2 * multires + 1), dim)
+        self.xyz_projection = Linear(3 * (2 * multires + 1), dim)
 
     def forward(self, xyz: torch.Tensor) -> torch.Tensor:
         return self.xyz_projection(fourier_embed(xyz.float(), self.multires))
@@ -254,8 +292,8 @@ class TimestepEmbedder(nn.Module):
     def __init__(self, hidden: int, freq_dim: int = 256):
         super().__init__()
         self.freq_dim = freq_dim
-        self.mlp = nn.Sequential(nn.Linear(freq_dim, hidden), nn.SiLU(),
-                                 nn.Linear(hidden, hidden))
+        self.mlp = nn.Sequential(Linear(freq_dim, hidden), nn.SiLU(),
+                                 Linear(hidden, hidden))
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         half = self.freq_dim // 2
@@ -282,7 +320,7 @@ class SameConv2d(nn.Conv2d):
         for size in (x.shape[-1], x.shape[-2]):         # F.pad: W first
             total = max((-(-size // s) - 1) * s + k - size, 0)
             pads += [total // 2, total - total // 2]
-        return super().forward(F.pad(x, pads))
+        return super().forward(F.pad(x.to(self.weight.dtype), pads))
 
 
 class GroupNorm32(nn.GroupNorm):
@@ -323,3 +361,19 @@ class ResBlock(nn.Module):
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor
              ) -> torch.Tensor:
     return x * (1 + scale) + shift
+
+
+def get_2d_sincos_pos_embed(dim: int, grid: int) -> np.ndarray:
+    """The DiT 2D sin-cos position table, (grid², dim) fp32
+    (`gaussiananything_tpu/models/layers.py:207`)."""
+    def _1d(d, pos):
+        omega = np.arange(d // 2, dtype=np.float64) / (d / 2.0)
+        omega = 1.0 / 10000 ** omega
+        out = np.einsum("m,d->md", pos, omega)
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+    g = np.arange(grid, dtype=np.float32)
+    gy, gx = np.meshgrid(g, g, indexing="ij")
+    emb = np.concatenate(
+        [_1d(dim // 2, gy.reshape(-1)), _1d(dim // 2, gx.reshape(-1))], axis=1)
+    return emb.astype(np.float32)

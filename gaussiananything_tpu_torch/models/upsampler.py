@@ -16,7 +16,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from gaussiananything_tpu_torch.models.layers import (PreNorm, Transformer,
+from gaussiananything_tpu_torch.models.layers import (Linear, PreNorm,
+                                                      Transformer,
                                                       XYZPosEmbed, exact_gelu)
 
 
@@ -34,7 +35,7 @@ class GaussianUpsampler(nn.Module):
         else:
             self.xyz_embed = XYZPosEmbed(dim)
             self.transformer = Transformer(dim, depth, heads)
-        self.gaussian_residual_pred = PreNorm(dim, nn.Linear(dim, 13))
+        self.gaussian_residual_pred = PreNorm(dim, Linear(dim, 13))
 
     def forward(self, feat: torch.Tensor, raw_gaussians: torch.Tensor,
                 parent_xyz: Optional[torch.Tensor] = None

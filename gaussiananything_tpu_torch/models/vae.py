@@ -14,7 +14,9 @@ gaussian decoder (port of `gaussiananything_tpu/models/vae.py`).
 
 Parameter names are the reference AE's (`encoder.*`, `decoder.vit_decoder.*`,
 `decoder.superresolution.*`). Sampling builds the decoder alone
-(`with_encoder=False`); training builds both.
+(`with_encoder=False`); training builds both. `dtype` is the decoder's
+compute dtype (`--bf16`, `models/layers.py`); the activated gaussians that
+reach the rasterizer are fp32 whatever it is.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch.nn as nn
 
 from gaussiananything_tpu_torch.models.dit2_decoder import DiT2
 from gaussiananything_tpu_torch.models.encoder import HybridPCDEncoder
-from gaussiananything_tpu_torch.models.layers import Mlp, XYZPosEmbed
+from gaussiananything_tpu_torch.models.layers import Linear, Mlp, XYZPosEmbed
 from gaussiananything_tpu_torch.models.upsampler import GaussianUpsampler
 from gaussiananything_tpu_torch.ops.gaussians import (POS_BOUND,
                                                       activate_gaussians,
@@ -64,7 +66,7 @@ class SurfelHead(nn.Module):
 
     def __init__(self, width: int, scale_bias: float = -2.5):
         super().__init__()
-        self.gaussian_pred = nn.Sequential(nn.SiLU(), nn.Linear(width, 13))
+        self.gaussian_pred = nn.Sequential(nn.SiLU(), Linear(width, 13))
         lin = self.gaussian_pred[1]
         with torch.no_grad():
             lin.weight.zero_()
@@ -95,7 +97,8 @@ class PointVAE(nn.Module):
                  up_depths: Sequence[int] = (2, 1, 1),
                  skip_weight: float = 0.1, scale_bias: float = -2.5,
                  release_parity: bool = True, with_encoder: bool = False,
-                 encoder_width: int = 256):
+                 encoder_width: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.skip_weight = skip_weight
         self.latent_shape = (latent_num, z_channels)
@@ -124,10 +127,14 @@ class PointVAE(nn.Module):
             latent_num=latent_num, z_channels=z_channels,
             width=encoder_width, release_parity=release_parity) \
             if with_encoder else None
+        self.decoder.to(dtype)
 
     @classmethod
-    def from_config(cls, vae_cfg, with_encoder: bool = False) -> "PointVAE":
-        """Build from a `config.VAEModelConfig`."""
+    def from_config(cls, vae_cfg, with_encoder: bool = False,
+                    dtype: torch.dtype = None) -> "PointVAE":
+        """Build from a `config.VAEModelConfig`; `dtype` defaults to its
+        `compute_dtype`."""
+        from gaussiananything_tpu_torch.config import compute_dtype
         return cls(latent_num=vae_cfg.latent_num,
                    z_channels=vae_cfg.z_channels,
                    decoder_width=vae_cfg.decoder_width,
@@ -138,7 +145,8 @@ class PointVAE(nn.Module):
                    scale_bias=vae_cfg.scale_bias,
                    release_parity=vae_cfg.release_parity,
                    with_encoder=with_encoder,
-                   encoder_width=vae_cfg.encoder_width)
+                   encoder_width=vae_cfg.encoder_width,
+                   dtype=dtype or compute_dtype(vae_cfg.compute_dtype))
 
     def encode(self, images: torch.Tensor, pcd: torch.Tensor
                ) -> Tuple[DiagonalGaussian, torch.Tensor]:
@@ -167,7 +175,7 @@ class PointVAE(nn.Module):
         if self.release_parity:
             # the reference clips no position
             # (`vit/vit_triplane.py:1388-1400`)
-            pos = anchors.float() + torch.tanh(raw[..., 0:3]) \
+            pos = anchors.float() + torch.tanh(raw[..., 0:3].float()) \
                 * (half * self.skip_weight)
             lods = [activate_gaussians_at(pos, raw)]
         else:
@@ -180,7 +188,8 @@ class PointVAE(nn.Module):
             if self.release_parity:
                 # child position = parent + tanh(RESIDUAL[:3])·0.225,
                 # unscaled (`vit/vit_triplane.py:1040-1058`)
-                pos = rep_parent + torch.tanh(residual[..., 0:3]) * half
+                pos = rep_parent + torch.tanh(residual[..., 0:3].float()) \
+                    * half
                 lods.append(activate_gaussians_at(pos, raw))
             else:
                 lods.append(activate_gaussians(raw, rep_parent,

@@ -198,3 +198,44 @@ def load_submodule(path: str, state: TrainState, submodule: str,
         for k in cur:
             tree[k].copy_(sub[k])
     return state
+
+
+@torch.no_grad()
+def restore_inference_params(ckpt: Optional[str], module: nn.Module,
+                             step: Optional[int] = None) -> nn.Module:
+    """The CLIs' restore (`train/state.restore_inference_params` of the
+    JAX package), into `module` in place:
+
+      * None: `module` as it is;
+      * a `.npz` in the JAX package's layout (what `cli/import_release`
+        and `save_params_npz` write, bare or wrapped in {"params": ...}):
+        `load_params_npz` → `from_jax_params`;
+      * a directory of this package's training checkpoints
+        (`save_checkpoint`): the newest (or the given) step's EMA weights,
+        the entries named like the module's parameters (a decoder-only VAE
+        takes the decoder of a trained VAE).
+
+    The JAX trainer's Orbax checkpoints need JAX to read and are not taken.
+    Values are cast to the module's dtype."""
+    if not ckpt:
+        return module
+    target = module.state_dict()
+    if ckpt.endswith(".npz"):
+        from gaussiananything_tpu_torch.utils.param_io import (
+            from_jax_params, load_params_npz)
+        sd = from_jax_params(load_params_npz(ckpt), module)
+    else:
+        if step is None:
+            steps = _steps(ckpt) if os.path.isdir(ckpt) else []
+            if not steps:
+                raise FileNotFoundError(f"no checkpoint under {ckpt}")
+            step = steps[-1]
+        ema = torch.load(os.path.join(ckpt, f"step_{step:08d}.pt"),
+                         map_location="cpu")["ema"]
+        missing = sorted(set(target) - set(ema))
+        if missing:
+            raise KeyError(f"checkpoint {ckpt} lacks {len(missing)} of the "
+                           f"module's entries, e.g. {missing[:5]}")
+        sd = {k: ema[k] for k in target}
+    module.load_state_dict(sd)
+    return module

@@ -5,10 +5,10 @@ dicts of numpy arrays, bare or wrapped in `{"params": ...}`) into the
 `state_dict` of the matching port module. It inverts the mappings of
 `gaussiananything_tpu/utils/param_io.py` (`convert_dinov2`,
 `convert_gaussiananything_dit`, `convert_gaussiananything_vae`,
-`convert_lpips_vgg`): Dense kernels (in, out) become Linear weights (out,
-in), conv kernels HWIO become OIHW (the port's convolutions run NCHW), and
-the separate q/k/v kernels of a packed attention are fused back into one
-`qkv` weight.
+`convert_lpips_vgg`, `convert_openclip_text`, `convert_u2net`): Dense
+kernels (in, out) become Linear weights (out, in), conv kernels HWIO become
+OIHW (the port's convolutions run NCHW), and the separate q/k/v kernels of
+a packed attention are fused back into one `qkv` weight.
 
 `save_params_npz` / `load_params_npz` write and read such trees in the JAX
 package's npz layout: one array per leaf, keyed by the path joined with
@@ -22,13 +22,18 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from gaussiananything_tpu_torch.models.conditioner import ImageConditioner
+from gaussiananything_tpu_torch.models.conditioner import (ImageConditioner,
+                                                           TextConditioner,
+                                                           TextTransformer,
+                                                           VisionTransformer)
 from gaussiananything_tpu_torch.models.dinov2 import Dinov2ViT
 from gaussiananything_tpu_torch.models.dit import PointDiT
 from gaussiananything_tpu_torch.models.dit2_decoder import DiT2
 from gaussiananything_tpu_torch.models.encoder import (HybridPCDEncoder,
                                                        MVConvEncoder)
 from gaussiananything_tpu_torch.models.layers import CrossAttentionBlock
+from gaussiananything_tpu_torch.models.matting import REBNCONV, U2Net
+from gaussiananything_tpu_torch.models.openclip_text import OpenClipTextTower
 from gaussiananything_tpu_torch.models.sd_encoder import SDEncoderTrunk
 from gaussiananything_tpu_torch.models.upsampler import GaussianUpsampler
 from gaussiananything_tpu_torch.models.vae import PointVAE
@@ -69,6 +74,14 @@ def load_params_npz(path: str) -> dict:
                 node = node.setdefault(p, {})
             node[leaf] = z[key]
     return tree
+
+
+def as_variables(params: Mapping) -> dict:
+    """A parameter tree in flax's variables form {"params": ...}, whether
+    or not it was saved wrapped (`utils/param_io.as_variables`)."""
+    if isinstance(params, Mapping) and set(params) == {"params"}:
+        return dict(params)
+    return {"params": params}
 
 
 class _Mapper:
@@ -158,22 +171,98 @@ def _point_dit(m: _Mapper, module: PointDiT):
     m.mlp("x_embedder", "x_embedder")
     m.dense("t_embedder.mlp.0", "t_embedder/Dense_0")
     m.dense("t_embedder.mlp.2", "t_embedder/Dense_1")
-    m.norm("pooled_vec_embedder.0", "pooled_vec_ln")
-    m.dense("pooled_vec_embedder.1", "vector_proj")
+    if module.release_parity:
+        m.norm(f"{module.vec_name}.0", "pooled_vec_ln")
+        m.dense(f"{module.vec_name}.1", "vector_proj")
+    else:
+        m.dense("vector_proj", "vector_proj")
+        m.dense("cond_proj", "cond_proj")
     m.dense("adaLN_modulation.1", "shared_adaln")
     if module.xyz_pos_embed is not None:
         m.dense("xyz_pos_embed.xyz_projection", "xyz_pe/Dense_0")
-    for i in range(len(module.blocks)):
+    for i, blk in enumerate(module.blocks):
         t, j = f"blocks.{i}.", f"block_{i}/"
         m.copy(t + "scale_shift_table", j + "scale_shift_table")
         m.norm(t + "norm1", j + "norm1")
         m.norm(t + "norm2", j + "norm2")
-        m.norm(t + "prenorm_ca_dino", j + "prenorm_ca")
-        m.cross_attention(t + "cross_attn_dino", j + "cross_attn")
+        if blk.variant == "clay":
+            m.norm(t + "prenorm_ca_dino", j + "prenorm_ca")
+            m.cross_attention(t + "cross_attn_dino", j + "cross_attn")
+        else:
+            m.norm(t + "prenorm_ca_text", j + "prenorm_ca")
+            if blk.attention_y_norm is not None:
+                m.norm(t + "attention_y_norm", j + "attention_y_norm")
+            m.cross_attention(t + "cross_attn", j + "cross_attn")
         m.packed_attention(t + "attn", j + "self_attn")
         m.mlp(t + "mlp", j + "Mlp_0")
     m.copy("final_layer.scale_shift_table", "final_scale_shift")
+    if not module.release_parity:
+        m.dense("final_layer.adaLN_modulation.1", "final_adaln")
+        m.norm("final_layer.norm_final", "RMSNorm_0")
     m.dense("final_layer.linear", "final_proj")
+
+
+def _scratch_vit(m: _Mapper, t: str, j: str, module: VisionTransformer):
+    m.conv(f"{t}patch_embed", f"{j}patch_embed")
+    m.copy(f"{t}cls_token", f"{j}cls_token")
+    m.copy(f"{t}reg_tokens", f"{j}reg_tokens")
+    for i in range(len(module.blocks)):
+        m.transformer_block(f"{t}blocks.{i}", f"{j}block_{i}")
+    m.norm(f"{t}norm", f"{j}LayerNorm_0")
+
+
+def _text_transformer(m: _Mapper, t: str, j: str, module: TextTransformer):
+    m.copy(f"{t}embed.weight", f"{j}Embed_0/embedding")
+    m.copy(f"{t}pos", f"{j}pos")
+    for i in range(len(module.blocks)):
+        m.transformer_block(f"{t}blocks.{i}", f"{j}block_{i}")
+    m.norm(f"{t}norm", f"{j}LayerNorm_0")
+
+
+def _openclip_text(m: _Mapper, t: str, j: str, module: OpenClipTextTower):
+    m.copy(f"{t}token_embedding.weight", f"{j}token_embedding/embedding")
+    m.copy(f"{t}positional_embedding", f"{j}positional_embedding")
+    m.copy(f"{t}text_projection", f"{j}text_projection")   # applied x @ W
+    for i in range(len(module.transformer.resblocks)):
+        tb, jb = f"{t}transformer.resblocks.{i}.", f"{j}resblocks.{i}/"
+        m.norm(tb + "ln_1", jb + "ln_1")
+        m.norm(tb + "ln_2", jb + "ln_2")
+        m.out[tb + "attn.in_proj_weight"] = \
+            m.flat[jb + "attn.in_proj/kernel"].T
+        m.copy(tb + "attn.in_proj_bias", jb + "attn.in_proj/bias")
+        m.dense(tb + "attn.out_proj", jb + "attn.out_proj")
+        m.dense(tb + "mlp.c_fc", jb + "mlp.c_fc")
+        m.dense(tb + "mlp.c_proj", jb + "mlp.c_proj")
+    m.norm(f"{t}ln_final", f"{j}ln_final")
+
+
+def _image_conditioner(m: _Mapper, module: ImageConditioner):
+    if module.backbone == "scratch":
+        _scratch_vit(m, "vit.", "vit/", module.vit)
+    else:
+        _dinov2(m, "vit.", "vit/", len(module.vit.blocks))
+
+
+def _text_conditioner(m: _Mapper, module: TextConditioner):
+    if isinstance(module.text, OpenClipTextTower):
+        _openclip_text(m, "text.", "text/", module.text)
+    else:
+        _text_transformer(m, "text.", "text/", module.text)
+
+
+def _u2net(m: _Mapper, module: U2Net):
+    """Torch names `a.b.conv_s1` / `a.b.bn_s1.*`; flax `a/b/conv_s1`,
+    `a/b/bn_{scale,bias,mean,var}`; the side and fused convs by name."""
+    for name, sub in module.named_modules():
+        j = name.replace(".", "/")
+        if isinstance(sub, REBNCONV):
+            m.conv(f"{name}.conv_s1", f"{j}/conv_s1")
+            for tk, jk in (("weight", "bn_scale"), ("bias", "bn_bias"),
+                           ("running_mean", "bn_mean"),
+                           ("running_var", "bn_var")):
+                m.copy(f"{name}.bn_s1.{tk}", f"{j}/{jk}")
+        elif name.startswith("side") or name == "outconv":
+            m.conv(name, j)
 
 
 def _dit2(m: _Mapper, t: str, j: str, depth: int):
@@ -313,8 +402,12 @@ def _cross_attention_block(m: _Mapper, t: str = "", j: str = ""):
 
 
 _MAPPINGS: Dict[type, Callable[[_Mapper, nn.Module], None]] = {
-    ImageConditioner: lambda m, mod: _dinov2(m, "vit.", "vit/",
-                                             len(mod.vit.blocks)),
+    ImageConditioner: _image_conditioner,
+    VisionTransformer: lambda m, mod: _scratch_vit(m, "", "", mod),
+    TextConditioner: _text_conditioner,
+    TextTransformer: lambda m, mod: _text_transformer(m, "", "", mod),
+    OpenClipTextTower: lambda m, mod: _openclip_text(m, "", "", mod),
+    U2Net: _u2net,
     Dinov2ViT: lambda m, mod: _dinov2(m, "", "", len(mod.blocks)),
     PointDiT: _point_dit,
     DiT2: lambda m, mod: _dit2(m, "", "", len(mod.blocks)),
@@ -334,8 +427,11 @@ def from_jax_params(params_np: Mapping, module: nn.Module
                     ) -> Dict[str, torch.Tensor]:
     """JAX parameter tree → `module.state_dict()`-shaped dict of tensors.
 
-    Covers `ImageConditioner`/`Dinov2ViT`, `PointDiT` (both release
-    stages), `PointVAE` (both layouts; the encoder and quant-MLP entries of
+    Covers `ImageConditioner` (both backbones)/`Dinov2ViT`/
+    `VisionTransformer`, `TextConditioner` (both backbones)/
+    `TextTransformer`/`OpenClipTextTower`, `PointDiT` (the release i23d and
+    t23d layouts and the non-release one), `U2Net`, `PointVAE` (both
+    layouts; the encoder and quant-MLP entries of
     the tree are read when the module was built with its encoder),
     `HybridPCDEncoder`, `SDEncoderTrunk`, `MVConvEncoder`, `DiT2`,
     `GaussianUpsampler`, `CrossAttentionBlock`, the perceptual pyramid

@@ -53,7 +53,9 @@ def test_port_files_found():
                  "train/evaluation.py", "data/gbuffer.py",
                  "cli/train_vae.py", "tools/rasterizer_timing.py",
                  "tools/bench.py", "tools/kernel_stages.py",
-                 "tools/kernel_attribution.py"):
+                 "tools/kernel_attribution.py", "cli/serve.py",
+                 "models/openclip_text.py", "models/matting.py",
+                 "data/real.py", "render/tsdf.py", "native_bindings.py"):
         assert pkg + name in rel, name
 
 
@@ -75,6 +77,15 @@ def test_cli_defaults_to_cuda_and_refuses_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sample.main(["--release", "--full", "--num", "0"])
     assert device.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_serve_defaults_to_cuda_and_refuses_without_it(monkeypatch):
+    from gaussiananything_tpu_torch.cli import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = serve.parse_args([])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.build_pipeline(args)
 
 
 def test_resolve_device_pins_fp32_products():
@@ -146,7 +157,11 @@ def test_tools_default_to_cuda_and_refuse_without_it(monkeypatch):
             tool.main([])
 
 
-def test_cli_runs_only_the_ported_path():
+def test_cli_runs_only_the_ported_path(tmp_path):
+    """Every path of the JAX CLI is ported (the demo preset runs); its
+    `--platform` is the port's `--device` and is refused."""
     from gaussiananything_tpu_torch.cli import sample
+    assert sample.main(["--device", "cpu", "--num", "0",
+                        "--out", str(tmp_path)]) == []
     with pytest.raises(SystemExit):
-        sample.main(["--device", "cpu", "--num", "0"])
+        sample.main(["--platform", "cpu", "--num", "0"])
