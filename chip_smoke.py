@@ -40,11 +40,27 @@ Phases, in order; any failure exits non-zero:
    and seeded LPIPS weights that numpy writes, checking the kernels'
    launch counts against the steps, discriminator steps and evaluations,
    the losses, the evaluation PNGs and both networks' checkpoints;
-10. rasterizer tools: the rasterizer's own entry points at the release
+10. small flow train: generator training at small widths on the card
+   against the same weights and draws on the CPU (stage 1, stage 2, a
+   frozen conditioner, two micro-batches; `remat` bit-equal to its
+   absence on the card), the adaptive dopri5 and SDE samplers, one
+   `cli/extract_latents.py` encode;
+11. flow train: the generator's training path at full width through the
+   port's CLIs: `extract_latents --preset vae-release --num 8`, then
+   `train_flow --preset stage1` (DiT-L against the frozen scratch ViT-L,
+   batch 8 in 2 micro-batches, 3 steps, a checkpoint, an evaluation, a
+   resume to step 4), `--stage 2`, `--preset t23d --cond text` and one
+   synthetic-stream step, checking losses, step counts, that each run's
+   last update moved the DiT (and a trained conditioner) by its learning
+   rate and the EMA by its decay from the checkpoint written before it,
+   that a frozen conditioner ends with its `--cond-ckpt` weights, the
+   evaluations, the checkpoints, K1's launches, and timing each step's
+   stages;
+12. rasterizer tools: the rasterizer's own entry points at the release
    shape through `tools/rasterizer_timing.py --all`, `tools/bench.py` and
    `tools/kernel_stages.py`, checking every kernel's launch count against
    what the arguments predict;
-11. report: one JSON line of kernel records, the kernels launched, the
+13. report: one JSON line of kernel records, the kernels launched, the
    card's name and power limit, then the `{"ok": true, ...}` line last.
 
 It imports nothing of JAX; the port's package must sit beside this file.
@@ -209,6 +225,12 @@ K1_CASES = {
     # `render_scene_views`: the object of seed 1's first item, 4096 splats of
     # a drawn kind, one pose of its elevation and azimuth ranges)
     "ground truth": (131, 4096, None, None, 1.8, (35, 200), 512, 512, 128),
+    # a conditioning view of `train_flow`'s synthetic stream
+    # (`render_scene_views` at the stage-1 preset's cond_img_size 224: a
+    # 14 × 14 tile grid; the first object and view the flow train phase's
+    # synthetic step renders, 512 splats of a drawn kind)
+    "flow cond view": (177413373, 512, None, None, 1.8, (1.9073, 349.4513),
+                       224, 512, 128),
     # dist is built from squared gaps of the mapped depth m(z), dm/dz =
     # 0.01/z², so on the two scenes above it is ~1e-7, under its fp32 floor;
     # translucent shells seen from close range lift it to ~2e-4, and chunk
@@ -2337,6 +2359,507 @@ def _adv_train_run(dev, root):
     return launches
 
 
+# ------------------------------------------------------- generator training
+
+def _flow_small_models():
+    """Tiny flow-matching modules on the CPU: a scratch-ViT conditioner
+    (width 64, depth 1, 28²), non-release stage-1/2 DiT-S cut to depth 2
+    and width 128, and a release-layout stage-1 DiT (raw t: the field
+    the adaptive sampler can be held on)."""
+    import torch
+    from gaussiananything_tpu_torch.models.conditioner import \
+        ImageConditioner
+    from gaussiananything_tpu_torch.models.dit import (PointDiT, stage1_dit,
+                                                       stage2_dit)
+    torch.manual_seed(3)
+    dit = dict(depth=2, width=128, heads=4, cond_dim=64, vector_dim=64)
+    return {"cond": ImageConditioner(width=64, depth=1, heads=2, img_size=28,
+                                     backbone="scratch", ucg_rate=0.5),
+            1: stage1_dit("S", **dit), 2: stage2_dit("S", z_channels=4,
+                                                     **dit),
+            "release": PointDiT(in_channels=3, release_parity=True, **dit)}
+
+
+FLOW_SMALL_K, FLOW_SMALL_B = 64, 4
+# three steps at lr 1e-3 with a warm-up of one step: the first update has
+# lr 0, the second and third the whole lr, so the third step's logs are
+# taken on parameters a real update moved. An element whose gradient sits
+# at the rounding floor can take a whole Adam step of opposite sign on the
+# two devices (`tests/test_torch_accum.py`): 2 · lr for each real update at
+# most, and at most FLOW_SMALL_SHARE of the elements beyond
+# FLOW_SMALL_GUARD, which a skipped (gap ~lr) or sign-flipped (~2 · lr)
+# update on the card exceeds.
+FLOW_SMALL_LR, FLOW_SMALL_STEPS = 1e-3, 3
+FLOW_SMALL_GUARD, FLOW_SMALL_SHARE = 2e-4, 0.01
+
+
+def _flow_small_run(models, device, stage, train_cond, accum, draws, batch,
+                    remat=False):
+    """`make_fm_train_step` steps of copies of `models` on `device`, one
+    for each entry of `draws`: (logs, DiT state, conditioner state)."""
+    import copy
+    from gaussiananything_tpu_torch.diffusion.transport import \
+        create_transport
+    from gaussiananything_tpu_torch.train.fm_trainer import (
+        FMConfig, make_fm_train_step)
+    from gaussiananything_tpu_torch.train.state import (TrainState,
+                                                        TrainStateConfig)
+    dit = copy.deepcopy(models[stage]).to(device).train()
+    dit.remat = remat
+    cond = copy.deepcopy(models["cond"]).to(device).train()
+    step = make_fm_train_step(dit, cond, create_transport(),
+                              FMConfig(stage=stage),
+                              TrainStateConfig(lr=FLOW_SMALL_LR,
+                                               warmup_steps=1),
+                              accum=accum)
+    state = TrainState.create(dit)
+    cstate = TrainState.create(cond, frozen=not train_cond)
+    b = {k: v.to(device) for k, v in batch.items()}
+    logs = [{k: float(v) for k, v in step(state, cstate, b, draws=d).items()}
+            for d in draws]
+    return logs, state, cstate
+
+
+def _max_gap(a, b):
+    return max(float((a[k].detach().cpu() - b[k].detach().cpu()).abs().max())
+               for k in a)
+
+
+def _share_beyond(a, b, limit):
+    """The share of the elements of trees `a` and `b` further apart than
+    `limit`."""
+    beyond = sum(int(((a[k].detach().cpu() - b[k].detach().cpu()).abs()
+                      > limit).sum()) for k in a)
+    return beyond / sum(v.numel() for v in a.values())
+
+
+def small_flow_train_phase(dev):
+    """Generator training at small widths on the card against the same
+    weights and handed-over draws on the CPU: three steps each of stage 1,
+    stage 2, a frozen conditioner and two micro-batches (losses and
+    gradient norms within 1e-3 relative, t_mean 1e-6; parameters and EMA
+    within 2 · lr for each real update, with at most 1% of the elements
+    beyond 2e-4, `tests/test_torch_fm_training.py`'s bounds; a frozen
+    conditioner unmoved); the
+    frozen step with `remat` on, bit-equal on the card to the step with it
+    off (every parameter, moment, EMA value and log); the adaptive dopri5
+    through `make_sampler` (1e-3 of the output's scale, its rtol) and the
+    SDE sampler (1e-4 of it) on the same noise on a release-layout DiT;
+    one
+    `cli/extract_latents.py` encode (demo preset, the weights of a CPU
+    checkpoint; latent within 1e-4, anchors equal, the view within the
+    golden image tolerance 2e-3 of the CPU's plain compositor)."""
+    import copy
+    import numpy as np
+    import torch
+    from gaussiananything_tpu_torch.cli import extract_latents
+    from gaussiananything_tpu_torch.diffusion.sampling import (
+        cfg_velocity_fn, sample_sde)
+    from gaussiananything_tpu_torch.models.conditioner import ucg_keep_mask
+    from gaussiananything_tpu_torch.train.fm_trainer import (FMConfig,
+                                                             make_sampler)
+
+    models = _flow_small_models()
+    K, B = FLOW_SMALL_K, FLOW_SMALL_B
+    g = torch.Generator().manual_seed(4)
+    base = {"cond": torch.rand((B, 3, 28, 28), generator=g),
+            "xyz": torch.randn((B, K, 3), generator=g) * 0.3}
+    report, bad = {}, []
+    for name, stage, train_cond, accum in (
+            ("stage1", 1, True, 1), ("stage2", 2, True, 1),
+            ("frozen", 1, False, 1), ("accum2", 1, True, 2)):
+        C = 3 if stage == 1 else 4
+        batch = {"cond": base["cond"],
+                 "latent": base["xyz"] / 0.164 if stage == 1
+                 else torch.randn((B, K, C), generator=g)}
+        if stage == 2:
+            batch["xyz"] = base["xyz"]
+        mb = B // accum
+        draws = [[{"keep": ucg_keep_mask(mb, 0.5, g),
+                   "t": torch.rand(mb, generator=g),
+                   "x0": torch.randn((mb, K, C), generator=g)}
+                  for _ in range(accum)] for _ in range(FLOW_SMALL_STEPS)]
+        cpu = _flow_small_run(models, "cpu", stage, train_cond, accum,
+                              draws, batch)
+        card = _flow_small_run(models, dev, stage, train_cond, accum, draws,
+                               batch)
+        rel = {k: max(abs(c[k] - r[k]) / max(abs(r[k]), 1e-30)
+                      for c, r in zip(card[0], cpu[0]))
+               for k in cpu[0][0]}
+        trees = {"dit": (card[1].params, cpu[1].params),
+                 "dit_ema": (card[1].ema, cpu[1].ema),
+                 "cond": (card[2].params, cpu[2].params)}
+        if train_cond:
+            trees["cond_ema"] = (card[2].ema, cpu[2].ema)
+        gaps = {k: _max_gap(*v) for k, v in trees.items()}
+        shares = {k: _share_beyond(*v, FLOW_SMALL_GUARD)
+                  for k, v in trees.items()}
+        report[name] = {"rel": rel, "gaps": gaps,
+                        f"share beyond {FLOW_SMALL_GUARD}": shares}
+        floor = 2 * FLOW_SMALL_LR * (FLOW_SMALL_STEPS - 1) + 1e-6
+        if rel["fm_loss"] > 1e-3 or rel["grad_norm"] > 1e-3 \
+                or rel["t_mean"] > 1e-6 or max(gaps.values()) > floor \
+                or max(shares.values()) > FLOW_SMALL_SHARE:
+            bad.append(name)
+        if not train_cond and not (card[2].frozen and card[2].step == 0
+                                   and gaps["cond"] == 0.0):
+            bad.append(name + " (frozen conditioner)")
+        if name == "frozen":
+            on = _flow_small_run(models, dev, stage, False, 1, draws, batch,
+                                 remat=True)
+            again = _flow_small_run(models, dev, stage, False, 1, draws,
+                                    batch)
+            equal = {}
+            for label, other in (("remat on", on), ("remat off again",
+                                                    again)):
+                equal[label] = other[0] == card[0] and all(
+                    torch.equal(getattr(other[1], t)[k],
+                                getattr(card[1], t)[k])
+                    for t in ("params", "mu", "nu", "ema")
+                    for k in card[1].params)
+            report["remat"] = equal
+            if not equal["remat on"]:
+                bad.append("remat")
+
+    # the samplers on a release-layout DiT (raw t)
+    dit = models["release"].eval()
+    cond = models["cond"].eval()
+    img = base["cond"][:2]
+    x0 = torch.randn((2, K, 3), generator=g)
+    noise = torch.randn((15, 2, K, 3), generator=g)
+    outs = {}
+    for device in ("cpu", dev):
+        d = copy.deepcopy(dit).to(device)
+        c = copy.deepcopy(cond).to(device)
+        dopri = make_sampler(d, c, FMConfig(stage=1, cfg_scale=2.0,
+                                            sampler="dopri5"), (K, 3))(
+            img.to(device), x0=x0)
+        with torch.no_grad():
+            cc = c(img.to(device))
+            guided = cfg_velocity_fn(
+                lambda x, t, e: d(x, t, e.crossattn, e.vector), cc,
+                type(cc)(*(torch.zeros_like(a) for a in cc)), 2.0)
+            sde = sample_sde(guided, x0.to(device), num_steps=16,
+                             noise=noise)
+        outs[str(device)] = (dopri.cpu(), sde.cpu())
+    sampler_err = {
+        name: float((outs[str(dev)][i] - outs["cpu"][i]).abs().max())
+        / float(outs["cpu"][i].abs().max())
+        for i, name in enumerate(("dopri5", "sde"))}
+    # dopri5's output is fixed only to its tolerance: where the error
+    # estimate sits at the fp32 rounding floor, the controller's next step
+    # (0.9 · ratio^-1/5) is set by rounding, so moving x0 by 1e-7 moves the
+    # CPU's own result by as much as the two devices differ (up to 3.7e-4
+    # of the output's scale on this field); it is held to the integrator's
+    # rtol 1e-3 of that scale
+    nudge = 1e-7 * torch.randn(x0.shape,
+                               generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        spread = make_sampler(dit, cond, FMConfig(
+            stage=1, cfg_scale=2.0, sampler="dopri5"), (K, 3))(
+            img, x0=x0 * (1 + nudge))
+    sampler_err["dopri5_cpu_under_1e-7_nudge"] = float(
+        (spread - outs["cpu"][0]).abs().max()) / float(
+            outs["cpu"][0].abs().max())
+    report["samplers"] = sampler_err
+    if sampler_err["sde"] > 1e-4 or sampler_err["dopri5"] > 1e-3:
+        bad.append("samplers")
+
+    # one extraction, card vs CPU, on the weights of a CPU checkpoint
+    from gaussiananything_tpu_torch.config import preset
+    from gaussiananything_tpu_torch.models.vae import PointVAE
+    from gaussiananything_tpu_torch.train.state import (TrainState,
+                                                        save_checkpoint)
+    cfg = preset("demo-e2e")
+    with tempfile.TemporaryDirectory() as root:
+        torch.manual_seed(0)
+        vae = PointVAE.from_config(cfg.vae, with_encoder=True)
+        save_checkpoint(os.path.join(root, "vae"), TrainState.create(vae))
+        eps = [torch.randn((1, cfg.vae.latent_num, cfg.vae.z_channels),
+                           generator=g)]
+        got = {}
+        for device in ("cpu", str(dev)):
+            out = os.path.join(root, device)
+            extract_latents.main(["--preset", "demo-e2e", "--num", "1",
+                                  "--ckpt", os.path.join(root, "vae"),
+                                  "--out", out, "--device", device],
+                                 noise=eps)
+            with np.load(os.path.join(out, "00000.npz")) as z:
+                got[device] = {k: z[k] for k in z.files}
+    a, r = got[str(dev)], got["cpu"]
+    ext = {"latent": float(np.abs(a["latent_normalized"]
+                                  - r["latent_normalized"]).max()),
+           "anchors": float(np.abs(a["query_pcd_xyz"]
+                                   - r["query_pcd_xyz"]).max()),
+           "cond": float(np.abs(a["cond"] - r["cond"]).max())}
+    report["extract"] = ext
+    if ext["latent"] > 1e-4 or ext["anchors"] != 0.0 or ext["cond"] > 2e-3 \
+            or str(a["caption"]) != str(r["caption"]):
+        bad.append("extract")
+    print(f"[small flow train] card vs CPU: {json.dumps(report)}",
+          flush=True)
+    if bad:
+        fail(f"the small flow training on the card disagrees with the CPU "
+             f"in {bad}")
+
+
+# the release-width generator run: extraction, stage 1 (3 steps, a
+# resume to 4), stage 2 (2 steps), t23d (2 steps), one synthetic step
+FLOW_LATENTS, FLOW_BATCH, FLOW_ACCUM, FLOW_SAMPLER_STEPS = 8, 8, 2, 10
+
+
+def flow_train_phase(dev):
+    """The generator's training path at full width through the port's
+    CLIs: `extract_latents --preset vae-release --num 8` (the release VAE
+    encoder, 4 input views at 512², K1 for the views); `train_flow
+    --preset stage1` (DiT-L, 416M parameters, against the frozen scratch
+    ViT-L at 224², seeded weights given by `--cond-ckpt`) `--latent-dir
+    L --freeze-cond --accum 2 --batch 8 --steps 3 --save-every 2
+    --eval-every 3`, then `--resume` to step 4; `--stage 2` for 2 steps
+    with an evaluation; `--preset t23d --cond text` for 2 steps (trained
+    byte-token text conditioner; the last two with `--save-every 1`, so
+    that each last update has a checkpoint before it); one
+    synthetic-stream stage-1 step without `--latent-dir` (views through
+    K1). Cut: seeded random weights, procedural latents, the eval
+    sampler's 250 Heun steps to 10 (a `--config` with `transport.
+    num_steps` 10). Launch counts are set to 0 just before and read just
+    after."""
+    with tempfile.TemporaryDirectory() as root:
+        return _flow_train_run(dev, root)
+
+
+def _flow_cond_ckpt(cfg, dev, path):
+    """A seeded scratch ViT conditioner at the preset's width, written under
+    `path` as a frozen state's checkpoint for `--cond-ckpt`; its parameters
+    on the host (a frozen run must end with exactly these)."""
+    import torch
+    from gaussiananything_tpu_torch.models.conditioner import \
+        ImageConditioner
+    from gaussiananything_tpu_torch.train.state import (TrainState,
+                                                        save_checkpoint)
+    torch.manual_seed(7)
+    with torch.device(dev), torch.no_grad():
+        cond = ImageConditioner(
+            width=cfg.dit.cond_width, depth=cfg.dit.cond_depth,
+            heads=cfg.dit.cond_heads, img_size=cfg.dit.cond_img_size,
+            backbone="scratch")
+    save_checkpoint(path, TrainState.create(cond, frozen=True))
+    return {k: v.detach().cpu() for k, v in cond.named_parameters()}
+
+
+def _update_check(state, pre, tx):
+    """How a trained state's last update moved it from `pre`, the checkpoint
+    written just before that update (step t, learning rate lr_t of
+    `learning_rate(tx, t, name)`):
+
+      * `max_step_over_lr`: the largest |Δparam| / lr_t, at least 0.5 for
+        an update taken at its learning rate (0 for none);
+      * `tensors_over`: tensors whose largest |Δparam| exceeds lr_t ·
+        (1.02 + weight_decay · max|p|) + one fp32 ulp of max|p| (AdamW's
+        step is lr_t · |m̂ / √v̂ + wd · p|, and |m̂ / √v̂| ≤ 1.007 in the
+        first four steps: Cauchy–Schwarz on the moments' weights);
+      * `ema_off`: EMA elements further than one ulp from d · ema_pre +
+        (1 − d) · params, d = min(ema_decay, (1 + t) / (10 + t));
+      * `ema_pre_off`: how many of `ema_pre`'s own elements are that far,
+        so that the EMA check can tell an update from none."""
+    from gaussiananything_tpu_torch.train.state import learning_rate
+    t = int(pre["step"])
+    d = min(tx.ema_decay, (1.0 + t) / (10.0 + t))
+    ratio, over, ema_off, ema_pre_off = 0.0, [], 0, 0
+    for k, p in state.params.items():
+        p = p.detach()
+        p0 = pre["params"][k].detach().to(p.device)
+        lr = learning_rate(tx, t, k)
+        big = float(p0.abs().max())
+        step = float((p - p0).abs().max())
+        ratio = max(ratio, step / lr)
+        if step > lr * (1.02 + tx.weight_decay * big) + 2.0 ** -23 * big:
+            over.append(k)
+        e0 = pre["ema"][k].detach().to(p.device)
+        want = e0.clone().mul_(d).add_(p, alpha=1.0 - d)
+        ulp = want.abs() * 2.0 ** -23
+        ema_off += int(((state.ema[k] - want).abs() > ulp).sum())
+        ema_pre_off += int(((e0 - want).abs() > ulp).sum())
+    return {"step": t, "lr": learning_rate(tx, t), "max_step_over_lr": ratio,
+            "tensors_over": over, "ema_off": ema_off,
+            "ema_pre_off": ema_pre_off}
+
+
+def _update_ok(check):
+    return (check["max_step_over_lr"] >= 0.5 and not check["tensors_over"]
+            and check["ema_off"] == 0 and check["ema_pre_off"] > 0)
+
+
+def _flow_train_run(dev, root):
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from gaussiananything_tpu_torch.cli import extract_latents, train_flow
+    from gaussiananything_tpu_torch.config import preset
+    from gaussiananything_tpu_torch.train.state import TrainStateConfig
+
+    lat = os.path.join(root, "latents")
+    cfgs = {}
+    for name in ("stage1", "t23d"):
+        c = preset(name)
+        c.transport.num_steps = FLOW_SAMPLER_STEPS
+        cfgs[name] = os.path.join(root, f"{name}.json")
+        with open(cfgs[name], "w") as f:
+            f.write(c.to_json())
+    common = ["--batch", str(FLOW_BATCH), "--accum", str(FLOW_ACCUM),
+              "--device", str(dev)]
+    # the frozen image conditioner of every stage-1/2 run
+    cond_dir = os.path.join(root, "cond")
+    cond0 = _flow_cond_ckpt(preset("stage1"), dev, cond_dir)
+    frozen = ["--freeze-cond", "--cond-ckpt", cond_dir]
+    # (name, arguments, steps the run ends at); every run of two steps or
+    # more writes a checkpoint just before its last update
+    runs = [
+        ("stage1", ["--config", cfgs["stage1"], "--latent-dir", lat,
+                    *frozen, "--steps", "3", "--save-every", "2",
+                    "--eval-every", "3"], 3),
+        ("stage1 resume", ["--config", cfgs["stage1"], "--latent-dir", lat,
+                           *frozen, "--steps", "4", "--save-every", "2",
+                           "--eval-every", "3", "--resume"], 4),
+        ("stage2", ["--config", cfgs["stage1"], "--stage", "2",
+                    "--latent-dir", lat, *frozen, "--steps", "2",
+                    "--save-every", "1", "--eval-every", "2"], 2),
+        ("t23d", ["--config", cfgs["t23d"], "--cond", "text",
+                  "--latent-dir", lat, "--steps", "2", "--save-every",
+                  "1"], 2),
+        ("synthetic", ["--config", cfgs["stage1"], *frozen, "--steps", "1"],
+         1)]
+
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ext = extract_latents.main(["--preset", "vae-release", "--num",
+                                str(FLOW_LATENTS), "--out", lat, "--device",
+                                str(dev)])
+    torch.cuda.synchronize()
+    ext_wall = time.perf_counter() - t0
+    peaks = {"extract": torch.cuda.max_memory_allocated()}
+    print(f"[flow train] extract_latents --preset vae-release --num "
+          f"{FLOW_LATENTS}: {ext_wall:.2f}s wall (model build included); "
+          f"seconds per instance "
+          f"{json.dumps([round(s, 4) for s in ext['seconds']])}; peak "
+          f"{peaks['extract'] / 2**30:.2f} GiB", flush=True)
+    with np.load(ext["files"][0]) as z:
+        shapes = {k: list(z[k].shape) for k in z.files}
+    if shapes != {"latent_normalized": [768, 10], "query_pcd_xyz": [768, 3],
+                  "cond": [3, 224, 224], "caption": []}:
+        fail(f"the extracted npz holds {shapes}")
+
+    results, bad = {}, []
+    for name, args, steps in runs:
+        logdir = os.path.join(root, name.split()[0])
+        if name == "stage1 resume":
+            args = args + [os.path.join(logdir, "ckpt")]
+        torch.cuda.reset_peak_memory_stats()
+        timers = []
+        t0 = time.perf_counter()
+        res = train_flow.main(args + common + ["--logdir", logdir],
+                              timers=timers)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        peaks[name] = peak
+        state, cstate = res["state"], res["cond_state"]
+        cfg = preset("t23d" if name == "t23d" else "stage1")
+        tx = TrainStateConfig(lr=cfg.optim.lr,
+                              warmup_steps=cfg.optim.warmup_steps,
+                              weight_decay=cfg.optim.weight_decay,
+                              ema_decay=cfg.optim.ema_decay)
+        checks = {}
+        # the warm-up's first update has lr 0: a one-step run moves nothing
+        if steps > 1:
+            checks["dit"] = _update_check(state, torch.load(
+                os.path.join(logdir, "ckpt", f"step_{steps - 1:08d}.pt"),
+                map_location="cpu", mmap=True), tx)
+            if not cstate.frozen:
+                checks["cond"] = _update_check(cstate, torch.load(
+                    os.path.join(logdir, "ckpt_cond",
+                                 f"step_{steps - 1:08d}.pt"),
+                    map_location="cpu", mmap=True),
+                    dataclasses.replace(tx, lr=0.5 * tx.lr))
+        if cstate.frozen:
+            checks["frozen cond = --cond-ckpt"] = not cstate.mu and all(
+                torch.equal(cstate.params[k].cpu(), v)
+                for k, v in cond0.items())
+        n_dit = sum(p.numel() for p in state.params.values())
+        n_cond = sum(p.numel() for p in cstate.params.values())
+        print(f"[flow train] {name}: {n_dit / 1e6:.1f}M DiT + "
+              f"{n_cond / 1e6:.1f}M conditioner "
+              f"({'frozen' if cstate.frozen else 'trained'}), batch "
+              f"{FLOW_BATCH} in {FLOW_ACCUM} micro-batches, steps "
+              f"{steps - len(res['logs'])}..{steps}, wall {wall:.2f}s "
+              f"(model build included), peak {peak / 2**30:.2f} GiB; "
+              f"last update {json.dumps(checks)}", flush=True)
+        for i, (lg, tm) in enumerate(zip(res["logs"], timers)):
+            print(f"[flow train] {name} step {steps - len(res['logs']) + i}"
+                  f": {json.dumps({k: round(v, 6) for k, v in lg.items()})}"
+                  f"; seconds by stage "
+                  f"{json.dumps({k: round(v, 4) for k, v in tm.items()})}",
+                  flush=True)
+        if res["evals"]:
+            print(f"[flow train] {name} evaluations "
+                  f"{json.dumps(res['evals'])}", flush=True)
+        values = [v for lg in res["logs"] for v in lg.values()]
+        values += [v for m in res["evals"] for v in m.values()]
+        if state.step != steps or not all(math.isfinite(v) for v in values):
+            bad.append(f"{name}: step {state.step}, or a value not finite")
+        for part, check in checks.items():
+            if check is False or (check is not True
+                                  and not _update_ok(check)):
+                bad.append(f"{name}: the last update of {part}: {check}")
+        if cstate.frozen != (name != "t23d"):
+            bad.append(f"{name}: the conditioner's state is "
+                       f"{'frozen' if cstate.frozen else 'trained'}")
+        want = {"stage1 resume": [f"ckpt/step_{steps:08d}.pt",
+                                  "ckpt_cond/step_00000000.pt",
+                                  "eval/sample_3.ply"],
+                "stage2": ["ckpt/step_00000002.pt",
+                           "ckpt_cond/step_00000000.pt"],
+                "t23d": ["ckpt/step_00000002.pt",
+                         "ckpt_cond/step_00000002.pt"]}.get(name, [])
+        for f in want:
+            p = os.path.join(logdir, f)
+            if not (os.path.exists(p) and os.path.getsize(p)):
+                bad.append(f"{name}: {f} was not written")
+        if name == "stage1" and not (
+                len(res["evals"]) == 1
+                and set(res["evals"][0]) >= {"eval_chamfer", "eval_fscore"}):
+            bad.append("stage1: no geometry evaluation")
+        if name == "stage2" and not (
+                len(res["evals"]) == 1 and set(res["evals"][0]) == {
+                    "eval_latent_std", "eval_latent_absmax"}):
+            bad.append("stage2: no latent evaluation")
+        results[name] = len(res["logs"])
+        del res, state, cstate
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name != "stage1":
+            shutil.rmtree(logdir)     # a DiT-L checkpoint is 6.7 GB
+    launches = _read_launches()
+    used = {k: v for k, v in launches.items() if v}
+    print(f"[flow train] peak memory GiB "
+          f"{json.dumps({k: round(v / 2**30, 2) for k, v in peaks.items()})}"
+          f"; launches {json.dumps(used)}", flush=True)
+    # extraction: the 4 input views and the 1 supervision view of every
+    # instance; the synthetic step: one conditioning view per sample
+    expect = {"K1": FLOW_LATENTS * 5 + FLOW_BATCH}
+    expect.update({k: 0 for k in launches if k not in expect})
+    if launches != expect:
+        bad.append(f"launches {launches}, expected {expect}")
+    if results != {"stage1": 3, "stage1 resume": 1, "stage2": 2, "t23d": 2,
+                   "synthetic": 1}:
+        bad.append(f"steps run {results}")
+    if bad:
+        fail(f"flow train: {bad}")
+    return launches
+
+
 def probe_one(batch: int):
     import torch
     from gaussiananything_tpu_torch.cli import train_vae
@@ -2395,6 +2918,8 @@ def main():
     paths["train"] = train_phase(dev)
     small_adv_train_phase(dev)
     paths["adv_train"] = adv_train_phase(dev)
+    small_flow_train_phase(dev)
+    paths["flow_train"] = flow_train_phase(dev)
     paths["raster_tools"] = raster_tools_phase(dev)
     for rec in records:
         # a kernel's launches over the main paths, each read just after its

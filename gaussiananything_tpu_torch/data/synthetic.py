@@ -17,6 +17,16 @@ from gaussiananything_tpu_torch.render.renderer import render_multiview
 from gaussiananything_tpu_torch.utils.image import resize
 
 
+def describe_object(seed: int, kind: str | None = None) -> str:
+    """The caption of `make_object(seed)` (`synthetic.py:21`): it re-draws
+    the same first choice, so the text names the geometry (the synthetic
+    stand-in for the reference's Cap3D captions)."""
+    rng = np.random.default_rng(seed)
+    kind = kind or rng.choice(["sphere", "ellipsoid", "torus"])
+    hue = ["red", "green", "blue", "yellow", "purple", "cyan"][seed % 6]
+    return f"a {hue} {kind}"
+
+
 def make_object(seed: int, n: int = 1024, kind: str | None = None,
                 device="cpu") -> torch.Tensor:
     """Random surfel object (N, 13) fp32: a sphere / ellipsoid / torus shell

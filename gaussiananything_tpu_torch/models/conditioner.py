@@ -12,14 +12,17 @@
     (`models/openclip_text.OpenClipTextTower`) for BPE ids
     (FrozenOpenCLIPEmbedder2 parity).
 
-The classifier-free-guidance dropout of training (`ucg_rate`) is not
-ported: sampling takes zeros of the conditioning as its unconditional
-branch (`unconditional`, or `torch.zeros_like` in `make_sampler`).
+In training mode (`module.train()`) both zero a sample's whole conditioning,
+tokens and pooled vector, with probability `ucg_rate`: the
+classifier-free-guidance dropout (`sgm/modules/encoders/modules.py:
+159-166`), whose zeros are the unconditional branch that sampling uses
+(`unconditional`, or `torch.zeros_like` in `make_sampler`). The keep mask
+(B, 1, 1) is drawn from a `torch.Generator` on the host, or given.
 `dtype` is the compute dtype (`models/layers.py`).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,6 +41,27 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 class Conditioning(NamedTuple):
     crossattn: torch.Tensor   # (B, L, D) token context
     vector: torch.Tensor      # (B, D) pooled context
+
+
+def ucg_keep_mask(batch: int, ucg_rate: float,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """(batch, 1, 1) float keep mask, 1 with probability 1 − ucg_rate
+    (`jax.random.bernoulli`: a uniform draw below 1 − ucg_rate)."""
+    return (torch.rand((batch, 1, 1), generator=generator)
+            < 1.0 - ucg_rate).float()
+
+
+def _ucg_dropout(cond: "Conditioning", ucg_rate: float, training: bool,
+                 generator: Optional[torch.Generator],
+                 keep: Optional[torch.Tensor]) -> "Conditioning":
+    if not (training and ucg_rate > 0):
+        return cond
+    if keep is None:
+        keep = ucg_keep_mask(cond.vector.shape[0], ucg_rate, generator)
+    keep = keep.to(cond.crossattn.device, cond.crossattn.dtype)
+    return Conditioning(crossattn=cond.crossattn * keep,
+                        vector=cond.vector * keep[:, 0].to(cond.vector.dtype))
 
 
 def _imagenet_normalise(images: torch.Tensor) -> torch.Tensor:
@@ -83,9 +107,10 @@ class VisionTransformer(nn.Module):
 class ImageConditioner(nn.Module):
     def __init__(self, width: int = 1024, depth: int = 24, heads: int = 16,
                  img_size: int = 518, backbone: str = "dinov2",
-                 dtype: torch.dtype = torch.float32):
+                 ucg_rate: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.img_size = img_size
+        self.ucg_rate = ucg_rate
         self.width = width
         self.backbone = backbone
         if backbone == "dinov2":
@@ -98,15 +123,20 @@ class ImageConditioner(nn.Module):
             raise ValueError(f"unknown image backbone {backbone!r}")
         self.to(dtype)
 
-    def forward(self, images: torch.Tensor) -> Conditioning:
-        """images (B, 3, H, W) in [0, 1]."""
+    def forward(self, images: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> Conditioning:
+        """images (B, 3, H, W) in [0, 1]. In training mode, the ucg
+        dropout: `keep` (B, 1, 1), else drawn from `generator`."""
         if self.backbone == "scratch":
             tokens, pooled = self.vit(images)
-            return Conditioning(crossattn=tokens, vector=pooled)
-        if images.shape[-1] != self.img_size:
-            images = resize(images, (self.img_size, self.img_size), "cubic")
-        patch_tokens, cls_tok = self.vit(_imagenet_normalise(images))
-        return Conditioning(crossattn=patch_tokens, vector=cls_tok)
+        else:
+            if images.shape[-1] != self.img_size:
+                images = resize(images, (self.img_size, self.img_size),
+                                "cubic")
+            tokens, pooled = self.vit(_imagenet_normalise(images))
+        return _ucg_dropout(Conditioning(crossattn=tokens, vector=pooled),
+                            self.ucg_rate, self.training, generator, keep)
 
     def unconditional(self, batch: int) -> Conditioning:
         n_extra = 1 + 4 if self.backbone == "scratch" else 0
@@ -153,9 +183,10 @@ def tokenize_bytes(texts: Sequence[str], max_len: int = 77) -> np.ndarray:
 class TextConditioner(nn.Module):
     def __init__(self, width: int = 768, depth: int = 12, heads: int = 12,
                  max_len: int = 77, backbone: str = "bytes",
-                 dtype: torch.dtype = torch.float32):
+                 ucg_rate: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.width = width
+        self.ucg_rate = ucg_rate
         self.max_len = max_len
         if backbone == "openclip":
             from gaussiananything_tpu_torch.models.openclip_text import \
@@ -170,9 +201,14 @@ class TextConditioner(nn.Module):
             raise ValueError(f"unknown text backbone {backbone!r}")
         self.to(dtype)
 
-    def forward(self, token_ids: torch.Tensor) -> Conditioning:
+    def forward(self, token_ids: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> Conditioning:
+        """token_ids (B, max_len); the ucg dropout, `generator` and
+        `keep` as for `ImageConditioner`."""
         tokens, pooled = self.text(token_ids)
-        return Conditioning(crossattn=tokens, vector=pooled)
+        return _ucg_dropout(Conditioning(crossattn=tokens, vector=pooled),
+                            self.ucg_rate, self.training, generator, keep)
 
     def unconditional(self, batch: int) -> Conditioning:
         return Conditioning(

@@ -28,6 +28,12 @@ SiLU(t-embedding) with an RMSNorm.
 
 `dtype` is the compute dtype: the weights are held in it (`--bf16`), norms
 and softmaxes run in fp32 (`models/layers.py`); the velocity is fp32.
+
+`remat` recomputes each block's activations in the backward instead of
+holding them (the JAX package's `nn.remat` per block, which its
+flow-matching trainer always asks for): `torch.utils.checkpoint` per
+`ClayDiTBlock` whenever gradients are on. The function and its gradients
+are the same with and without it.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from gaussiananything_tpu_torch.models.layers import (Attention,
                                                       CrossAttention,
@@ -137,9 +144,10 @@ class PointDiT(nn.Module):
                  depth: int = 24, heads: int = 16, cond_dim: int = 1024,
                  vector_dim: int = 1024, use_xyz_pe: bool = False,
                  release_parity: bool = True, variant: str = "clay",
-                 dtype: torch.dtype = torch.float32):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_channels = in_channels
+        self.remat = remat
         self.width = width
         self.release_parity = release_parity
         self.x_embedder = Mlp(in_channels, width, width)
@@ -188,8 +196,10 @@ class PointDiT(nn.Module):
             ctx = cond_tokens.to(self.dtype)
         else:
             ctx = self.cond_proj(cond_tokens)
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            h = blk(h, ctx, ada)
+            h = (checkpoint(blk, h, ctx, ada, use_reentrant=False) if remat
+                 else blk(h, ctx, ada))
         return self.final_layer(
             h, c if self.release_parity else t_emb).float()
 

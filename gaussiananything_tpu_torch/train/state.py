@@ -60,13 +60,24 @@ def learning_rate(cfg: TrainStateConfig, count: int, name: str = "") -> float:
 class TrainState:
     """`params` are the model's own parameter tensors, updated in place;
     `mu`/`nu` are AdamW's moments, `ema` the primary EMA copy, `ema_extra`
-    {rate string: copy} for `extra_ema_decays`; `step` counts updates."""
+    {rate string: copy} for `extra_ema_decays`; `step` counts updates.
 
-    def __init__(self, params: Tree, extra_ema_decays: Tuple[float, ...] = ()):
+    A `frozen` state (a conditioner trained with `--freeze-cond`, the JAX
+    package's `optax.identity()` state) holds no moments and no EMA copy:
+    its `ema` IS its parameters, and it takes no update."""
+
+    def __init__(self, params: Tree, extra_ema_decays: Tuple[float, ...] = (),
+                 frozen: bool = False):
+        if frozen and extra_ema_decays:
+            raise ValueError("a frozen state keeps no EMA copies")
         self.params = params
-        self.mu = {k: torch.zeros_like(p) for k, p in params.items()}
-        self.nu = {k: torch.zeros_like(p) for k, p in params.items()}
-        self.ema = {k: p.detach().clone() for k, p in params.items()}
+        self.frozen = frozen
+        self.mu = {} if frozen else {k: torch.zeros_like(p)
+                                     for k, p in params.items()}
+        self.nu = {} if frozen else {k: torch.zeros_like(p)
+                                     for k, p in params.items()}
+        self.ema = params if frozen else {k: p.detach().clone()
+                                          for k, p in params.items()}
         self.ema_extra = {f"{d:g}": {k: p.detach().clone()
                                      for k, p in params.items()}
                           for d in extra_ema_decays}
@@ -74,13 +85,21 @@ class TrainState:
 
     @classmethod
     def create(cls, model: nn.Module,
-               extra_ema_decays: Tuple[float, ...] = ()) -> "TrainState":
+               extra_ema_decays: Tuple[float, ...] = (),
+               frozen: bool = False) -> "TrainState":
+        """The trainable parameters of `model`; with `frozen`, all of them,
+        which stop requiring gradients."""
+        if frozen:
+            model.requires_grad_(False)
+            return cls(dict(model.named_parameters()), frozen=True)
         return cls({k: p for k, p in model.named_parameters()
                     if p.requires_grad}, extra_ema_decays)
 
     @torch.no_grad()
     def apply_gradients(self, grads: Tree, cfg: TrainStateConfig):
         """One optimiser update and the EMA updates, in place."""
+        if self.frozen:
+            raise RuntimeError("a frozen state takes no update")
         norm = global_norm(grads)
         # g unchanged below the clip norm, else g / norm · clip
         scale = torch.where(norm < cfg.grad_clip, torch.ones_like(norm),
@@ -105,12 +124,18 @@ class TrainState:
         self.step += 1
 
     def state_dict(self) -> dict:
+        """A frozen state's `ema` is its `params` (torch.save writes the
+        shared tensors once)."""
         return {"params": self.params, "mu": self.mu, "nu": self.nu,
                 "ema": self.ema, "ema_extra": self.ema_extra,
-                "step": self.step}
+                "step": self.step, "frozen": self.frozen}
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict):
+        if sd.get("frozen", False) != self.frozen:
+            raise ValueError(
+                "a checkpoint of a frozen state restores only a frozen "
+                "state, and one of a trained state only a trained one")
         for name in ("params", "mu", "nu", "ema"):
             tree = getattr(self, name)
             if set(tree) != set(sd[name]):

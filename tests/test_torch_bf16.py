@@ -153,8 +153,8 @@ def test_conditioners_bf16(which):
         make = functools.partial(TextConditioner, width=32, depth=1,
                                  heads=4, backbone=which)
         inp = torch.randint(1, 250, (2, 77))
-    m32 = make()
-    m16 = make(dtype=BF16)
+    m32 = make().eval()
+    m16 = make(dtype=BF16).eval()
     m16.load_state_dict(m32.state_dict())
     assert _float_dtypes(m16) == {BF16}
     with torch.no_grad():

@@ -55,7 +55,10 @@ def test_port_files_found():
                  "tools/bench.py", "tools/kernel_stages.py",
                  "tools/kernel_attribution.py", "cli/serve.py",
                  "models/openclip_text.py", "models/matting.py",
-                 "data/real.py", "render/tsdf.py", "native_bindings.py"):
+                 "data/real.py", "render/tsdf.py", "native_bindings.py",
+                 "diffusion/transport.py", "diffusion/ddpm.py",
+                 "cli/train_flow.py", "cli/extract_latents.py",
+                 "data/objaverse_raw.py"):
         assert pkg + name in rel, name
 
 
@@ -101,6 +104,16 @@ def test_train_cli_defaults_to_cuda_and_refuses_without_it(monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_vae.main(["--steps", "1", "--logdir", str(tmp_path)])
+
+
+def test_flow_clis_default_to_cuda_and_refuse_without_it(monkeypatch,
+                                                        tmp_path):
+    from gaussiananything_tpu_torch.cli import extract_latents, train_flow
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_flow.main(["--steps", "1", "--logdir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        extract_latents.main(["--num", "1", "--out", str(tmp_path)])
 
 
 def test_training_kernels_raise_on_cuda_tensors_without_a_build(monkeypatch,
