@@ -60,10 +60,31 @@ Phases, in order; any failure exits non-zero:
    shape through `tools/rasterizer_timing.py --all`, `tools/bench.py` and
    `tools/kernel_stages.py`, checking every kernel's launch count against
    what the arguments predict;
-13. report: one JSON line of kernel records, the kernels launched, the
+13. bands (after the kernels of 3): K1 at the release render shape and
+   K2a/K2b at the 512² and 384² LoDs, each view in 2 and in 4 bands of
+   rows (`row0`), each band against the plain versions with its row0, the
+   bands' pair lists equal to the whole view's, the joined bands bit-equal
+   to the whole-view render, the summed band gradient against the whole
+   view's, and every kernel timed per band;
+14. multi-rank: two ranks on the one card over gloo under
+   `torch.distributed.run`: `parallel/dryrun.py`'s three steps against
+   the unsharded ones, then `cli/train_vae.py --preset vae-release` on
+   2 x 1 and 1 x 2 meshes and `cli/train_flow.py --preset stage1` on a
+   2 x 1 mesh, checking steps, losses, launches, and printing each rank's
+   seconds by stage and peak;
+15. profile: `utils/profiling.trace` around one batch-2 release DiT-L
+   evaluation and one 512² turntable view: top kernels by device time and
+   the device-busy share;
+16. import: mirrors of the released stage-1 DiT and VAE through
+   `cli/import_release`, restored into the port's modules on the card and
+   held against the mirrors' forward;
+17. report: one JSON line of kernel records, the kernels launched, the
    card's name and power limit, then the `{"ok": true, ...}` line last.
 
-It imports nothing of JAX; the port's package must sit beside this file.
+It imports nothing of JAX; the port's package must sit beside this file
+(and `tests/torch_mirror_ga.py`, torch only, for the import phase).
+`chip_smoke.py --rank-run vae|flow ARGV_JSON OUT_DIR` is one rank of
+phase 14, started by `torch.distributed.run`.
 
     python3 chip_smoke.py --probe-batch [batch ...]     (default: 8 4 2 1)
 
@@ -2860,6 +2881,549 @@ def _flow_train_run(dev, root):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Row bands, several ranks, the profiler and the checkpoint import.
+# ---------------------------------------------------------------------------
+
+# The bands phase: each case's view split into 2 and into 4 bands of rows,
+# as `render/sharded.py` renders it over a tile group: K1 at the release
+# render shape (max_per_tile 2048, chunk 256), K2a/K2b at the trainer's
+# 512² and 384² LoDs (max_per_tile 1024, chunk 128).
+BAND_CASES = {"K1 512": ("K1", K1_CASES["turntable"]),
+              "K2 512": ("K2", K2_CASES["train 512"]),
+              "K2 384": ("K2", K2_CASES["train 384"])}
+BAND_SPLITS = (2, 4)
+
+
+def _band_frames(dev, scene, n_bands):
+    """(tab, whole-view (pairs, starts, counts), [(row0, band lists)],
+    res, band): the splats projected and tabled against the whole image,
+    each band binned with its row0."""
+    import torch
+    from gaussiananything_tpu_torch.data.synthetic import make_object
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.render import cameras
+    seed, n, kind, opacity, radius, pose, res, mpt = scene
+    g = make_object(seed, n=n, kind=kind, device=dev)
+    if opacity is not None:
+        g[:, 3] = opacity
+    cam = cameras.pose_to_gs_camera(
+        cameras.generate_input_camera(radius, [pose])[0], device=dev)
+    sp = rz.preprocess_splats(g, cam["cam_view"], cam["cam_view_proj"],
+                              res, res)
+    tab = rz.splat_table(sp, res, res).contiguous()
+    band = res // n_bands
+    whole = rz.build_tile_pairs(sp, res, res, 16, mpt)
+    bands = [(i * band, rz.build_tile_pairs(sp, band, res, 16, mpt,
+                                            row0=i * band))
+             for i in range(n_bands)]
+    torch.cuda.synchronize()
+    return tab, whole, bands, res, band
+
+
+def _unequal_lists(whole, lists, row0, tiles_x):
+    """Tiles of a band whose depth-ordered pair list differs from the
+    whole view's list of the same image tile."""
+    wp, ws, wc = (x.tolist() for x in whole)
+    bp, bs, bc = (x.tolist() for x in lists)
+    off = row0 // 16 * tiles_x
+    return [t for t, (s, c) in enumerate(zip(bs, bc))
+            if bp[s:s + c] != wp[ws[off + t]:ws[off + t] + wc[off + t]]]
+
+
+def bands_phase(dev):
+    """Every BAND_CASES view in 2 and in 4 bands, each band through its
+    kernels with its row0 against the plain versions with the same row0:
+    K1's and K2a's buffers to the golden criteria, K2a's entry states to
+    atol 2e-5 / rtol 1e-4 with its executed chunks and marks exact, K2b's
+    table cotangent (the band's rows of one seeded cotangent of the whole
+    view) to GRAD_REL of each column's largest value. On every tile whose
+    pair list the band binned as the whole view did, the joined bands must
+    equal the whole-view render bit for bit (K1, K2a), and the bands' K2b
+    cotangents summed must equal the whole view's to 2e-3 of each column's
+    largest value under the cotangent of those tiles. The tiles whose
+    lists differ are counted: a band holds fewer big splats than the whole
+    view, so where the view's big bucket overflows `big_capacity` the
+    band bins some of them whole. Each kernel timed per band beside the
+    whole view. Returns {kernel: largest error} for the records."""
+    import torch
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.ops import rasterize_cuda as rc
+    errs = {"K1": 0.0, "K2a": 0.0, "K2b": 0.0}
+    bg = torch.ones(3, device=dev)
+    for case, (kind, (*scene, chunk)) in BAND_CASES.items():
+        for n_bands in BAND_SPLITS:
+            tab, whole, bands, res, band = _band_frames(dev, scene, n_bands)
+            tiles_x = res // 16
+            # tiles (image rows of tiles x columns) binned alike
+            same = torch.ones((tiles_x, tiles_x), dtype=torch.bool)
+            for row0, lists in bands:
+                for t in _unequal_lists(whole, lists, row0, tiles_x):
+                    same[row0 // 16 + t // tiles_x, t % tiles_x] = False
+            pix = same.repeat_interleave(16, 0).repeat_interleave(16, 1) \
+                .to(dev)
+            wargs = (tab, *whole, bg, res, res)
+            times = {}
+            if kind == "K1":
+                full = rc.composite(*wargs, chunk=chunk)
+                times["whole"] = [time_cuda(lambda: rc.composite(
+                    *wargs, chunk=chunk), reps=20)]
+            else:
+                full, *wextra = rc.composite_entries(*wargs, chunk=chunk)
+                ct = torch.randn((rz.N_OUT, res, res),
+                                 generator=torch.Generator().manual_seed(6)
+                                 ).to(dev)
+                ct[6] *= DIST_WEIGHT
+                ct = ct * pix
+                w_order = rc.splat_order(*whole, tab.shape[0])
+                d_whole = rc.composite_backward(
+                    tab, *whole, bg, ct, *wextra, *w_order, res, res,
+                    chunk=chunk)
+                times["whole"] = [
+                    time_cuda(lambda: rc.composite_entries(*wargs,
+                                                           chunk=chunk),
+                              reps=20),
+                    time_cuda(lambda: rc.composite_backward(
+                        tab, *whole, bg, ct, *wextra, *w_order, res, res,
+                        chunk=chunk), reps=20)]
+                d_sum = torch.zeros_like(tab)
+            joined = torch.empty_like(full)
+            for row0, lists in bands:
+                args = (tab, *lists, bg, band, res)
+                rows = slice(row0, row0 + band)
+                if kind == "K1":
+                    got = rc.composite(*args, chunk=chunk, row0=row0)
+                    ref = rz.composite_plain(*args, chunk=chunk, row0=row0)
+                    times.setdefault("bands", []).append([time_cuda(
+                        lambda: rc.composite(*args, chunk=chunk, row0=row0),
+                        reps=20)])
+                else:
+                    got, off, entries, n_exec, marks = rc.composite_entries(
+                        *args, chunk=chunk, row0=row0)
+                    ref, rent, rn_exec, rmarks = rz.composite_plain(
+                        *args, chunk=chunk, row0=row0, return_entries=True)
+                    e_err = float((entries[:rent.shape[0]] - rent).abs()
+                                  .max()) if rent.numel() else 0.0
+                    if not (torch.equal(n_exec, rn_exec) and torch.equal(
+                            marks[:rmarks.shape[0]], rmarks)
+                            and bool((entries[:rent.shape[0]] - rent).abs()
+                                     .le(2e-5 + 1e-4 * rent.abs()).all())):
+                        fail(f"K2a disagrees with its plain version on the "
+                             f"band at row {row0} ({case}, {n_bands} bands)")
+                    errs["K2a"] = max(errs["K2a"], e_err)
+                    ct_b = ct[:, rows].contiguous()
+                    order = rc.splat_order(*lists, tab.shape[0])
+                    d_band = rc.composite_backward(
+                        tab, *lists, bg, ct_b, off, entries, n_exec, marks,
+                        *order, band, res, chunk=chunk, row0=row0)
+                    d_ref = rz.composite_plain_backward(
+                        tab, *lists, bg, ct_b, band, res, chunk=chunk,
+                        row0=row0)
+                    g_err = (d_band - d_ref).abs().amax(0)
+                    if not bool((g_err <= GRAD_REL * d_ref.abs().amax(0)
+                                 + 1e-12).all()):
+                        fail(f"K2b disagrees with its plain version on the "
+                             f"band at row {row0} ({case}, {n_bands} "
+                             f"bands)")
+                    errs["K2b"] = max(errs["K2b"], float(g_err.max()))
+                    d_sum += d_band
+                    times.setdefault("bands", []).append([
+                        time_cuda(lambda: rc.composite_entries(
+                            *args, chunk=chunk, row0=row0), reps=20),
+                        time_cuda(lambda: rc.composite_backward(
+                            tab, *lists, bg, ct_b, off, entries, n_exec,
+                            marks, *order, band, res, chunk=chunk,
+                            row0=row0), reps=20)])
+                ok, gerrs = _golden_errors(rz.split_outputs(got),
+                                           rz.split_outputs(ref), GOLDEN_TOL)
+                if not ok:
+                    fail(f"{'K1' if kind == 'K1' else 'K2a'} disagrees with "
+                         f"its plain version on the band at row {row0} "
+                         f"({case}, {n_bands} bands): {json.dumps(gerrs)}")
+                k = "K1" if kind == "K1" else "K2a"
+                errs[k] = max(errs[k], *(r["max_abs"]
+                                         for r in gerrs.values()))
+                joined[:, rows] = got
+            torch.cuda.synchronize()
+            if not torch.equal(joined * pix, full * pix):
+                fail(f"the joined bands differ from the whole view's render "
+                     f"on tiles binned alike ({case}, {n_bands} bands)")
+            n_other = int((~same).sum())
+            other = float(((joined - full).abs() * ~pix).max()) \
+                if n_other else 0.0
+            msg = (f"{n_other} of {tiles_x ** 2} tiles binned otherwise "
+                   f"(max|joined - whole| there {other:.3g}), the rest "
+                   f"bit-equal to the whole view")
+            if kind == "K2":
+                peak = d_whole.abs().amax(0)
+                s_err = (d_sum - d_whole).abs().amax(0)
+                rel = float((s_err / peak.clamp(min=1e-30)).max())
+                if not bool((s_err <= 2e-3 * peak + 1e-12).all()):
+                    fail(f"the bands' summed K2b cotangent is {rel:.3g} of "
+                         f"max|g| from the whole view's ({case}, "
+                         f"{n_bands} bands)")
+                msg += f"; summed K2b cotangent / max|g| {rel:.3g}"
+            names = ["K1"] if kind == "K1" else ["K2a", "K2b"]
+            per = {nm: [round(b[j], 4) for b in times["bands"]]
+                   for j, nm in enumerate(names)}
+            whole_ms = {nm: round(times["whole"][j], 4)
+                        for j, nm in enumerate(names)}
+            print(f"[bands] {case}² ({scene[1]} splats, max_per_tile "
+                  f"{scene[7]}, chunk {chunk}) in {n_bands} bands of "
+                  f"{band} rows: {msg}; median ms per band "
+                  f"{json.dumps(per)}, whole view {json.dumps(whole_ms)}",
+                  flush=True)
+    return errs
+
+
+# the multi-rank phase: two ranks on the one card over gloo
+RANKS = 2
+RANK_STEPS = 2
+
+
+def _torchrun(args, timeout):
+    """`python -m torch.distributed.run --standalone --nproc_per_node RANKS
+    <args>`; returns the JSON of every line of its output that starts
+    with a tag, and the seconds it took."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(RANKS), *args]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=timeout)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-6000:], sep="\n", flush=True)
+        fail(f"{' '.join(args[:3])} on {RANKS} ranks exited "
+             f"{res.returncode}")
+    out = {}
+    for ln in res.stdout.splitlines():
+        tag, _, rest = ln.partition(" ")
+        if tag in ("DRYRUN", "DRYRUN-RANK"):
+            out.setdefault(tag, []).append(json.loads(rest))
+    return out, wall
+
+
+def _used(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def rank_run(kind: str, argv_json: str, out_dir: str):
+    """One rank of a multi-rank CLI run (started by `_torchrun`): the
+    launch counts set to 0, `cli/train_vae.py` or `cli/train_flow.py`
+    with `argv_json`'s arguments, then `<out_dir>/rank<r>.json`: the mesh,
+    the steps, the logs, the seconds by stage, the peak memory and the
+    kernels' launches of this rank."""
+    import torch
+    from gaussiananything_tpu_torch.cli import train_flow, train_vae
+    from gaussiananything_tpu_torch.parallel import dist as pdist
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    timers = []
+    t0 = time.perf_counter()
+    main_fn = train_vae.main if kind == "vae" else train_flow.main
+    res = main_fn(json.loads(argv_json), timers=timers)
+    torch.cuda.synchronize()
+    out = {"rank": pdist.get_rank(), "mesh": [res["mesh"].data,
+                                              res["mesh"].tile],
+           "step": res["state"].step, "logs": res["logs"],
+           "seconds": [{k: round(v, 4) for k, v in t.items()}
+                       for t in timers],
+           "wall_s": round(time.perf_counter() - t0, 2),
+           "peak_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
+           "launches": _read_launches()}
+    with open(os.path.join(out_dir, f"rank{out['rank']}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def multi_rank_phase(dev):
+    """Several ranks on the one card over gloo (RANKS processes under
+    `torch.distributed.run`): the dry run's three phases at tiny widths,
+    each against the unsharded step on the card (`parallel/dryrun.py`:
+    total rtol 1e-5, grad_norm rtol 1e-4); then `cli/train_vae.py
+    --preset vae-release` as a 2 x 1 mesh at batch 2 and a 1 x 2 mesh at
+    batch 1, and `cli/train_flow.py --preset stage1 --freeze-cond` as a
+    2 x 1 mesh at batch 8 (synthetic stream), RANK_STEPS steps each
+    (warm-up 1 step, the transport's evaluation steps cut to 10): steps,
+    finite losses equal on every rank, each kernel's launches on each rank,
+    and each rank's seconds by stage and peak. Returns the launches summed
+    over the ranks of the full-width runs."""
+    import torch
+    from gaussiananything_tpu_torch.config import preset
+    here = os.path.abspath(__file__)
+    out, wall = _torchrun(["-m", "gaussiananything_tpu_torch.parallel.dryrun",
+                           "--device", "cuda", "--backend", "gloo"], 600)
+    phases = out.get("DRYRUN", [])
+    if len(phases) != 3 or not all(p["ok"] for p in phases):
+        fail(f"the multi-rank dry run: {phases}")
+    for p in phases:
+        print(f"[multi-rank] dry run {json.dumps(p)}", flush=True)
+    print(f"[multi-rank] dry run ranks: {json.dumps(out['DRYRUN-RANK'])}; "
+          f"{wall:.1f}s", flush=True)
+
+    runs = [
+        ("vae", "vae-release", 2, 1, 2),
+        ("vae", "vae-release", 1, 2, 1),
+        ("flow", "stage1", 2, 1, 8),
+    ]
+    total = {}
+    with tempfile.TemporaryDirectory() as root:
+        for kind, name, data, tile, batch in runs:
+            cfg = preset(name)
+            cfg.optim.warmup_steps = 1
+            cfg.transport.num_steps = FLOW_SAMPLER_STEPS
+            cfg.mesh_data, cfg.mesh_tile = data, tile
+            tag = f"{kind}-{data}x{tile}"
+            path = os.path.join(root, f"{tag}.json")
+            with open(path, "w") as f:
+                f.write(cfg.to_json())
+            argv = ["--config", path, "--steps", str(RANK_STEPS), "--batch",
+                    str(batch), "--logdir", os.path.join(root, tag),
+                    "--dist-backend", "gloo", "--device", "cuda"]
+            if kind == "flow":
+                argv += ["--freeze-cond"]
+            rank_dir = os.path.join(root, f"{tag}-ranks")
+            os.makedirs(rank_dir)
+            _, wall = _torchrun([here, "--rank-run", kind, json.dumps(argv),
+                                 rank_dir], 900)
+            ranks = []
+            for r in range(RANKS):
+                path = os.path.join(rank_dir, f"rank{r}.json")
+                if not os.path.exists(path):
+                    fail(f"{tag}: rank {r} reported nothing")
+                with open(path) as f:
+                    ranks.append(json.load(f))
+            if len(ranks) != RANKS:
+                fail(f"{tag}: {len(ranks)} ranks reported")
+            local = batch // data
+            if kind == "vae":
+                want = {"K1": batch * 8 * RANK_STEPS,
+                        "K2a": local * 16 * RANK_STEPS,
+                        "K2b": local * 16 * RANK_STEPS}
+            else:
+                want = {"K1": batch * RANK_STEPS}
+            key = "total" if kind == "vae" else "fm_loss"
+            for r in ranks:
+                exp = {k: want.get(k, 0) for k in r["launches"]}
+                if r["launches"] != exp:
+                    fail(f"{tag} rank {r['rank']}: launches "
+                         f"{r['launches']}, expected {exp}")
+                if r["mesh"] != [data, tile] or r["step"] != RANK_STEPS \
+                        or len(r["logs"]) != RANK_STEPS:
+                    fail(f"{tag} rank {r['rank']}: mesh {r['mesh']}, step "
+                         f"{r['step']}")
+                for lg in r["logs"]:
+                    if not all(math.isfinite(v) for v in lg.values()):
+                        fail(f"{tag} rank {r['rank']}: a loss is not finite")
+                if [lg[key] for lg in r["logs"]] != \
+                        [lg[key] for lg in ranks[0]["logs"]]:
+                    fail(f"{tag}: the ranks logged different {key}s")
+                print(f"[multi-rank] {tag} ({name}, batch {batch}) rank "
+                      f"{r['rank']}: {key} "
+                      f"{[round(lg[key], 6) for lg in r['logs']]}, "
+                      f"grad_norm "
+                      f"{[round(lg['grad_norm'], 6) for lg in r['logs']]}; "
+                      f"seconds by stage {json.dumps(r['seconds'])}; peak "
+                      f"{r['peak_gib']} GiB; launches "
+                      f"{json.dumps(_used(r['launches']))}", flush=True)
+                for k, v in r["launches"].items():
+                    total[k] = total.get(k, 0) + v
+            peak = sum(r["peak_gib"] for r in ranks)
+            print(f"[multi-rank] {tag}: {wall:.1f}s; the ranks' peaks "
+                  f"together {peak:.2f} GiB", flush=True)
+            if peak * 2 ** 30 > torch.cuda.get_device_properties(
+                    0).total_memory:
+                fail(f"{tag}: the ranks together peak above the card")
+    return total
+
+
+def _trace_window(trace_path, window, n_top=8):
+    """(device-busy seconds, window seconds, top kernels) of a trace: the
+    kernels, copies and sets from the start of the CPU range named
+    `window` to the later of its end and the last device activity; the
+    top kernels by summed device time in it."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    ann = [e for e in events if e.get("name") == window
+           and e.get("cat") == "user_annotation"]
+    if not ann:
+        fail(f"the trace has no range {window!r}")
+    t0, t1 = ann[0]["ts"], ann[0]["ts"] + ann[0]["dur"]
+    acts = [e for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and e["ts"] >= t0]
+    if not acts:
+        fail(f"the trace shows no device activity in {window!r}")
+    busy, end = 0.0, t0
+    for a, b in sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in acts):
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    by_name = {}
+    for e in acts:
+        ms, calls = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + e.get("dur", 0) * 1e-3, calls + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n_top]
+    return busy * 1e-6, (max(t1, end) - t0) * 1e-6, [
+        {"kernel": k[:70], "ms": round(ms, 4), "calls": c}
+        for k, (ms, c) in top]
+
+
+def profile_phase(dev):
+    """`utils/profiling.trace` (torch.profiler, CPU and CUDA activities)
+    around one batch-2 evaluation of the release stage-1 DiT-L (fp32, TF32
+    off; seeded weights; 1,369 DINOv2 context tokens, the cascade's CFG
+    batch) and around one 512² turntable view of 73,728 splats through
+    `rasterize_tiled` (K1): the top kernels by device time and the share of
+    each window the card was busy. Launch counts are set to 0 just before
+    and read just after."""
+    import torch
+    from gaussiananything_tpu_torch.data.synthetic import make_object
+    from gaussiananything_tpu_torch.models.dit import stage1_dit_release
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.render import cameras
+    from gaussiananything_tpu_torch.utils import profiling
+    torch.manual_seed(0)
+    with torch.device(dev):
+        dit = stage1_dit_release().eval()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((2, 768, 3), generator=gen, device=dev)
+    t = torch.rand((2,), generator=gen, device=dev)
+    ctx = torch.randn((2, 1369, 1024), generator=gen, device=dev)
+    vec = torch.randn((2, 1024), generator=gen, device=dev)
+    g = make_object(0, n=73728, kind="sphere", device=dev)
+    cam = cameras.pose_to_gs_camera(
+        cameras.generate_input_camera(1.8, [(20, 45)])[0], device=dev)
+    bg = torch.ones(3, device=dev)
+
+    def view():
+        return rz.rasterize_tiled(g, cam["cam_view"], cam["cam_view_proj"],
+                                  bg, 512, 512, max_per_tile=2048, chunk=256)
+
+    with torch.no_grad():
+        for _ in range(2):                 # warm-up: allocator, cuBLAS
+            dit(x, t, ctx, vec)
+            view()
+        torch.cuda.synchronize()
+        _reset_launches()
+        with tempfile.TemporaryDirectory() as logdir:
+            found = {}
+            for name, fn in (("dit_eval", lambda: dit(x, t, ctx, vec)),
+                             ("turntable_view", view)):
+                sub = os.path.join(logdir, name)
+                with profiling.trace(sub):
+                    with profiling.annotate(name):
+                        fn()
+                        torch.cuda.synchronize()
+                found[name] = _trace_window(
+                    os.path.join(sub, "trace.json"), name)
+        launches = _read_launches()
+    del dit
+    for name, (busy, span, top) in found.items():
+        print(f"[profile] {name}: window {span * 1e3:.3f} ms, device busy "
+              f"{busy * 1e3:.3f} ms ({100 * busy / span:.1f}%); top kernels "
+              f"by device time {json.dumps(top)}", flush=True)
+    if launches["K1"] != 1:
+        fail(f"the profiled view launched K1 {launches['K1']} times")
+    return launches
+
+
+def _fan_in_randomize(model, seed: int = 0):
+    """Random weights that keep activations O(1) through deep stacks
+    (tests/test_release_import.py's `_randomize`)."""
+    import numpy as np
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.ndim == 1 and name.endswith("weight"):
+                p.copy_(1.0 + 0.05 * torch.randn(p.shape, generator=g))
+            elif p.ndim >= 2:
+                fan_in = int(np.prod(p.shape[1:]))
+                p.copy_(torch.randn(p.shape, generator=g)
+                        / max(fan_in, 1) ** 0.5)
+            else:
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+    return model
+
+
+def import_phase(dev):
+    """The reference checkpoints' import: mirrors of the released
+    stage-1 DiT (CLAY layout, width 1024, 16 heads, context 1024) and of
+    the release VAE (768 latents, DiT2 width 768, 12 heads, the (8, 4, 3)
+    upsamplers) with the true reference names (`tests/torch_mirror_ga.py`,
+    depth cut to 2), written with `torch.save`, converted by the port's
+    `cli/import_release`, restored into the port's modules on the card
+    (`from_jax_params`), and held against the mirrors' own forward (on the
+    host, as they were written): the velocity field to atol 2e-4 / rtol
+    1e-3, the decoded LoDs to atol 3e-4 / rtol 1e-3
+    (tests/test_dit_release_import.py, tests/test_release_import.py)."""
+    import torch
+    from gaussiananything_tpu_torch.cli import import_release
+    from gaussiananything_tpu_torch.models.dit import stage1_dit_release
+    from gaussiananything_tpu_torch.models.vae import PointVAE
+    from gaussiananything_tpu_torch.utils.param_io import (from_jax_params,
+                                                           load_params_npz)
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from torch_mirror_ga import TorchClayDiT, TorchReleaseVAE
+
+    def check(name, got, ref, atol, rtol):
+        err = float((got - ref).abs().max())
+        ok = bool(((got - ref).abs() <= atol + rtol * ref.abs()).all())
+        print(f"[import] {name}: max|port - mirror| {err:.3g} (max|mirror| "
+              f"{float(ref.abs().max()):.3g})", flush=True)
+        if not (ok and torch.isfinite(got).all()):
+            fail(f"the imported {name} disagrees with its mirror")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with tempfile.TemporaryDirectory() as root, torch.no_grad():
+        pt, npz = os.path.join(root, "m.pt"), os.path.join(root, "m.npz")
+        tm = _fan_in_randomize(TorchClayDiT(in_channels=3, dim=1024,
+                                            depth=2, heads=16,
+                                            ctx_dim=1024)).eval()
+        torch.save(tm.state_dict(), pt)
+        t0 = time.perf_counter()
+        import_release.main(["--kind", "dit-stage1", "--ckpt", pt, "--out",
+                             npz, "--depth", "2"])
+        dt = time.perf_counter() - t0
+        with torch.device(dev):
+            pm = stage1_dit_release(depth=2).eval()
+        pm.load_state_dict(from_jax_params(load_params_npz(npz), pm))
+        x = torch.randn((2, 768, 3), generator=gen, device=dev)
+        t = torch.rand((2,), generator=gen, device=dev)
+        ctx = torch.randn((2, 257, 1024), generator=gen, device=dev) * 0.5
+        vec = torch.randn((2, 1024), generator=gen, device=dev) * 0.5
+        # the mirror runs where it was written for, on the host
+        check(f"stage-1 DiT (import {dt:.1f}s)", pm(x, t, ctx, vec).cpu(),
+              tm(x.cpu(), t.cpu(), ctx.cpu(), vec.cpu()), 2e-4, 1e-3)
+
+        tm = _fan_in_randomize(TorchReleaseVAE(num_tokens=768, dim=768,
+                                               depth=2, heads=12)).eval()
+        torch.save(tm.state_dict(), pt)
+        t0 = time.perf_counter()
+        import_release.main(["--kind", "vae", "--ckpt", pt, "--out", npz,
+                             "--depth", "2"])
+        dt = time.perf_counter() - t0
+        with torch.device(dev):
+            pm = PointVAE(latent_num=768, decoder_width=768, decoder_depth=2,
+                          decoder_heads=12, release_parity=True,
+                          with_encoder=True, encoder_width=256).eval()
+        pm.load_state_dict(from_jax_params(load_params_npz(npz), pm))
+        z = torch.randn((1, 768, 10), generator=gen, device=dev)
+        anchors = (torch.rand((1, 768, 3), generator=gen, device=dev)
+                   - 0.5) * 0.6
+        got = [lod.cpu() for lod in pm.decode(z, anchors)]
+        ref = tm.decoder.decode(z.cpu(), anchors.cpu())
+        if not len(got) == len(ref) == 4:
+            fail(f"the imported VAE decodes {len(got)} LoDs, its mirror "
+                 f"{len(ref)}")
+        for i, (a, b) in enumerate(zip(got, ref)):
+            check(f"VAE LoD {i} ({a.shape[1]} surfels; import {dt:.1f}s)",
+                  a, b, 3e-4, 1e-3)
+
+
 def probe_one(batch: int):
     import torch
     from gaussiananything_tpu_torch.cli import train_vae
@@ -2902,6 +3466,8 @@ def main():
         return probe_one(int(sys.argv[2]))
     if sys.argv[1:2] == ["--probe-batch"]:
         return probe_batches([int(a) for a in sys.argv[2:]])
+    if sys.argv[1:2] == ["--rank-run"]:
+        return rank_run(*sys.argv[2:5])
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "gaussiananything_tpu_torch")):
         fail("gaussiananything_tpu_torch/ is missing beside chip_smoke.py")
@@ -2910,6 +3476,11 @@ def main():
     records = [k1_phase(dev), k2a_phase(dev), k2b_phase(dev), k6_phase(dev),
                k3_phase(dev), k4_phase(dev), k5_phase(dev)]
     records += stages_phase(dev)
+    band_errs = bands_phase(dev)
+    for rec in records:
+        if rec["name"] in band_errs:
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     band_errs[rec["name"]])
     small_cascade_phase(dev)
     paths = {"cascade": cascade_phase(dev)}
     small_serving_phase(dev)
@@ -2921,6 +3492,9 @@ def main():
     small_flow_train_phase(dev)
     paths["flow_train"] = flow_train_phase(dev)
     paths["raster_tools"] = raster_tools_phase(dev)
+    paths["multi_rank"] = multi_rank_phase(dev)
+    paths["profile"] = profile_phase(dev)
+    import_phase(dev)
     for rec in records:
         # a kernel's launches over the main paths, each read just after its
         # run: K1 is on all of them, K2a and K2b on training and the tools

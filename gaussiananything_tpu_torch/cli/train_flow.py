@@ -20,9 +20,15 @@ Weights start from a random draw of the config's seed (`--dit-ckpt`,
 `--cond-ckpt`: a JAX-layout npz or this package's checkpoint directory;
 `--resume`: the directory `--save-every` writes, with `<resume>_cond`).
 Runs on the card unless `--device cpu` is given (the JAX CLI's
-`--platform`). One device only: the JAX CLI's mesh (`make_mesh`,
-`replicate`, `shard_batch`) is a plain `.to(device)` here until the port
-has its multi-GPU slice.
+`--platform`). Several GPUs: one process per rank under a launcher
+(`python -m torch.distributed.run --nproc_per_node N -m
+gaussiananything_tpu_torch.cli.train_flow ...`), on the config's
+`mesh_data` × `mesh_tile` mesh as in `cli/train_vae.py` (`--dist-backend`
+names a backend other than NCCL). Each rank makes the global batch from
+the seed and keeps its data slice, draws the global batch's noise and keeps
+its slice; gradients are averaged over the data axis (the tile axis
+renders nothing here). Only rank 0 logs, evaluates and writes checkpoints;
+every rank draws the evaluation's batch, so the data streams stay one.
 
 Two deliberate differences from the JAX CLI (ADVICE r5):
   * the uint8 cache of the conditioning views rounds (the JAX CLI
@@ -85,6 +91,9 @@ def main(argv=None, timers=None):
                    help="CLIP BPE ids from this bpe_simple_vocab_16e6 file "
                         "and the OpenCLIP text tower; byte ids otherwise")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--dist-backend", default=None,
+                   help="process-group backend of a multi-rank launch: "
+                        "nccl (default, a card per rank) or gloo")
     p.add_argument("--accum", type=int, default=1,
                    help="gradient-accumulation micro-batches per step")
     p.add_argument("--save-every", type=int, default=1000)
@@ -117,14 +126,21 @@ def main(argv=None, timers=None):
     from gaussiananything_tpu_torch.models.dit import stage1_dit, stage2_dit
     from gaussiananything_tpu_torch.train.fm_trainer import (
         FMConfig, XYZ_SCALE, make_fm_train_step, make_sampler)
-    from gaussiananything_tpu_torch.train.logging import MetricLogger
+    from gaussiananything_tpu_torch.parallel import dist as pdist
+    from gaussiananything_tpu_torch.parallel.mesh import (replicate,
+                                                          shard_batch,
+                                                          training_mesh)
+    from gaussiananything_tpu_torch.train.logging import (MetricLogger,
+                                                          NullLogger)
     from gaussiananything_tpu_torch.train.state import (
         TrainState, TrainStateConfig, restore_checkpoint,
         restore_inference_params, save_checkpoint)
     from gaussiananything_tpu_torch.train.vae_trainer import StageTimer
     from gaussiananything_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(args.device)
+    pdist.setup_dist(args.dist_backend)
+    main_rank = pdist.is_main()
+    dev = pdist.rank_device(resolve_device(args.device))
     if args.config:
         with open(args.config) as f:
             cfg = RunConfig.from_json(f.read())
@@ -138,11 +154,13 @@ def main(argv=None, timers=None):
     if args.batch:
         cfg.optim.batch_size = args.batch
     B = cfg.optim.batch_size
+    mesh = training_mesh(cfg.mesh_data, cfg.mesh_tile, B)
     logdir = args.logdir or os.path.join(cfg.logdir,
                                          f"{cfg.name}-flow-s{args.stage}")
-    logger = MetricLogger(logdir)
-    with open(os.path.join(logdir, "args.json"), "w") as f:
-        f.write(cfg.to_json())
+    logger = MetricLogger(logdir) if main_rank else NullLogger()
+    if main_rank:
+        with open(os.path.join(logdir, "args.json"), "w") as f:
+            f.write(cfg.to_json())
 
     dtype = compute_dtype(cfg.dit.compute_dtype)
     text_cond = cfg.dit.cond == "text"
@@ -168,13 +186,17 @@ def main(argv=None, timers=None):
                 backbone="scratch", ucg_rate=cfg.dit.ucg_rate, dtype=dtype)
     restore_inference_params(args.cond_ckpt, cond)
     restore_inference_params(args.dit_ckpt, dit)
+    replicate(mesh, dit)        # every rank starts from rank 0's weights
+    replicate(mesh, cond)
     dit.train()
     cond.train()
     n_params = sum(p.numel() for p in dit.parameters())
     n_cond = sum(p.numel() for p in cond.parameters())
-    print(f"DiT params: {n_params / 1e6:.2f}M; conditioner "
-          f"{n_cond / 1e6:.2f}M{' (frozen)' if args.freeze_cond else ''}; "
-          f"device: {dev}", flush=True)
+    if main_rank:
+        print(f"DiT params: {n_params / 1e6:.2f}M; conditioner "
+              f"{n_cond / 1e6:.2f}M"
+              f"{' (frozen)' if args.freeze_cond else ''}; device: {dev}; "
+              f"mesh {mesh.data} (data) x {mesh.tile} (tile)", flush=True)
 
     if text_cond:
         if args.bpe:
@@ -273,7 +295,7 @@ def main(argv=None, timers=None):
                               extra_ema_decays=cfg.optim.extra_ema_decays,
                               lr_mults=cfg.optim.lr_mults)
     step_fn = make_fm_train_step(dit, cond, transport, fm_cfg, tx_cfg,
-                                 accum=args.accum)
+                                 accum=args.accum, mesh=mesh)
     state = TrainState.create(dit, cfg.optim.extra_ema_decays)
     cstate = TrainState.create(cond, frozen=args.freeze_cond)
     if args.resume:
@@ -281,7 +303,9 @@ def main(argv=None, timers=None):
             raise FileNotFoundError(f"{args.resume}_cond is missing")
         restore_checkpoint(args.resume, state)
         restore_checkpoint(args.resume + "_cond", cstate)
-        print(f"resumed from {args.resume} at step {state.step}", flush=True)
+        if main_rank:
+            print(f"resumed from {args.resume} at step {state.step}",
+                  flush=True)
     start = state.step
     n_evals = start // args.eval_every if args.eval_every else 0
     it = data_iter(np.random.default_rng(cfg.seed), 1 + start + n_evals)
@@ -334,7 +358,7 @@ def main(argv=None, timers=None):
         if timer:
             timer.start()
         with torch.no_grad():
-            batch = next(it)
+            batch = shard_batch(mesh, next(it))
         if timer:
             timer.lap("data")
         gen = torch.Generator().manual_seed(step_seed(cfg.seed, i))
@@ -346,7 +370,10 @@ def main(argv=None, timers=None):
         if args.eval_every and (i + 1) % args.eval_every == 0:
             if timer:
                 timer.start()
-            run_eval(i + 1)
+            if main_rank:
+                run_eval(i + 1)
+            else:
+                next(it)                # the evaluation's draw of the stream
             if timer:
                 timer.lap("eval")
         if timer:
@@ -356,15 +383,19 @@ def main(argv=None, timers=None):
             logger.logkv("steps_per_s",
                          (i + 1 - start) / max(time.time() - t0, 1e-9))
             logger.dumpkvs(i + 1)
-        if (i + 1) % args.save_every == 0:
+        if (i + 1) % args.save_every == 0 and main_rank:
             save_checkpoint(ckpt_dir, state)
             save_checkpoint(ckpt_dir + "_cond", cstate)
-    save_checkpoint(ckpt_dir, state)
-    save_checkpoint(ckpt_dir + "_cond", cstate)
+    if main_rank:
+        save_checkpoint(ckpt_dir, state)
+        save_checkpoint(ckpt_dir + "_cond", cstate)
     logger.close()
-    print("done", flush=True)
+    pdist.synchronize()     # no rank leaves before the checkpoint is whole
+    if main_rank:
+        print("done", flush=True)
     return {"state": state, "cond_state": cstate, "dit": dit, "cond": cond,
-            "logs": all_logs, "evals": evals, "logdir": logdir}
+            "logs": all_logs, "evals": evals, "logdir": logdir,
+            "mesh": mesh}
 
 
 if __name__ == "__main__":

@@ -13,6 +13,19 @@ a grafted submodule); the data is the packed g-buffer dataset of `--data-dir`
 (`data/gbuffer.py`), else procedural scenes (`data/synthetic.py`). Runs on
 the card unless `--device cpu` is given; the JAX CLI's `--platform` is
 `--device` here.
+
+Several GPUs: start one process per rank with a launcher,
+
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m gaussiananything_tpu_torch.cli.train_vae --config run.json ...
+
+The mesh is the config's `mesh_data` × `mesh_tile` (data = mesh_data or
+gcd(batch, world // mesh_tile)); a world size other than data × tile is
+refused. Each rank makes the global batch from the seed and keeps its data
+slice; the tile axis renders each view in row bands. The backend is NCCL
+(a card per rank) unless `--dist-backend` names another (gloo runs several
+ranks on one card). Only rank 0 logs, evaluates and writes checkpoints;
+`--resume` restores on every rank.
 """
 from __future__ import annotations
 
@@ -55,6 +68,9 @@ def main(argv=None, timers=None):
     p.add_argument("--save-every", type=int, default=1000)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--dist-backend", default=None,
+                   help="process-group backend of a multi-rank launch: "
+                        "nccl (default, a card per rank) or gloo")
     p.add_argument("--data-dir", default=None,
                    help="packed g-buffer npz dataset; procedural scenes "
                         "otherwise")
@@ -72,8 +88,13 @@ def main(argv=None, timers=None):
     from gaussiananything_tpu_torch.config import RunConfig, preset
     from gaussiananything_tpu_torch.data.synthetic import make_batch
     from gaussiananything_tpu_torch.models.vae import PointVAE
+    from gaussiananything_tpu_torch.parallel import dist as pdist
+    from gaussiananything_tpu_torch.parallel.mesh import (replicate,
+                                                          shard_batch,
+                                                          training_mesh)
     from gaussiananything_tpu_torch.train.evaluation import eval_novelview
-    from gaussiananything_tpu_torch.train.logging import MetricLogger
+    from gaussiananything_tpu_torch.train.logging import (MetricLogger,
+                                                          NullLogger)
     from gaussiananything_tpu_torch.train.losses import PatchDiscriminator
     from gaussiananything_tpu_torch.train.state import (TrainState,
                                                         TrainStateConfig,
@@ -86,7 +107,9 @@ def main(argv=None, timers=None):
                                                               make_train_step)
     from gaussiananything_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(args.device)
+    pdist.setup_dist(args.dist_backend)
+    main_rank = pdist.is_main()
+    dev = pdist.rank_device(resolve_device(args.device))
     if args.config:
         with open(args.config) as f:
             cfg = RunConfig.from_json(f.read())
@@ -96,17 +119,22 @@ def main(argv=None, timers=None):
         cfg.optim.total_steps = args.steps
     if args.batch:
         cfg.optim.batch_size = args.batch
+    mesh = training_mesh(cfg.mesh_data, cfg.mesh_tile, cfg.optim.batch_size)
     logdir = args.logdir or os.path.join(cfg.logdir, cfg.name)
-    logger = MetricLogger(logdir)
-    with open(os.path.join(logdir, "args.json"), "w") as f:
-        f.write(cfg.to_json())
+    logger = MetricLogger(logdir) if main_rank else NullLogger()
+    if main_rank:
+        with open(os.path.join(logdir, "args.json"), "w") as f:
+            f.write(cfg.to_json())
 
     torch.manual_seed(cfg.seed)
     with torch.device(dev):
         model = PointVAE.from_config(cfg.vae, with_encoder=True)
     model.train()
+    replicate(mesh, model)      # every rank starts from rank 0's weights
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"VAE params: {n_params / 1e6:.2f}M; device: {dev}", flush=True)
+    if main_rank:
+        print(f"VAE params: {n_params / 1e6:.2f}M; device: {dev}; mesh "
+              f"{mesh.data} (data) x {mesh.tile} (tile)", flush=True)
 
     eval_batch_fixed = stream = None
     if args.data_dir:
@@ -124,8 +152,9 @@ def main(argv=None, timers=None):
                        canonicalize=args.canonicalize, device=dev)
         train_ds = MultiViewDataset(args.data_dir, files=files[:split],
                                     seed=cfg.seed, **data_kw)
-        print(f"dataset: {split} train / {args.holdout} held-out instances",
-              flush=True)
+        if main_rank:
+            print(f"dataset: {split} train / {args.holdout} held-out "
+                  f"instances", flush=True)
         stream = train_ds.iterator(cfg.optim.batch_size)
 
         def next_batch(i: int):
@@ -159,7 +188,9 @@ def main(argv=None, timers=None):
         lpips_net.load_state_dict(from_jax_params(
             load_params_npz(args.lpips_npz), lpips_net))
         lpips_net = lpips_net.to(dev).requires_grad_(False)
-        print(f"loaded VGG-LPIPS weights from {args.lpips_npz}", flush=True)
+        if main_rank:
+            print(f"loaded VGG-LPIPS weights from {args.lpips_npz}",
+                  flush=True)
     tx_cfg = TrainStateConfig(lr=cfg.optim.lr,
                               weight_decay=cfg.optim.weight_decay,
                               grad_clip=cfg.optim.grad_clip,
@@ -170,25 +201,30 @@ def main(argv=None, timers=None):
     state = TrainState.create(model, cfg.optim.extra_ema_decays)
     if args.resume:
         restore_checkpoint(args.resume, state)
-        print(f"resumed from {args.resume} at step {state.step}", flush=True)
+        if main_rank:
+            print(f"resumed from {args.resume} at step {state.step}",
+                  flush=True)
     if args.load_submodule:
         name, _, ckpt = args.load_submodule.partition("=")
         load_submodule(ckpt, state, name)
-        print(f"grafted submodule {name!r} from {ckpt}", flush=True)
+        if main_rank:
+            print(f"grafted submodule {name!r} from {ckpt}", flush=True)
 
     disc = dstate = dstep_fn = None
     if args.adv:
         with torch.device(dev):
             disc = PatchDiscriminator()
+        replicate(mesh, disc)
         dstate = TrainState.create(disc)
-        dstep_fn = make_disc_step(model, disc, loss_cfg, tx_cfg)
+        dstep_fn = make_disc_step(model, disc, loss_cfg, tx_cfg, mesh=mesh)
         # the discriminator's checkpoint (`nsr/train_nv_util.py:1637-1692`)
         if args.resume and os.path.isdir(args.resume + "_disc"):
             restore_checkpoint(args.resume + "_disc", dstate)
             print(f"resumed discriminator at step {dstate.step}",
                   flush=True)
     step_fn = make_train_step(model, loss_cfg, tx_cfg,
-                              perceptual_net=lpips_net, disc_model=disc)
+                              perceptual_net=lpips_net, disc_model=disc,
+                              mesh=mesh)
 
     host_gen = torch.Generator().manual_seed(cfg.seed)
     all_logs, d_logs, evals = [], [], []
@@ -201,7 +237,7 @@ def main(argv=None, timers=None):
             if timer:
                 timer.start()
             with torch.no_grad():
-                batch = next_batch(i)
+                batch = shard_batch(mesh, next_batch(i))
             batch.pop("caption", None)
             if timer:
                 timer.lap("data")
@@ -226,18 +262,21 @@ def main(argv=None, timers=None):
                 if timer:
                     timer.start()
                 eval_batch = eval_batch_fixed
-                if eval_batch is None:
+                if eval_batch is None:      # every rank: one data stream
                     with torch.no_grad():
                         eval_batch = next_batch(i + 1)
-                m = eval_novelview(model, state.ema, eval_batch,
-                                   loss_cfg.lod_resolutions,
-                                   out_dir=os.path.join(logdir, "eval"),
-                                   step=i + 1, generator=host_gen)
+                if main_rank:
+                    m = eval_novelview(model, state.ema, eval_batch,
+                                       loss_cfg.lod_resolutions,
+                                       out_dir=os.path.join(logdir, "eval"),
+                                       step=i + 1, generator=host_gen)
+                    evals.append(m)
+                    for k, v in m.items():
+                        logger.logkv(k, v)
+                # the evaluation drew from rank 0's generator
+                pdist.broadcast_generator(host_gen, batch["pcd"].device)
                 if timer:
                     timer.lap("eval")
-                evals.append(m)
-                for k, v in m.items():
-                    logger.logkv(k, v)
                 logger.dumpkvs(i + 1)
             if timer:
                 timers.append(timer.seconds)
@@ -245,20 +284,24 @@ def main(argv=None, timers=None):
                 logger.logkv("steps_per_s",
                              (i + 1 - step0) / max(time.time() - t0, 1e-9))
                 logger.dumpkvs(i + 1)
-            if (i + 1) % args.save_every == 0:
+            if (i + 1) % args.save_every == 0 and main_rank:
                 save_checkpoint(ckpt_dir, state)
                 if dstate is not None:
                     save_checkpoint(ckpt_dir + "_disc", dstate)
     finally:
         if stream is not None:
             stream.close()     # stops the prefetch thread
-    save_checkpoint(ckpt_dir, state)
-    if dstate is not None:
-        save_checkpoint(ckpt_dir + "_disc", dstate)
+    if main_rank:
+        save_checkpoint(ckpt_dir, state)
+        if dstate is not None:
+            save_checkpoint(ckpt_dir + "_disc", dstate)
     logger.close()
-    print("done", flush=True)
+    pdist.synchronize()     # no rank leaves before the checkpoint is whole
+    if main_rank:
+        print("done", flush=True)
     return {"state": state, "model": model, "logs": all_logs,
-            "disc_state": dstate, "d_logs": d_logs, "evals": evals}
+            "disc_state": dstate, "d_logs": d_logs, "evals": evals,
+            "mesh": mesh}
 
 
 if __name__ == "__main__":

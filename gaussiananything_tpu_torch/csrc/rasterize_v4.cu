@@ -87,7 +87,7 @@ composite_v4_kernel(const float4* __restrict__ tab,
                     const int* __restrict__ starts,
                     const int* __restrict__ counts,
                     const float* __restrict__ bg, int tiles_x, int img_h,
-                    int img_w, int chunk, float* __restrict__ out,
+                    int img_w, int chunk, int row0, float* __restrict__ out,
                     const int* __restrict__ tile_order,
                     const int* __restrict__ chunk_off,
                     float* __restrict__ entries, int* __restrict__ n_exec,
@@ -98,12 +98,14 @@ composite_v4_kernel(const float4* __restrict__ tab,
   const int lid = threadIdx.x;
   const int tx0 = (t % tiles_x) * kTile;
   const int ty0 = (t / tiles_x) * kTile;
-  const PixelSlot slot = pixel_slot(lid, tx0, ty0);
+  // a band of a taller image starts at image row row0: the ray and the
+  // splat boxes are in the image's rows, the buffer in the band's
+  const PixelSlot slot = pixel_slot(lid, tx0, ty0 + row0);
   const int x = tx0 + slot.lx;
   const int y = ty0 + slot.ly;
   const int pix = slot.ly * kTile + slot.lx;
   const float px = (float)x;
-  const float py = (float)y;
+  const float py = (float)(y + row0);
   const int start = starts[t];
   const int count = counts[t];
 
@@ -165,18 +167,20 @@ composite_v4_kernel(const float4* __restrict__ tab,
 }  // namespace
 
 // Plain C interface for ctypes. Returns cudaGetLastError() after the launch
-// (0 = success); the caller raises on anything else.
+// (0 = success); the caller raises on anything else. `row0` is the image
+// row of the buffer's first row (0 for a whole view): a band of tiles_y
+// tiles of a taller image, whose table was built against the whole image.
 extern "C" int ga_composite_v4(const void* tab, const void* pairs,
                                const void* starts, const void* counts,
                                const void* bg, int tiles_x, int tiles_y,
-                               int chunk, void* out, void* stream) {
+                               int chunk, int row0, void* out, void* stream) {
   if (chunk < 1 || chunk > kMaxChunk) return (int)cudaErrorInvalidValue;
   const size_t shmem = (size_t)chunk * kRowF4 * sizeof(float4);
   composite_v4_kernel<false><<<tiles_x * tiles_y, kPix, shmem,
                                (cudaStream_t)stream>>>(
       (const float4*)tab, (const int*)pairs, (const int*)starts,
       (const int*)counts, (const float*)bg, tiles_x, tiles_y * kTile,
-      tiles_x * kTile, chunk, (float*)out, nullptr, nullptr, nullptr,
+      tiles_x * kTile, chunk, row0, (float*)out, nullptr, nullptr, nullptr,
       nullptr, nullptr);
   return (int)cudaGetLastError();
 }
@@ -203,7 +207,8 @@ extern "C" int ga_tile_order(const void* counts, const void* n_exec,
 extern "C" int ga_composite_v4_train(const void* tab, const void* pairs,
                                      const void* starts, const void* counts,
                                      const void* bg, int tiles_x, int tiles_y,
-                                     int chunk, void* out, void* tile_order,
+                                     int chunk, int row0, void* out,
+                                     void* tile_order,
                                      void* chunk_off, void* entries,
                                      void* n_exec, void* marks,
                                      void* stream) {
@@ -217,7 +222,7 @@ extern "C" int ga_composite_v4_train(const void* tab, const void* pairs,
                               (cudaStream_t)stream>>>(
       (const float4*)tab, (const int*)pairs, (const int*)starts,
       (const int*)counts, (const float*)bg, tiles_x, tiles_y * kTile,
-      tiles_x * kTile, chunk, (float*)out, (const int*)tile_order,
+      tiles_x * kTile, chunk, row0, (float*)out, (const int*)tile_order,
       (const int*)chunk_off, (float*)entries, (int*)n_exec,
       (unsigned*)marks);
   return (int)cudaGetLastError();

@@ -146,7 +146,7 @@ composite_v4_bwd_kernel(const float4* __restrict__ tab,
                         const int* __restrict__ n_exec,
                         const unsigned* __restrict__ marks,
                         const float* __restrict__ ct_buf, int tiles_x,
-                        int img_h, int img_w, int chunk,
+                        int img_h, int img_w, int chunk, int row0,
                         float* __restrict__ d_pairs) {
   extern __shared__ float4 smem[];
   float4* rows = smem;                                  // chunk * kRowF4
@@ -159,12 +159,14 @@ composite_v4_bwd_kernel(const float4* __restrict__ tab,
   const int warp = lid >> 5;
   const int tx0 = (t % tiles_x) * kTile;
   const int ty0 = (t / tiles_x) * kTile;
-  const PixelSlot slot = pixel_slot(lid, tx0, ty0);
+  // a band starts at image row row0 (rasterize_v4.cu): the ray and the
+  // cull in the image's rows, ct_buf in the band's
+  const PixelSlot slot = pixel_slot(lid, tx0, ty0 + row0);
   const int x = tx0 + slot.lx;
   const int y = ty0 + slot.ly;
   const int pix = slot.ly * kTile + slot.lx;
   const float px = (float)x;
-  const float py = (float)y;
+  const float py = (float)(y + row0);
   const int field = scatter_field(lane);
   const int start = starts[t];
   const int count = counts[t];
@@ -545,14 +547,15 @@ __global__ void splat_sum_kernel(const float4* __restrict__ d_pairs,
 // ((tiles) int32 scratch: the tiles by descending executed steps
 // min(counts, n_exec · chunk), written by tile_order_kernel first). Every
 // row of `d_pairs` ((pairs, 24) floats) that a tile reads is written; the
-// others are neither written nor read. Returns the first CUDA error of the
+// others are neither written nor read. `row0` is the image row of ct_buf's
+// first row, as for ga_composite_v4. Returns the first CUDA error of the
 // launches (0 = success).
 extern "C" int ga_composite_v4_bwd(
     const void* tab, const void* pairs, const void* starts,
     const void* counts, const void* bg, void* tile_order,
     const void* chunk_off, const void* entries, const void* n_exec,
     const void* marks, const void* ct_buf, int tiles_x, int tiles_y,
-    int chunk, void* d_pairs,
+    int chunk, int row0, void* d_pairs,
     const void* order, const void* seg, int n_splats, void* d_tab,
     void* stream) {
   if (chunk < 1 || chunk > kBwdChunk) return (int)cudaErrorInvalidValue;
@@ -572,7 +575,7 @@ extern "C" int ga_composite_v4_bwd(
       (const int*)counts, (const float*)bg, (const int*)tile_order,
       (const int*)chunk_off, (const float*)entries, (const int*)n_exec,
       (const unsigned*)marks, (const float*)ct_buf, tiles_x,
-      tiles_y * kTile, tiles_x * kTile, chunk, (float*)d_pairs);
+      tiles_y * kTile, tiles_x * kTile, chunk, row0, (float*)d_pairs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int total = n_splats * kRowF4;

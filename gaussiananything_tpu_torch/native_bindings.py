@@ -1,14 +1,17 @@
 """ctypes bindings for the repository's native mesh runtime (the port's own
 copy of `gaussiananything_tpu/native_bindings.py`).
 
-`native/surface_nets.cc` holds a surface-nets extractor and an OpenMP TSDF
+`native/surface_nets.cc` holds a surface-nets extractor, an OpenMP TSDF
 integrate (the Open3D-on-CPU role of the reference's mesh export,
-`nsr/lsgm/flow_matching_trainer.py:1319-1343`). The port compiles it at
-first use with the flags of `native/Makefile` into
+`nsr/lsgm/flow_matching_trainer.py:1319-1343`) and a binary PLY writer. The
+port compiles it at first use with the flags of `native/Makefile` into
 `gaussiananything_tpu_torch/native/build/` (git-ignored; `native/` itself
 belongs to the JAX package's bindings). A failed build raises with the
-compiler's message: there is no silent fallback. The Python
-`render.tsdf.surface_nets` is the plain version the tests hold this one to.
+compiler's message: there is no silent fallback. Only where no C++
+compiler can be started at all does `library` raise `NativeUnavailable`,
+which `render.ply_io.write_ply` alone catches to write with numpy. The
+Python `render.tsdf.surface_nets` is the plain version the tests hold this
+one to.
 """
 from __future__ import annotations
 
@@ -33,6 +36,10 @@ CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
 _LIB = None
 _LOCK = threading.Lock()
 build_log = ""
+
+
+class NativeUnavailable(RuntimeError):
+    """No C++ compiler could be started: the library cannot be built."""
 
 _FP = ctypes.POINTER(ctypes.c_float)
 
@@ -63,7 +70,7 @@ def _build() -> str:
     os.close(fd)
     # $CXX as the Makefile takes it, then the g++ on PATH: a $CXX without
     # OpenMP's spec files cannot build it
-    failures = []
+    failures, ran = [], False
     for cxx in dict.fromkeys([os.environ.get("CXX", "g++"), "g++"]):
         cmd = [cxx, *CXX_FLAGS, "-o", tmp, SOURCE]
         try:
@@ -72,13 +79,15 @@ def _build() -> str:
         except OSError as e:                  # no such compiler
             failures.append(f"{' '.join(cmd)}\n{e}")
             continue
+        ran = True
         build_log = f"{' '.join(cmd)}\n{res.stdout}{res.stderr}"
         if res.returncode == 0:
             os.replace(tmp, target)
             return target
         failures.append(build_log)
     os.remove(tmp)
-    raise RuntimeError(f"building {SOURCE} failed:\n" + "\n".join(failures))
+    raise (RuntimeError if ran else NativeUnavailable)(
+        f"building {SOURCE} failed:\n" + "\n".join(failures))
 
 
 def library() -> ctypes.CDLL:
@@ -98,6 +107,9 @@ def library() -> ctypes.CDLL:
                 _FP, _FP, _FP, _FP, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float,
                 ctypes.c_float, ctypes.c_float, _FP, _FP, _FP]
+            lib.ga_write_ply.restype = ctypes.c_int
+            lib.ga_write_ply.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
+                                         ctypes.c_int, _FP, ctypes.c_int64]
             _LIB = lib
     return _LIB
 
@@ -163,3 +175,20 @@ def surface_nets(tsdf: np.ndarray, color: Optional[np.ndarray] = None,
         raise RuntimeError("ga_surface_nets: capacity exceeded")
     c = None if color is None else cols[: nv.value].copy()
     return verts[: nv.value].copy(), faces[: nf.value].copy(), c
+
+
+def write_ply_native(path: str, fields: dict) -> None:
+    """Binary little-endian PLY through `ga_write_ply`: fields name -> (N,)
+    arrays, written as float32 vertex properties in insertion order (the
+    bytes of `render.ply_io.write_ply`'s numpy writer). Raises on a failed
+    build or write."""
+    lib = library()
+    names = list(fields)
+    n = len(fields[names[0]])
+    data = np.ascontiguousarray(
+        np.stack([np.asarray(fields[k], np.float32).reshape(n)
+                  for k in names], axis=1))
+    blob = b"\0".join(k.encode() for k in names) + b"\0"
+    if lib.ga_write_ply(os.fsencode(path), blob, len(names), _ptr(data),
+                        n) != 0:
+        raise OSError(f"ga_write_ply could not write {path}")

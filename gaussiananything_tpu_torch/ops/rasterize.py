@@ -775,12 +775,14 @@ def warp_marks(w: torch.Tensor, tile: int, words: int) -> torch.Tensor:
 
 def active_steps(tab: torch.Tensor, pairs: torch.Tensor,
                  starts: torch.Tensor, counts: torch.Tensor, img_h: int,
-                 img_w: int, tile: int = 16, chunk: int = 128) -> int:
+                 img_w: int, tile: int = 16, chunk: int = 128,
+                 row0: int = 0) -> int:
     """How many (pixel, pair) steps of a frame blend with a weight above
     zero: the pair is kept (alpha >= ALPHA_EPS, depth > NEAR_CULL) and the
     pixel is entered at T > T_EPS. Only these carry a cotangent in the
     backward, so their number sets its least work."""
-    walk = _TileWalk(tab, pairs, starts, counts, img_h, img_w, tile, chunk)
+    walk = _TileWalk(tab, pairs, starts, counts, img_h, img_w, tile, chunk,
+                     row0)
     n = 0
     for tiles, px, py, n_chunks in walk.groups():
         state = walk.init_state(len(tiles))
@@ -798,10 +800,12 @@ def composite_plain_backward(tab: torch.Tensor, pairs: torch.Tensor,
                              starts: torch.Tensor, counts: torch.Tensor,
                              bg: torch.Tensor, ct_buf: torch.Tensor,
                              img_h: int, img_w: int, tile: int = 16,
-                             chunk: int = 128) -> torch.Tensor:
+                             chunk: int = 128, row0: int = 0
+                             ) -> torch.Tensor:
     """The function K2b computes, in PyTorch: the cotangent of `tab`
     (N, TABLE_W) given the cotangent `ct_buf` (N_OUT, img_h, img_w) of
-    `composite_plain`'s buffer.
+    `composite_plain`'s buffer; `row0` as there (the band's rows of the
+    cotangent, the table built against the whole image).
 
     The reverse walk of `_composite_frame_bwd` (`rasterize.py:996`) over the
     pair lists: each tile group runs forward keeping every chunk's entry
@@ -811,7 +815,8 @@ def composite_plain_backward(tab: torch.Tensor, pairs: torch.Tensor,
     receives Σ_c ct_image_c · bg_c.
     """
     dev = tab.device
-    walk = _TileWalk(tab, pairs, starts, counts, img_h, img_w, tile, chunk)
+    walk = _TileWalk(tab, pairs, starts, counts, img_h, img_w, tile, chunk,
+                     row0)
     P = walk.P
     bg = bg.to(tab.dtype)
     ct = ct_buf.to(tab.dtype).reshape(N_OUT, walk.tiles_y, tile,
@@ -853,28 +858,31 @@ class _CompositePlainTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, tab, pairs, starts, counts, bg, img_h, img_w, tile,
-                chunk):
+                chunk, row0):
         ctx.save_for_backward(tab, pairs, starts, counts, bg)
-        ctx.frame = (img_h, img_w, tile, chunk)
+        ctx.frame = (img_h, img_w, tile, chunk, row0)
         return composite_plain(tab, pairs, starts, counts, bg, img_h, img_w,
-                               tile=tile, chunk=chunk)
+                               tile=tile, chunk=chunk, row0=row0)
 
     @staticmethod
     def backward(ctx, ct_buf):
-        img_h, img_w, tile, chunk = ctx.frame
+        img_h, img_w, tile, chunk, row0 = ctx.frame
         d_tab = composite_plain_backward(*ctx.saved_tensors, ct_buf, img_h,
-                                         img_w, tile=tile, chunk=chunk)
-        return (d_tab,) + (None,) * 8
+                                         img_w, tile=tile, chunk=chunk,
+                                         row0=row0)
+        return (d_tab,) + (None,) * 9
 
 
 def composite_plain_train(tab: torch.Tensor, pairs: torch.Tensor,
                           starts: torch.Tensor, counts: torch.Tensor,
                           bg: torch.Tensor, img_h: int, img_w: int,
-                          tile: int = 16, chunk: int = 128) -> torch.Tensor:
+                          tile: int = 16, chunk: int = 128, row0: int = 0
+                          ) -> torch.Tensor:
     """The plain version of the training pair K2a + K2b: `composite_plain`,
-    differentiable in `tab` through `composite_plain_backward`."""
+    differentiable in `tab` through `composite_plain_backward`; `row0` as
+    for `composite_plain`."""
     return _CompositePlainTrain.apply(tab, pairs, starts, counts, bg, img_h,
-                                      img_w, tile, chunk)
+                                      img_w, tile, chunk, row0)
 
 
 def rasterize_naive(gaussians: torch.Tensor, cam_view: torch.Tensor,
@@ -928,10 +936,15 @@ def rasterize_tiled(gaussians: torch.Tensor, cam_view: torch.Tensor,
                     cam_view_proj: torch.Tensor, bg: torch.Tensor,
                     img_h: int, img_w: int, tile: int = 16,
                     max_per_tile: int = 2048, chunk: int = 256,
-                    impl: str = "cuda"
+                    impl: str = "cuda", full_h: int = 0, row0: int = 0
                     ) -> Dict[str, torch.Tensor]:
     """One view, N splats → channel-first maps (image (3,H,W), alpha,
     depth_expected, depth_median, dist (1,H,W), normal_view (3,H,W)).
+
+    Band rendering (`render/sharded.py`): with `full_h` the camera's image
+    is `full_h` rows tall and only rows [row0, row0 + img_h) are rendered:
+    the splats are projected and their table built against `full_h`, and
+    binned, composited and returned in the band's rows.
 
     impl:
       * "cuda" — the kernels' wrappers. Where autograd will ask for a
@@ -949,21 +962,22 @@ def rasterize_tiled(gaussians: torch.Tensor, cam_view: torch.Tensor,
     _check_frame_args(img_h, img_w, tile, max_per_tile, chunk)
     if impl not in ("cuda", "plain"):
         raise ValueError(f"unknown rasterizer impl {impl!r}")
-    sp = preprocess_splats(gaussians, cam_view, cam_view_proj, img_h, img_w)
+    sp = preprocess_splats(gaussians, cam_view, cam_view_proj,
+                           full_h or img_h, img_w)
     with torch.no_grad():
         pairs, starts, counts = build_tile_pairs(sp, img_h, img_w, tile,
-                                                 max_per_tile)
-    tab = splat_table(sp, img_h, img_w)
+                                                 max_per_tile, row0=row0)
+    tab = splat_table(sp, full_h or img_h, img_w)
     if impl == "plain":
         buf = composite_plain_train(tab, pairs, starts, counts, bg, img_h,
-                                    img_w, tile=tile, chunk=chunk)
+                                    img_w, tile=tile, chunk=chunk, row0=row0)
     else:
         from gaussiananything_tpu_torch.ops import rasterize_cuda
         wants_grad = torch.is_grad_enabled() and tab.requires_grad
         fn = rasterize_cuda.composite_train if wants_grad \
             else rasterize_cuda.composite
         buf = fn(tab, pairs, starts, counts, bg, img_h, img_w, tile=tile,
-                 chunk=chunk)
+                 chunk=chunk, row0=row0)
     return split_outputs(buf)
 
 

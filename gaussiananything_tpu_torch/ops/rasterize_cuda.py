@@ -134,16 +134,16 @@ def _library(name: str) -> ctypes.CDLL:
             ptr, i = ctypes.c_void_p, ctypes.c_int
             paths = build()
             fwd = ctypes.CDLL(paths["fwd"])
-            fwd.ga_composite_v4.argtypes = [ptr] * 5 + [i] * 3 + [ptr] * 2
+            fwd.ga_composite_v4.argtypes = [ptr] * 5 + [i] * 4 + [ptr] * 2
             fwd.ga_composite_v4.restype = i
             fwd.ga_composite_v4_train.argtypes = \
-                [ptr] * 5 + [i] * 3 + [ptr] * 7
+                [ptr] * 5 + [i] * 4 + [ptr] * 7
             fwd.ga_composite_v4_train.restype = i
             fwd.ga_tile_order.argtypes = [ptr] * 2 + [i] * 2 + [ptr] * 3
             fwd.ga_tile_order.restype = i
             bwd = ctypes.CDLL(paths["bwd"])
             bwd.ga_composite_v4_bwd.argtypes = \
-                [ptr] * 11 + [i] * 3 + [ptr] * 3 + [i] + [ptr] * 2
+                [ptr] * 11 + [i] * 4 + [ptr] * 3 + [i] + [ptr] * 2
             bwd.ga_composite_v4_bwd.restype = i
             seg = ctypes.CDLL(paths["seg"])
             seg.ga_composite_v4_seg.argtypes = \
@@ -234,18 +234,21 @@ def _raise_on(err: int, kernel: str):
 
 def composite(tab: torch.Tensor, pairs: torch.Tensor, starts: torch.Tensor,
               counts: torch.Tensor, bg: torch.Tensor, img_h: int, img_w: int,
-              tile: int = 16, chunk: int = 256) -> torch.Tensor:
+              tile: int = 16, chunk: int = 256, row0: int = 0
+              ) -> torch.Tensor:
     """K1: composite every tile's depth-ordered pair segment; returns the
     (N_OUT, img_h, img_w) buffer of `rasterize.OUT_CHANNELS`.
 
     Inputs as for `rasterize.composite_plain`: tab (N, TABLE_W) float32
     splat table, pairs/starts/counts int32 from `build_tile_pairs`, bg (3,)
-    float32. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (one block per 16×16 tile) and count one launch. Forward only.
+    float32; `row0` is the image row of the buffer's first row (a band of
+    a taller image, the table built against the whole image). CPU tensors
+    take the plain version; CUDA tensors launch the kernel (one block per
+    16×16 tile) and count one launch. Forward only.
     """
     if tab.device.type == "cpu":
         return rz.composite_plain(tab, pairs, starts, counts, bg, img_h,
-                                  img_w, tile=tile, chunk=chunk)
+                                  img_w, tile=tile, chunk=chunk, row0=row0)
     tab = tab.detach()
     tiles_x, tiles_y = _check_frame(tab, pairs, starts, counts, bg, img_h,
                                     img_w, tile, chunk, "fwd")
@@ -255,7 +258,7 @@ def composite(tab: torch.Tensor, pairs: torch.Tensor, starts: torch.Tensor,
     with _logged("K1"):
         _raise_on(_library("fwd").ga_composite_v4(
             tab.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
-            counts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, chunk,
+            counts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, chunk, row0,
             out.data_ptr(), stream), "K1")
     composite.launches += 1
     return out
@@ -267,7 +270,7 @@ composite.launches = 0
 def composite_entries(tab: torch.Tensor, pairs: torch.Tensor,
                       starts: torch.Tensor, counts: torch.Tensor,
                       bg: torch.Tensor, img_h: int, img_w: int,
-                      tile: int = 16, chunk: int = 128):
+                      tile: int = 16, chunk: int = 128, row0: int = 0):
     """K2a: K1's buffer, plus what the backward needs (CUDA tensors).
     Returns (buf (N_OUT, img_h, img_w), chunk_off (n_tiles + 1,) int32,
     entries (rows, 4, 256) float32, n_exec (n_tiles,) int32, marks
@@ -277,7 +280,7 @@ def composite_entries(tab: torch.Tensor, pairs: torch.Tensor,
     version's, and `rows` is `rasterize.max_entry_rows`, a bound from the
     shapes alone, so the host never waits for the card. Launches the
     kernel (which orders the tiles heaviest first and writes `chunk_off`
-    itself) and counts one launch.
+    itself) and counts one launch. `row0` as for `composite`.
     """
     tiles_x, tiles_y = _check_frame(tab, pairs, starts, counts, bg, img_h,
                                     img_w, tile, chunk, "bwd")
@@ -296,7 +299,7 @@ def composite_entries(tab: torch.Tensor, pairs: torch.Tensor,
     with _logged("K2a"):
         _raise_on(_library("fwd").ga_composite_v4_train(
             tab.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
-            counts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, chunk,
+            counts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, chunk, row0,
             out.data_ptr(), order.data_ptr(), chunk_off.data_ptr(),
             entries.data_ptr(), n_exec.data_ptr(), marks.data_ptr(),
             stream), "K2a")
@@ -335,15 +338,15 @@ def composite_backward(tab: torch.Tensor, pairs: torch.Tensor,
                        chunk_off: torch.Tensor, entries: torch.Tensor,
                        n_exec: torch.Tensor, marks: torch.Tensor,
                        order: torch.Tensor, seg: torch.Tensor, img_h: int,
-                       img_w: int, tile: int = 16,
-                       chunk: int = 128) -> torch.Tensor:
+                       img_w: int, tile: int = 16, chunk: int = 128,
+                       row0: int = 0) -> torch.Tensor:
     """K2b: the cotangent of `tab` (N, TABLE_W) given the cotangent `ct_buf`
     (N_OUT, img_h, img_w) of the forward's buffer, from what
     `composite_entries` and `splat_order` returned for the same frame
     (CUDA tensors). Launches the kernel (pass A over the tiles, heaviest
     first, visiting only the slots K2a marked; then pass B over the
     splats) and counts one launch. No float atomics: equal inputs give
-    bit-equal gradients. Its plain version is
+    bit-equal gradients. `row0` as for `composite`. Its plain version is
     `rasterize.composite_plain_backward`, which `composite_train` takes for
     CPU tensors.
     """
@@ -372,7 +375,7 @@ def composite_backward(tab: torch.Tensor, pairs: torch.Tensor,
             counts.data_ptr(), bg.data_ptr(), tiles.data_ptr(),
             chunk_off.data_ptr(), entries.data_ptr(), n_exec.data_ptr(),
             marks.data_ptr(), ct_buf.data_ptr(), tiles_x, tiles_y, chunk,
-            d_pairs.data_ptr(), order.data_ptr(), seg.data_ptr(), n_splats,
+            row0, d_pairs.data_ptr(), order.data_ptr(), seg.data_ptr(), n_splats,
             d_tab.data_ptr(), stream), "K2b")
     composite_backward.launches += 1
     return d_tab
@@ -388,37 +391,40 @@ class _CompositeTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, tab, pairs, starts, counts, bg, img_h, img_w, tile,
-                chunk):
+                chunk, row0):
         tab = tab.contiguous()
         buf, *extras = composite_entries(tab, pairs, starts, counts, bg,
-                                         img_h, img_w, tile=tile, chunk=chunk)
+                                         img_h, img_w, tile=tile, chunk=chunk,
+                                         row0=row0)
         ctx.save_for_backward(tab, pairs, starts, counts, bg, *extras,
                               *splat_order(pairs, starts, counts,
                                            tab.shape[0]))
-        ctx.frame = (img_h, img_w, tile, chunk)
+        ctx.frame = (img_h, img_w, tile, chunk, row0)
         return buf
 
     @staticmethod
     def backward(ctx, ct_buf):
-        img_h, img_w, tile, chunk = ctx.frame
+        img_h, img_w, tile, chunk, row0 = ctx.frame
         d_tab = composite_backward(*ctx.saved_tensors[:5], ct_buf,
                                    *ctx.saved_tensors[5:], img_h, img_w,
-                                   tile=tile, chunk=chunk)
-        return (d_tab,) + (None,) * 8
+                                   tile=tile, chunk=chunk, row0=row0)
+        return (d_tab,) + (None,) * 9
 
 
 def composite_train(tab: torch.Tensor, pairs: torch.Tensor,
                     starts: torch.Tensor, counts: torch.Tensor,
                     bg: torch.Tensor, img_h: int, img_w: int, tile: int = 16,
-                    chunk: int = 128) -> torch.Tensor:
+                    chunk: int = 128, row0: int = 0) -> torch.Tensor:
     """`composite` for training: the same buffer, differentiable with
     respect to `tab`. CUDA tensors launch K2a forward and K2b backward; CPU
-    tensors take the plain pair (`rasterize.composite_plain_train`)."""
+    tensors take the plain pair (`rasterize.composite_plain_train`).
+    `row0` as for `composite`."""
     if tab.device.type == "cpu":
         return rz.composite_plain_train(tab, pairs, starts, counts, bg,
-                                        img_h, img_w, tile=tile, chunk=chunk)
+                                        img_h, img_w, tile=tile, chunk=chunk,
+                                        row0=row0)
     return _CompositeTrain.apply(tab, pairs, starts, counts, bg, img_h,
-                                 img_w, tile, chunk)
+                                 img_w, tile, chunk, row0)
 
 
 def composite_segments(seg: torch.Tensor, starts: torch.Tensor,

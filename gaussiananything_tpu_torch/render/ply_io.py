@@ -22,19 +22,37 @@ SH_C0 = 0.28209479177387814
 
 # ---------------------------------------------------------------- PLY core
 
-def write_ply(path: str, fields: Dict[str, np.ndarray]):
+def write_ply(path: str, fields: Dict[str, np.ndarray],
+              binary: bool = True) -> str:
     """fields: name -> (N,) float32 arrays, written in insertion order as a
-    binary little-endian vertex list."""
+    binary little-endian (or ascii) vertex list. A binary file is written
+    by the native library's `ga_write_ply` (`native_bindings.
+    write_ply_native`), as the JAX package's writer does; numpy writes the
+    same bytes where no C++ compiler exists to build the library. Returns
+    which writer ran: "native" or "numpy"."""
+    if binary:
+        from gaussiananything_tpu_torch import native_bindings
+        try:
+            native_bindings.write_ply_native(path, fields)
+            return "native"
+        except native_bindings.NativeUnavailable:
+            pass
     names = list(fields)
     n = len(fields[names[0]])
     cols = [np.asarray(fields[k], dtype=np.float32).reshape(n) for k in names]
-    header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}"]
+    header = ["ply",
+              "format binary_little_endian 1.0" if binary
+              else "format ascii 1.0", f"element vertex {n}"]
     header += [f"property float {k}" for k in names]
     header.append("end_header")
     data = np.stack(cols, axis=1)
     with open(path, "wb") as f:
         f.write(("\n".join(header) + "\n").encode())
-        f.write(data.astype("<f4").tobytes())
+        if binary:
+            f.write(data.astype("<f4").tobytes())
+        else:
+            np.savetxt(f, data, fmt="%.8g")
+    return "numpy"
 
 
 def read_ply(path: str) -> Dict[str, np.ndarray]:

@@ -19,13 +19,14 @@ class GaussianRenderer2DGS:
 
     def __init__(self, output_size: int = 512, tile: int = 16,
                  max_per_tile: int = 1024, chunk: int = 256,
-                 bg_color=(1.0, 1.0, 1.0), impl: str = "cuda"):
+                 bg_color=(1.0, 1.0, 1.0), impl: str = "cuda", mesh=None):
         self.output_size = output_size
         self.tile = tile
         self.max_per_tile = max_per_tile
         self.chunk = chunk
         self.bg_color = bg_color
         self.impl = impl
+        self.mesh = mesh
 
     def render(self, gaussians: torch.Tensor, cam_view: torch.Tensor,
                cam_view_proj: torch.Tensor, bg_color=None,
@@ -39,13 +40,13 @@ class GaussianRenderer2DGS:
         return render_multiview(
             gaussians, cam_view, cam_view_proj, bg,
             output_size or self.output_size, self.tile, self.max_per_tile,
-            self.chunk, impl=self.impl)
+            self.chunk, impl=self.impl, mesh=self.mesh)
 
 
 def render_multiview(gaussians: torch.Tensor, cam_view: torch.Tensor,
                      cam_view_proj: torch.Tensor, bg: torch.Tensor,
                      out_size: int, tile: int = 16, max_per_tile: int = 2048,
-                     chunk: int = 256, impl: str = "cuda"
+                     chunk: int = 256, impl: str = "cuda", mesh=None
                      ) -> Dict[str, torch.Tensor]:
     """Render B×V views, one rasterizer call per view (`renderer.py:70`).
 
@@ -57,16 +58,29 @@ def render_multiview(gaussians: torch.Tensor, cam_view: torch.Tensor,
     CPU tensors); "plain" forces the plain
     versions (the kernels' reference). The JAX renderer's `tanfov` is not
     taken: the projection matrix already carries the field of view.
+
+    mesh: a `parallel.mesh.Mesh` whose tile axis is longer than 1 → each
+    view's rows are rendered in bands over the tile group
+    (`render.sharded.render_view_sharded`); the returned maps, and so any
+    loss on them, are those of the unsharded render.
     """
     B, V = cam_view.shape[:2]
     views = []
     for s in range(B * V):
         b, v = divmod(s, V)
         cv = cam_view[b, v].float()
-        out = rz.rasterize_tiled(
-            gaussians[b], cv, cam_view_proj[b, v], bg[b, v].contiguous(),
-            out_size, out_size, tile=tile, max_per_tile=max_per_tile,
-            chunk=chunk, impl=impl)
+        if mesh is not None and mesh.tile > 1:
+            from gaussiananything_tpu_torch.render.sharded import \
+                render_view_sharded
+            out = render_view_sharded(
+                mesh, gaussians[b], cv, cam_view_proj[b, v],
+                bg[b, v].contiguous(), out_size, tile=tile,
+                max_per_tile=max_per_tile, chunk=chunk, impl=impl)
+        else:
+            out = rz.rasterize_tiled(
+                gaussians[b], cv, cam_view_proj[b, v], bg[b, v].contiguous(),
+                out_size, out_size, tile=tile, max_per_tile=max_per_tile,
+                chunk=chunk, impl=impl)
         # world normal: n_world = n_view @ cv[:3,:3].T, componentwise fp32
         nv = out["normal_view"]
         n_world = torch.stack([nv[0] * cv[j, 0] + nv[1] * cv[j, 1]

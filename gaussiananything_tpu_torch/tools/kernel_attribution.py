@@ -626,7 +626,15 @@ def _copies(rc):
 
 
 def _use(rc, csrc):
-    """Point the wrappers' build at the sources in `csrc`."""
+    """Point the wrappers' build at the sources in `csrc`. The wrappers
+    pass the v4 entry points a `row0`; sources from before it are
+    refused, since a call with one argument too many corrupts their
+    pointers."""
+    with open(os.path.join(csrc, "rasterize_v4.cu")) as f:
+        if "int chunk, int row0, void* out" not in f.read():
+            raise ValueError(f"{csrc}: its v4 entry points take no row0; "
+                             "measure it with the wrappers of its own "
+                             "checkout")
     rc.SOURCES = {k: os.path.join(csrc, os.path.basename(v))
                   for k, v in rc.SOURCES.items()}
     rc.HEADERS = [os.path.join(csrc, os.path.basename(h))

@@ -24,6 +24,8 @@ import torch
 from gaussiananything_tpu_torch.diffusion.sampling import (
     cfg_velocity_fn, sample_ode, sample_ode_adaptive)
 from gaussiananything_tpu_torch.diffusion.transport import Transport
+from gaussiananything_tpu_torch.models.conditioner import ucg_keep_mask
+from gaussiananything_tpu_torch.parallel.dist import average_, mean_scalars
 from gaussiananything_tpu_torch.train.state import (TrainState,
                                                     TrainStateConfig,
                                                     global_norm)
@@ -56,7 +58,7 @@ def _grads(loss: torch.Tensor, trees: List[Dict[str, torch.Tensor]]):
 def make_fm_train_step(dit_model, conditioner_model, transport: Transport,
                        cfg: FMConfig,
                        tx_cfg: Optional[TrainStateConfig] = None,
-                       accum: int = 1) -> Callable:
+                       accum: int = 1, mesh=None) -> Callable:
     """Returns train_step(state, cond_state, batch, generator=None,
     draws=None, timer=None) → logs {"fm_loss", "t_mean", "grad_norm"}
     (detached; `grad_norm` is that of the DiT's averaged gradient before
@@ -83,6 +85,13 @@ def make_fm_train_step(dit_model, conditioner_model, transport: Transport,
     A frozen conditioner (a frozen `cond_state`) runs under
     `torch.no_grad()`, outside the differentiated function, with its ucg
     dropout still applied: only its outputs live into the DiT's backward.
+
+    `mesh`: a `parallel.mesh.Mesh` (its data axis; the tile axis renders
+    nothing here). `batch` is then the rank's data slice (`shard_batch`);
+    for every micro-batch the rank draws (or is given in `draws`) the
+    draws of the global micro-batch, `mesh.data` times its own, and keeps
+    its slice; the gradients and logs are the data group's means. With
+    `accum` 1 the step equals the unsharded one on the global batch.
     """
     tx_cfg = tx_cfg or TrainStateConfig()
     # the embedder group at 0.5× lr (`flow_matching_trainer.py:374-399`)
@@ -110,6 +119,25 @@ def make_fm_train_step(dit_model, conditioner_model, transport: Transport,
             timer.lap("forward_backward")
         return loss.detach(), aux["t"].mean().detach(), g_dit, g_cond
 
+    n_data = 1 if mesh is None else mesh.data
+    group = None if mesh is None else mesh.data_group
+
+    def sliced_draws(d: dict, mb: int, latent: torch.Tensor,
+                     generator) -> dict:
+        """The global micro-batch's draws, in the order the unsharded
+        step makes them (the ucg mask, t, x0), cut to this rank's rows."""
+        d, n = dict(d), mb * n_data
+        rate = getattr(conditioner_model, "ucg_rate", 0.0)
+        if "keep" not in d and conditioner_model.training and rate > 0:
+            d["keep"] = ucg_keep_mask(n, rate, generator)
+        if "t" not in d:
+            d["t"] = transport.sample_t(n, generator)
+        if "x0" not in d:
+            d["x0"] = torch.randn((n,) + tuple(latent.shape[1:]),
+                                  generator=generator, dtype=latent.dtype)
+        lo = mesh.data_index * mb
+        return {k: v[lo:lo + mb] for k, v in d.items()}
+
     def train_step(state: TrainState, cond_state: TrainState, batch,
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[List[dict]] = None, timer=None):
@@ -124,9 +152,11 @@ def make_fm_train_step(dit_model, conditioner_model, transport: Transport,
         losses, t_means = [], []
         for i in range(accum):
             sub = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            d = draws[i] if draws else {}
+            if n_data > 1:
+                d = sliced_draws(d, mb, sub["latent"], generator)
             loss, t_mean, g_dit, g_cond = micro(
-                state, cond_state, sub, generator,
-                draws[i] if draws else {}, timer)
+                state, cond_state, sub, generator, d, timer)
             losses.append(loss)
             t_means.append(t_mean)
             if acc_d is None:
@@ -140,9 +170,11 @@ def make_fm_train_step(dit_model, conditioner_model, transport: Transport,
             for tree in (acc_d, acc_c or {}):
                 for g in tree.values():
                     g.mul_(1.0 / accum)
-        logs = {"fm_loss": torch.stack(losses).mean(),
-                "t_mean": torch.stack(t_means).mean(),
-                "grad_norm": global_norm(acc_d)}
+        average_(acc_d, group)
+        average_(acc_c or {}, group)
+        logs = mean_scalars({"fm_loss": torch.stack(losses).mean(),
+                             "t_mean": torch.stack(t_means).mean()}, group)
+        logs["grad_norm"] = global_norm(acc_d)
         state.apply_gradients(acc_d, tx_cfg)
         if not cond_state.frozen:
             cond_state.apply_gradients(acc_c, cond_tx)

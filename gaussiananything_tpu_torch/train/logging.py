@@ -93,3 +93,23 @@ class MetricLogger:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullLogger(MetricLogger):
+    """A `MetricLogger` that keeps its sums and writes nothing: the logger
+    of every rank but the first in a multi-rank run."""
+
+    def __init__(self):
+        self.logdir = None
+        self._sums = defaultdict(float)
+        self._counts = defaultdict(int)
+
+    def dumpkvs(self, step: int) -> Dict[str, float]:
+        kvs = {k: self._sums[k] / max(self._counts[k], 1)
+               for k in sorted(self._sums)}
+        self._sums.clear()
+        self._counts.clear()
+        return kvs
+
+    def close(self):
+        pass

@@ -209,10 +209,12 @@ def ssim(a: torch.Tensor, b: torch.Tensor, window: int = 11,
 # ------------------------------------------------------------ geometry
 
 def depth_loss_scale_invariant(pred: torch.Tensor, gt: torch.Tensor,
-                               mask: torch.Tensor) -> torch.Tensor:
+                               mask: torch.Tensor, sums: bool = False):
     """Scale-invariant depth (`E3DGELossClass`, line 412): per batch
     element, the closed-form scale and shift on the masked pixels, then
-    L1."""
+    L1. sums: return the masked L1 sum and the mask sum whose ratio (the
+    latter clamped to at least 1) is the loss, for a caller that sums them
+    over a batch split across ranks."""
     B = pred.shape[0]
     p = pred.reshape(B, -1)
     g = gt.reshape(B, -1)
@@ -225,7 +227,8 @@ def depth_loss_scale_invariant(pred: torch.Tensor, gt: torch.Tensor,
     s = cov / (var_p + 1e-8)
     t = mg - s * mp
     aligned = s[:, None] * p + t[:, None]
-    return ((aligned - g).abs() * m).sum() / torch.clamp(m.sum(), min=1.0)
+    num, den = ((aligned - g).abs() * m).sum(), m.sum()
+    return (num, den) if sums else num / torch.clamp(den, min=1.0)
 
 
 def normal_consistency_loss(rend_normal: torch.Tensor,

@@ -21,6 +21,18 @@ training kernels on the card, their plain versions on the CPU; without
 gradient, as in the discriminator's step, the forward-only kernel). The
 step's random draws come from a `torch.Generator` or are passed in
 (`draws`), so two implementations can be fed the same noise.
+
+On a mesh (`parallel.mesh.make_mesh`, one process per rank) each rank
+holds its data slice of the global batch (`shard_batch`); it draws the
+noise of the whole global batch from the same generator and keeps its
+slice, so a sharded step equals the unsharded one. The renders take the
+mesh's tile axis (row bands, `render/sharded.py`). Every term of the loss
+is a mean over the batch, whose gradient is the data group's mean of the
+slices' gradients, except the scale-invariant depth loss, a ratio of sums
+over the whole batch, which is summed over the group before it is divided
+(`parallel.dist.sum_replicated`); the adaptive weight's gradient norms are
+summed over the group as well. The gradients are averaged over the data
+group before the optimizer; the logs are the group's means.
 """
 from __future__ import annotations
 
@@ -31,6 +43,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from gaussiananything_tpu_torch.ops.pointcloud import chamfer_distance
+from gaussiananything_tpu_torch.parallel.dist import (all_reduce_, average_,
+                                                      mean_scalars,
+                                                      sum_replicated)
 from gaussiananything_tpu_torch.render.renderer import render_multiview
 from gaussiananything_tpu_torch.train import losses as L
 from gaussiananything_tpu_torch.train.state import (TrainState,
@@ -94,15 +109,16 @@ class StageTimer:
 def render_lods(lods: Sequence[torch.Tensor], cam_view: torch.Tensor,
                 cam_view_proj: torch.Tensor, bg: torch.Tensor,
                 resolutions: Sequence[int], max_per_tile: int = 1024,
-                impl: str = "cuda", chunk: int = 128
+                impl: str = "cuda", chunk: int = 128, mesh=None
                 ) -> List[Dict[str, torch.Tensor]]:
     """Render each LoD at its ladder resolution: a list of the map dicts of
-    `render_multiview`. chunk 128 is the training kernels' chunk."""
+    `render_multiview` (row bands over `mesh`'s tile axis). chunk 128 is
+    the training kernels' chunk."""
     B, V = cam_view.shape[:2]
     bg = bg.float().expand(B, V, 3)
     return [render_multiview(g, cam_view, cam_view_proj, bg, res, tile=16,
                              max_per_tile=max_per_tile, chunk=chunk,
-                             impl=impl)
+                             impl=impl, mesh=mesh)
             for g, res in zip(lods, resolutions)]
 
 
@@ -130,23 +146,47 @@ def draw_step_randomness(n_lod: int, cfg: VAELossConfig,
     return {"coarse_idx": None, "lpips_lod": randint(n_lod)}
 
 
-def _noise(model, batch, generator, draws) -> torch.Tensor:
+def _data_axis(mesh):
+    """(index, size, group) of this rank's data slice; (0, 1, None)
+    without a mesh."""
+    if mesh is None:
+        return 0, 1, None
+    return mesh.data_index, mesh.data, mesh.data_group
+
+
+def _noise(model, batch, generator, draws, mesh=None) -> torch.Tensor:
     """The latent noise of `draws`, else drawn on the host from
     `generator` (so a seed gives the same noise on the card and the CPU),
-    on the batch's device."""
+    on the batch's device. On a mesh the noise (drawn or given) is the
+    global batch's, of which the rank keeps its data slice."""
+    idx, n_data, _ = _data_axis(mesh)
+    b = batch["images_in"].shape[0]
     noise = (draws or {}).get("noise")
     if noise is None:
-        noise = torch.randn(
-            (batch["images_in"].shape[0],) + model.latent_shape,
-            generator=generator)
+        noise = torch.randn((b * n_data,) + model.latent_shape,
+                            generator=generator)
+    if n_data > 1:
+        noise = noise[idx * b:(idx + 1) * b]
     return noise.to(batch["images_in"].device)
+
+
+def _depth_loss(pred, gt, mask, group):
+    """`losses.depth_loss_scale_invariant` over the whole global batch:
+    the per-view alignment is local, the final ratio's sums are summed over
+    the data group."""
+    if group is None:
+        return L.depth_loss_scale_invariant(pred, gt, mask)
+    num, den = L.depth_loss_scale_invariant(pred, gt, mask, sums=True)
+    return sum_replicated(num, group) / torch.clamp(
+        sum_replicated(den.detach(), group), min=1.0)
 
 
 def vae_loss_fn(model, batch: Dict[str, torch.Tensor], step: int,
                 cfg: VAELossConfig,
                 generator: Optional[torch.Generator] = None,
                 draws: Optional[dict] = None, perceptual_net=None,
-                timer: Optional[StageTimer] = None, disc_model=None):
+                timer: Optional[StageTimer] = None, disc_model=None,
+                mesh=None):
     """Returns (total, (logs, renders, lods)).
 
     batch: images_in (B, V_in, 15, H, W); pcd (B, P, 3); cam_view and
@@ -158,12 +198,17 @@ def vae_loss_fn(model, batch: Dict[str, torch.Tensor], step: int,
     "coarse_idx": int}; what is absent is drawn from `generator`, a CPU
     generator. `perceptual_net`: as for `losses.perceptual_loss` (a
     `VGGLPIPS` for LPIPS). `disc_model`: the discriminator, whose hinge
-    loss joins the total when `cfg.adv_weight` > 0.
+    loss joins the total when `cfg.adv_weight` > 0. `mesh`: a
+    `parallel.mesh.Mesh`; the batch is then the rank's data slice, the
+    noise of `draws` the global batch's, and the returned total and logs
+    the rank's (their data-group means are the unsharded step's; the logs
+    named in `REPLICATED_LOGS` are already equal on every rank).
     """
     draws = dict(draws or {})
     dev = batch["images_in"].device
+    _, _, data_group = _data_axis(mesh)
     out = model(batch["images_in"], batch["pcd"],
-                noise=_noise(model, batch, generator, draws))
+                noise=_noise(model, batch, generator, draws, mesh))
     lods = out["lods"]
     n_lod = len(lods)
     if "lpips_lod" not in draws:
@@ -193,8 +238,9 @@ def vae_loss_fn(model, batch: Dict[str, torch.Tensor], step: int,
             if log:
                 logs[f"lpips_lod{i}"] = p
         if "depth_sup" in batch and cfg.depth_weight > 0:
-            dl = L.depth_loss_scale_invariant(
-                rend["depth"], _resize_to(batch["depth_sup"], res), gt_alpha)
+            dl = _depth_loss(rend["depth"],
+                             _resize_to(batch["depth_sup"], res), gt_alpha,
+                             data_group)
             sub = sub + cfg.depth_weight * dl
             if log:
                 logs[f"depth_lod{i}"] = dl
@@ -205,7 +251,7 @@ def vae_loss_fn(model, batch: Dict[str, torch.Tensor], step: int,
     def render(idx: Sequence[int]):
         rends = render_lods([lods[i] for i in idx], batch["cam_view"],
                             batch["cam_view_proj"], bg,
-                            [cfg.lod_resolutions[i] for i in idx])
+                            [cfg.lod_resolutions[i] for i in idx], mesh=mesh)
         if timer:
             timer.lap("render")
         return rends
@@ -250,9 +296,11 @@ def vae_loss_fn(model, batch: Dict[str, torch.Tensor], step: int,
         op = lods[-1][..., 3]
         sc = lods[-1][..., 4:6]
         logs["opacity_mean"] = op.mean()
-        logs["opacity_p95"] = torch.quantile(op.flatten(), 0.95)
+        logs["opacity_p95"] = torch.quantile(_gather(op, mesh).flatten(),
+                                             0.95)
         logs["scale_mean"] = sc.mean()
-        logs["scale_max"] = sc.max()
+        logs["scale_max"] = all_reduce_(sc.max().clone(), data_group,
+                                        torch.distributed.ReduceOp.MAX)
 
     if cfg.chamfer_weight > 0:
         cd = chamfer_distance(lods[-1][..., :3], batch["pcd"]).mean()
@@ -280,9 +328,19 @@ def vae_loss_fn(model, batch: Dict[str, torch.Tensor], step: int,
             g_rec, = torch.autograd.grad(rec, lods[-1], retain_graph=True)
             g_adv, = torch.autograd.grad(g_loss, lods[-1],
                                          retain_graph=True)
-            w_adapt = torch.clamp(torch.linalg.vector_norm(g_rec)
-                                  / (torch.linalg.vector_norm(g_adv)
-                                     + 1e-4), 0.0, 1e4).detach()
+            # on a mesh each slice's mean carries n_data times its share
+            # of the global mean's gradient: the global norms are the
+            # group's root sums of squares over n_data
+            _, n_data, _ = _data_axis(mesh)
+            if n_data > 1:
+                norms = torch.sqrt(all_reduce_(torch.stack(
+                    [(g_rec ** 2).sum(), (g_adv ** 2).sum()]),
+                    data_group)) / n_data
+            else:
+                norms = (torch.linalg.vector_norm(g_rec),
+                         torch.linalg.vector_norm(g_adv))
+            w_adapt = torch.clamp(norms[0] / (norms[1] + 1e-4),
+                                  0.0, 1e4).detach()
             logs["adaptive_w"] = w_adapt
         total = total + cfg.adv_weight * float(step >= cfg.adv_start_step) \
             * w_adapt * g_loss
@@ -296,13 +354,32 @@ def vae_loss_fn(model, batch: Dict[str, torch.Tensor], step: int,
     return total, (logs, renders, lods)
 
 
+# logs of `vae_loss_fn` that are equal on every rank of a mesh
+REPLICATED_LOGS = ("opacity_p95", "scale_max", "adaptive_w")
+
+
+def _gather(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The global batch of a (detached) tensor whose leading dimension is
+    the rank's data slice: each rank writes its slice into zeros and the
+    data group sums them."""
+    idx, n_data, group = _data_axis(mesh)
+    if n_data == 1:
+        return x
+    b = x.shape[0]
+    full = x.new_zeros((b * n_data,) + tuple(x.shape[1:]))
+    full[idx * b:(idx + 1) * b] = x
+    return all_reduce_(full, group)
+
+
 def _loss_and_grads(model, state: TrainState, batch, cfg: VAELossConfig,
-                    generator, draws, perceptual_net, disc_model, timer):
+                    generator, draws, perceptual_net, disc_model, timer,
+                    mesh=None):
     """The loss's logs (detached) and its gradient for every entry of
-    `state.params` (zeros where the loss does not reach)."""
+    `state.params` (zeros where the loss does not reach), this rank's."""
     total, (logs, _, _) = vae_loss_fn(
         model, batch, state.step, cfg, generator=generator, draws=draws,
-        perceptual_net=perceptual_net, timer=timer, disc_model=disc_model)
+        perceptual_net=perceptual_net, timer=timer, disc_model=disc_model,
+        mesh=mesh)
     names = list(state.params)
     grads = torch.autograd.grad(total, [state.params[k] for k in names],
                                 allow_unused=True)
@@ -315,23 +392,36 @@ def _loss_and_grads(model, state: TrainState, batch, cfg: VAELossConfig,
     return logs, grads
 
 
+def _data_means(logs, grads, mesh):
+    """The logs and gradients as the data group's means (one flat
+    all_reduce of the gradients); unchanged without a mesh."""
+    _, _, group = _data_axis(mesh)
+    average_(grads, group)
+    return mean_scalars(logs, group, skip=REPLICATED_LOGS), grads
+
+
 def make_train_step(model, cfg: VAELossConfig,
                     tx_cfg: Optional[TrainStateConfig] = None,
-                    perceptual_net=None, disc_model=None) -> Callable:
+                    perceptual_net=None, disc_model=None,
+                    mesh=None) -> Callable:
     """Returns train_step(state, batch, generator=None, draws=None,
     timer=None) → logs (detached scalars, `grad_norm` among them): loss,
     gradients, the optimiser and EMA updates of `state` (in place).
     `perceptual_net` and `disc_model` as for `vae_loss_fn`; the
-    discriminator's parameters are read as they are at each call."""
+    discriminator's parameters are read as they are at each call. `mesh`:
+    a `parallel.mesh.Mesh`, `batch` the rank's data slice (`shard_batch`);
+    the gradients and logs are the data group's means (the all_reduce in
+    the timer's "optimizer" stage), so every rank takes the same update as
+    an unsharded step on the global batch."""
     tx_cfg = tx_cfg or TrainStateConfig()
 
     def train_step(state: TrainState, batch, generator=None, draws=None,
                    timer: Optional[StageTimer] = None):
         if timer:
             timer.start()
-        logs, grads = _loss_and_grads(model, state, batch, cfg, generator,
-                                      draws, perceptual_net, disc_model,
-                                      timer)
+        logs, grads = _data_means(*_loss_and_grads(
+            model, state, batch, cfg, generator, draws, perceptual_net,
+            disc_model, timer, mesh), mesh)
         logs["grad_norm"] = global_norm(grads)
         state.apply_gradients(grads, tx_cfg)
         if timer:
@@ -342,14 +432,18 @@ def make_train_step(model, cfg: VAELossConfig,
 
 
 def make_disc_step(model, disc_model, cfg: VAELossConfig,
-                   tx_cfg: Optional[TrainStateConfig] = None) -> Callable:
+                   tx_cfg: Optional[TrainStateConfig] = None,
+                   mesh=None) -> Callable:
     """Returns disc_step(disc_state, batch, generator=None, draws=None) →
     {"d_loss"}: the hinge loss of `disc_model` on the supervision images
     (resized to the finest LoD's resolution) against the finest render of
     the model's reconstruction, then one optimiser and EMA update of
     `disc_state` (in place; `nsr/train_nv_util.py:2877-3014`). The model's
     forward and the render run without gradient (the forward-only kernel on
-    the card). draws: optional {"noise"}, else drawn from `generator`."""
+    the card). draws: optional {"noise"}, else drawn from `generator`.
+    `mesh`: as for `make_train_step` (the noise the global batch's, the
+    gradients and `d_loss` the data group's means); the render is not
+    banded, as in the JAX package."""
     tx_cfg = tx_cfg or TrainStateConfig()
 
     def disc_step(disc_state: TrainState, batch, generator=None,
@@ -357,7 +451,7 @@ def make_disc_step(model, disc_model, cfg: VAELossConfig,
         res = cfg.lod_resolutions[-1]
         with torch.no_grad():
             out = model(batch["images_in"], batch["pcd"],
-                        noise=_noise(model, batch, generator, draws))
+                        noise=_noise(model, batch, generator, draws, mesh))
             bg = torch.ones(3, dtype=torch.float32,
                             device=batch["images_in"].device)
             fin = render_lods(out["lods"][-1:], batch["cam_view"],
@@ -366,10 +460,11 @@ def make_disc_step(model, disc_model, cfg: VAELossConfig,
             real = _resize_to(batch["images_sup"], res).flatten(0, 1)
         d_loss = L.hinge_d_loss(disc_model(real), disc_model(fake))
         names = list(disc_state.params)
-        grads = torch.autograd.grad(
-            d_loss, [disc_state.params[k] for k in names])
-        disc_state.apply_gradients(dict(zip(names, grads)), tx_cfg)
-        return {"d_loss": d_loss.detach()}
+        grads = dict(zip(names, torch.autograd.grad(
+            d_loss, [disc_state.params[k] for k in names])))
+        _, _, group = _data_axis(mesh)
+        disc_state.apply_gradients(average_(grads, group), tx_cfg)
+        return mean_scalars({"d_loss": d_loss.detach()}, group)
 
     return disc_step
 
@@ -388,7 +483,8 @@ def _micro_slice(x, i: int, n_micro: int):
 
 def make_accum_train_step(model, cfg: VAELossConfig, n_micro: int,
                           tx_cfg: Optional[TrainStateConfig] = None,
-                          perceptual_net=None, disc_model=None) -> Callable:
+                          perceptual_net=None, disc_model=None,
+                          mesh=None) -> Callable:
     """Gradient accumulation (the reference's micro-batch loop,
     `nsr/train_util.py:95`): the gradients of `n_micro` sequential slices
     of the batch's leading dimension, summed and divided by `n_micro`, then
@@ -396,7 +492,10 @@ def make_accum_train_step(model, cfg: VAELossConfig, n_micro: int,
     draws=None, timer=None) → logs, each the mean over the micro-batches,
     and `grad_norm` that of the averaged gradient. draws: optional list of
     one draws dict per micro-batch (the JAX package draws micro-batch i
-    from `fold_in(rng, i)`). Peak memory is one micro-batch's."""
+    from `fold_in(rng, i)`). Peak memory is one micro-batch's. `mesh`: as
+    for `make_train_step`; each rank splits its own data slice into
+    micro-batches, so with more than one micro-batch the rows meet other
+    draws than in an unsharded step (the same mean over the batch)."""
     tx_cfg = tx_cfg or TrainStateConfig()
 
     def train_step(state: TrainState, batch, generator=None, draws=None,
@@ -409,13 +508,14 @@ def make_accum_train_step(model, cfg: VAELossConfig, n_micro: int,
             logs, grads = _loss_and_grads(
                 model, state, sub, cfg, generator,
                 draws[i] if draws else None, perceptual_net, disc_model,
-                timer)
+                timer, mesh)
             all_logs.append(logs)
             acc = grads if acc is None else {k: acc[k] + g
                                             for k, g in grads.items()}
         grads = {k: g / n_micro for k, g in acc.items()}
-        logs = {k: torch.stack([lg[k] for lg in all_logs]).mean()
-                for k in all_logs[0]}
+        logs, grads = _data_means(
+            {k: torch.stack([lg[k] for lg in all_logs]).mean()
+             for k in all_logs[0]}, grads, mesh)
         logs["grad_norm"] = global_norm(grads)
         state.apply_gradients(grads, tx_cfg)
         if timer:

@@ -460,3 +460,98 @@ def from_jax_params(params_np: Mapping, module: nn.Module
                              f"{tuple(ref.shape)}")
         sd[k] = torch.from_numpy(a).to(ref.dtype)
     return sd
+
+
+# ---------------------------------------------------------------------------
+# The JAX layout of a port module: which JAX leaf, of which shape, each
+# port parameter reads. `_Mapper` knows the names; run it on a flat tree
+# that records every read, then undo each read's transform on the port
+# parameter's shape.
+# ---------------------------------------------------------------------------
+
+class _Probe:
+    """A JAX leaf as `_Mapper` reads it: its name and the transforms the
+    mapping applied (`.T`, `.transpose(axes)`, `[0]`)."""
+
+    def __init__(self, name: str, ops: tuple = ()):
+        self.name, self.ops = name, ops
+
+    @property
+    def T(self):
+        return _Probe(self.name, self.ops + (("T",),))
+
+    def transpose(self, *axes):
+        return _Probe(self.name, self.ops + (("transpose", axes),))
+
+    def __getitem__(self, idx):
+        if idx != 0:
+            raise TypeError(f"a JAX leaf is read at [{idx}]")
+        return _Probe(self.name, self.ops + (("index0",),))
+
+    def __array_function__(self, func, types, args, kwargs):
+        if func is not np.concatenate:
+            return NotImplemented
+        return _Concat(list(args[0]), kwargs.get("axis", 0))
+
+    def jax_shapes(self, shape: tuple) -> Dict[str, tuple]:
+        """{JAX name: shape} of the leaf whose read gives `shape`."""
+        for op in reversed(self.ops):
+            if op[0] == "T":
+                shape = shape[::-1]
+            elif op[0] == "transpose":
+                axes = op[1]
+                shape = tuple(shape[axes.index(j)] for j in range(len(axes)))
+            else:
+                shape = (1,) + tuple(shape)
+        return {self.name: tuple(shape)}
+
+
+class _Concat:
+    """`np.concatenate` of equal-sized probes (the fused qkv)."""
+
+    def __init__(self, parts, axis: int):
+        self.parts, self.axis = parts, axis
+
+    def jax_shapes(self, shape: tuple) -> Dict[str, tuple]:
+        part = list(shape)
+        part[self.axis] //= len(self.parts)
+        out = {}
+        for p in self.parts:
+            out.update(p.jax_shapes(tuple(part)))
+        return out
+
+
+class _Reads(dict):
+    """A flat JAX tree that holds every name: each read is a `_Probe`."""
+
+    def __contains__(self, name):
+        return True
+
+    def __getitem__(self, name):
+        return _Probe(name)
+
+
+def jax_layout(module: nn.Module) -> Dict[str, tuple]:
+    """{"a/b/c": shape} of the JAX parameter tree `from_jax_params(tree,
+    module)` reads: the names and shapes of the JAX package's template for
+    the same architecture, drawn from the port module alone (which may
+    live on the "meta" device). Covers the modules `from_jax_params`
+    covers."""
+    mapping = _MAPPINGS.get(type(module))
+    if mapping is None:
+        raise TypeError(f"no JAX mapping for {type(module).__name__}")
+    m = _Mapper(_Reads())
+    mapping(m, module)
+    target = module.state_dict()
+    missing = sorted(set(target) - set(m.out))
+    if missing:
+        raise KeyError(f"{type(module).__name__}: no JAX leaf for "
+                       f"{missing[:5]}")
+    out: Dict[str, tuple] = {}
+    # optional leaves the mapper probed for but the module does not have
+    # (a bias, q/k norms, a shortcut) read into port names it lacks
+    for k, ref in target.items():
+        for name, shape in m.out[k].jax_shapes(tuple(ref.shape)).items():
+            if out.setdefault(name, shape) != shape:
+                raise ValueError(f"{name}: read as {out[name]} and {shape}")
+    return out

@@ -807,3 +807,90 @@ def test_disc_step_and_evaluation_launch_only_k1(card):
     assert (c2[0] - c1[0], c2[1] - c1[1], c2[2] - c1[2]) == (2 * 2 * 2, 0, 0)
     assert torch.isfinite(logs["d_loss"]) and all(
         v == v for v in m.values())
+
+
+def _band_args(card, n_bands, i, n=4096, res=256, mpt=1024, seed=3):
+    """Band i of n_bands of the big-splat scene, whose splats cross the
+    band edges: projected and tabled against the whole image, binned with
+    the band's row0 (as `render/sharded.py` renders it)."""
+    from gaussiananything_tpu_torch.data.synthetic import make_object
+    from gaussiananything_tpu_torch.render import cameras
+    g = make_object(seed, n=n, device=card)
+    cam = cameras.pose_to_gs_camera(
+        cameras.generate_input_camera(1.8, [(20, 45)])[0], device=card)
+    sp = rz.preprocess_splats(g, cam["cam_view"], cam["cam_view_proj"],
+                              res, res)
+    band = res // n_bands
+    pairs, starts, counts = rz.build_tile_pairs(sp, band, res, 16, mpt,
+                                                row0=i * band)
+    return (rz.splat_table(sp, res, res), pairs, starts, counts,
+            torch.ones(3, device=card), band, res), i * band
+
+
+def _segments(pairs, starts, counts):
+    return [pairs[s:s + c].tolist() for s, c in zip(starts.tolist(),
+                                                    counts.tolist())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bands", [2, 4])
+def test_k1_k2a_k2b_bands_match_plain(card, n_bands):
+    """Each band with its row0: K1 and K2a (bit-equal to each other, the
+    entry states, executed chunks and marks) against `composite_plain(...,
+    row0)`, K2b against `composite_plain_backward(..., row0)`, with the
+    tolerances of the whole-view tests above. (A band of empty sky
+    executes nothing; the bands below the first must.)"""
+    executed = []
+    for i in range(n_bands):
+        args, row0 = _band_args(card, n_bands, i)
+        tab, pairs, starts, counts, bg, band, res = args
+        k1 = rasterize_cuda.composite(*args, chunk=128, row0=row0)
+        buf, off, entries, n_exec, marks = rasterize_cuda.composite_entries(
+            *args, chunk=128, row0=row0)
+        assert torch.equal(buf, k1)
+        rbuf, rentries, rn_exec, rmarks = rz.composite_plain(
+            *args, chunk=128, return_entries=True, row0=row0)
+        assert torch.equal(n_exec, rn_exec)
+        executed.append(int(n_exec.sum()))
+        assert torch.equal(marks[:rmarks.shape[0]], rmarks)
+        torch.testing.assert_close(buf, rbuf, atol=2e-5, rtol=1e-4)
+        torch.testing.assert_close(entries[:rentries.shape[0]], rentries,
+                                   atol=2e-5, rtol=1e-4)
+        ct = torch.randn((rz.N_OUT, band, res),
+                         generator=torch.Generator().manual_seed(i)).to(card)
+        order, seg = rasterize_cuda.splat_order(pairs, starts, counts,
+                                                tab.shape[0])
+        got = rasterize_cuda.composite_backward(
+            tab, pairs, starts, counts, bg, ct, off, entries, n_exec, marks,
+            order, seg, band, res, chunk=128, row0=row0)
+        ref = rz.composite_plain_backward(tab, pairs, starts, counts, bg,
+                                          ct, band, res, chunk=128,
+                                          row0=row0)
+        err, peak = (got - ref).abs().amax(0), ref.abs().amax(0)
+        assert (err <= 2e-3 * peak + 1e-12).all(), (err / peak).tolist()
+    assert sum(executed[1:]) > 0, executed
+
+
+@pytest.mark.cuda
+def test_k1_bands_join_to_the_whole_view(card):
+    """The joined K1 bands equal the whole view's K1 bit for bit on every
+    tile whose pair list the band binned alike (a band clamps a big
+    splat's footprint about its own rows, so a few lists differ), and
+    those are most of the tiles."""
+    whole, _ = _band_args(card, 1, 0)
+    full = rasterize_cuda.composite(*whole, chunk=128)
+    w_seg = _segments(*whole[1:4])
+    tiles_x, same = whole[-1] // 16, 0
+    for i in range(4):
+        args, row0 = _band_args(card, 4, i)
+        got = rasterize_cuda.composite(*args, chunk=128, row0=row0)
+        for t, lst in enumerate(_segments(*args[1:4])):
+            ty, tx = divmod(t, tiles_x)
+            if lst != w_seg[(row0 // 16 + ty) * tiles_x + tx]:
+                continue
+            same += 1
+            ys, xs = slice(ty * 16, ty * 16 + 16), slice(tx * 16, tx * 16 + 16)
+            assert torch.equal(got[:, ys, xs],
+                               full[:, row0 + ty * 16:row0 + ty * 16 + 16,
+                                    xs]), (i, t)
+    assert same >= 0.9 * tiles_x * tiles_x, same

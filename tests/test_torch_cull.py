@@ -59,10 +59,15 @@ def _keep(px, py, d):
     return (alpha >= rz.ALPHA_EPS) & (depth > rz.NEAR_CULL)
 
 
-def cull_census(tab, pairs, starts, counts, img_w, batch=4096):
+def cull_census(tab, pairs, starts, counts, img_w, batch=4096, row0=0,
+                rect_row0=None):
     """(kept steps outside their warp's widened rectangle ∩ box, kept
     steps, steps the cull skips) over every (pixel, pair) step of every
-    tile's segment."""
+    tile's segment. `row0`: the frame is a band whose first row is image
+    row row0 (the pixels' rays and the boxes in image rows); `rect_row0`
+    (default row0) places the warps' rectangles, so a census with 0 there
+    is that of a cull in band-local rows."""
+    rect_row0 = row0 if rect_row0 is None else rect_row0
     tiles_x = img_w // TILE
     lidx = torch.arange(TILE * TILE)
     lx, ly = lidx % TILE, lidx // TILE
@@ -77,9 +82,10 @@ def cull_census(tab, pairs, starts, counts, img_w, batch=4096):
         t = tile_of[b0:b0 + batch]
         ids = pairs[pos[b0:b0 + batch]].long()
         ox = (t % tiles_x * TILE)[:, None]
-        oy = (t // tiles_x * TILE)[:, None]
+        oy = (t // tiles_x * TILE)[:, None] + row0
         keep = _keep((ox + lx).float(), (oy + ly).float(),
                      tab[ids, None, :rz.PACKED_F])
+        oy = oy - row0 + rect_row0
         hit = ((x1[ids][:, None] >= ox + wx - MARGIN)
                & (x0[ids][:, None] <= ox + wx + WARP_W - 1 + MARGIN)
                & (y1[ids][:, None] >= oy + wy - MARGIN)
@@ -210,3 +216,41 @@ def test_splat_table_box_columns_unpack_to_the_screen_box(res):
     assert tab.requires_grad
     (tab[:, rz.PACKED_F:] * 0 + tab[:, :2]).sum().backward()
     assert gg.grad is not None
+
+
+def _band_frames(g, pose, radius, res, mpt, n_bands):
+    """The bands of one view as `render/sharded.py` renders them: the
+    splats projected and their table built against the whole image, each
+    band binned with its row0."""
+    cam = cameras.pose_to_gs_camera(
+        cameras.generate_input_camera(radius, [pose])[0])
+    sp = rz.preprocess_splats(g, cam["cam_view"], cam["cam_view_proj"], res,
+                              res)
+    tab = rz.splat_table(sp, res, res)
+    band = res // n_bands
+    for i in range(n_bands):
+        yield i * band, tab, rz.build_tile_pairs(sp, band, res, TILE, mpt,
+                                                 row0=i * band)
+
+
+@pytest.mark.parametrize("scene,n_bands", [("sphere", 2), ("sphere", 4),
+                                           ("adversarial", 4)])
+def test_cull_keeps_every_kept_step_of_each_band(scene, n_bands):
+    """The census of each band with its nonzero row0: the kernels place a
+    band's warp rectangles in image rows (`pixel_slot(lid, tx0, ty0 +
+    row0)`), where the boxes are. Placed in band-local rows instead, the
+    same census finds kept steps the cull would drop in every band below
+    the first: a wrong cull crashes nothing, so the census must see it."""
+    pose = (20, 45)
+    g = make_object(0, n=6144, kind="sphere") if scene == "sphere" \
+        else adversarial_surfels(0, pose=pose)
+    local_bad = 0
+    for row0, tab, (pairs, starts, counts) in _band_frames(
+            g, pose, 1.8, 256, 4096, n_bands):
+        bad, kept, skipped, _ = cull_census(tab, pairs, starts, counts, 256,
+                                            row0=row0)
+        assert kept > 0 and bad == 0 and skipped > 0, row0
+        if row0:
+            local_bad += cull_census(tab, pairs, starts, counts, 256,
+                                     row0=row0, rect_row0=0)[0]
+    assert local_bad > 0

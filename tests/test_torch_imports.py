@@ -58,7 +58,11 @@ def test_port_files_found():
                  "data/real.py", "render/tsdf.py", "native_bindings.py",
                  "diffusion/transport.py", "diffusion/ddpm.py",
                  "cli/train_flow.py", "cli/extract_latents.py",
-                 "data/objaverse_raw.py"):
+                 "data/objaverse_raw.py", "parallel/__init__.py",
+                 "parallel/mesh.py", "parallel/dist.py",
+                 "parallel/dryrun.py", "render/sharded.py",
+                 "cli/import_release.py", "utils/release_import.py",
+                 "render/sh.py", "utils/profiling.py"):
         assert pkg + name in rel, name
 
 
@@ -80,6 +84,30 @@ def test_cli_defaults_to_cuda_and_refuses_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sample.main(["--release", "--full", "--num", "0"])
     assert device.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_multi_rank_setup_names_the_backend(monkeypatch):
+    """One process is no process group; NCCL with more ranks on a host
+    than cards raises and names the flag that asks for gloo (no silent
+    switch of backend); a mesh other than the launched world is refused,
+    naming it; the dry run takes the card unless asked for the CPU."""
+    from gaussiananything_tpu_torch.parallel import dist, dryrun
+    from gaussiananything_tpu_torch.parallel.mesh import training_mesh
+    dist.setup_dist()
+    assert not torch.distributed.is_initialized()
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="--dist-backend gloo"):
+        dist.setup_dist()
+    assert not torch.distributed.is_initialized()
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match=r"2 \(data\) x 2 \(tile\)"):
+        training_mesh(2, 2, 4)
+    assert training_mesh(0, 1, 4).shape == {"data": 1, "tile": 1}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main([])
 
 
 def test_serve_defaults_to_cuda_and_refuses_without_it(monkeypatch):
