@@ -56,35 +56,44 @@ Phases, in order; any failure exits non-zero:
    that a frozen conditioner ends with its `--cond-ckpt` weights, the
    evaluations, the checkpoints, K1's launches, and timing each step's
    stages;
-12. rasterizer tools: the rasterizer's own entry points at the release
+12. fm-release-batch: the release flow-matching batch through
+   `tools/fm_feasibility.py` (stage-1 DiT-L with `remat` against the frozen
+   ViT-L, batch 256 in 8 micro-batches): a warm-up step and a timed step,
+   their seconds and the peak;
+13. rasterizer tools: the rasterizer's own entry points at the release
    shape through `tools/rasterizer_timing.py --all`, `tools/bench.py` and
    `tools/kernel_stages.py`, checking every kernel's launch count against
    what the arguments predict;
-13. bands (after the kernels of 3): K1 at the release render shape and
+14. parity-512: the port's 512² parity tool (`tools/golden_parity_512.py`:
+   73,728 splats, `max_per_tile` 8192, three views): K2a, K1 and the plain
+   pair against the unbinned oracle, K2b's gradient against the oracle's
+   autograd gradient, within the tool's criteria;
+15. bands (after the kernels of 3): K1 at the release render shape and
    K2a/K2b at the 512² and 384² LoDs, each view in 2 and in 4 bands of
    rows (`row0`), each band against the plain versions with its row0, the
    bands' pair lists equal to the whole view's, the joined bands bit-equal
    to the whole-view render, the summed band gradient against the whole
    view's, and every kernel timed per band;
-14. multi-rank: two ranks on the one card over gloo under
-   `torch.distributed.run`: `parallel/dryrun.py`'s three steps against
-   the unsharded ones, then `cli/train_vae.py --preset vae-release` on
-   2 x 1 and 1 x 2 meshes and `cli/train_flow.py --preset stage1` on a
-   2 x 1 mesh, checking steps, losses, launches, and printing each rank's
-   seconds by stage and peak;
-15. profile: `utils/profiling.trace` around one batch-2 release DiT-L
+16. multi-rank: two ranks on the one card over gloo under
+   `torch.distributed.run`: `parallel/dryrun.py`'s five steps (two of
+   them accumulation steps) against the unsharded ones, then
+   `cli/train_vae.py --preset vae-release` on 2 x 1 and 1 x 2 meshes and
+   `cli/train_flow.py --preset stage1 --accum 2` on a 2 x 1 mesh,
+   checking steps, losses, launches, and printing each rank's seconds by
+   stage and peak;
+17. profile: `utils/profiling.trace` around one batch-2 release DiT-L
    evaluation and one 512² turntable view: top kernels by device time and
    the device-busy share;
-16. import: mirrors of the released stage-1 DiT and VAE through
+18. import: mirrors of the released stage-1 DiT and VAE through
    `cli/import_release`, restored into the port's modules on the card and
    held against the mirrors' forward;
-17. report: one JSON line of kernel records, the kernels launched, the
+19. report: one JSON line of kernel records, the kernels launched, the
    card's name and power limit, then the `{"ok": true, ...}` line last.
 
 It imports nothing of JAX; the port's package must sit beside this file
 (and `tests/torch_mirror_ga.py`, torch only, for the import phase).
 `chip_smoke.py --rank-run vae|flow ARGV_JSON OUT_DIR` is one rank of
-phase 14, started by `torch.distributed.run`.
+phase 16, started by `torch.distributed.run`.
 
     python3 chip_smoke.py --probe-batch [batch ...]     (default: 8 4 2 1)
 
@@ -2889,6 +2898,68 @@ def _flow_train_run(dev, root):
 # as `render/sharded.py` renders it over a tile group: K1 at the release
 # render shape (max_per_tile 2048, chunk 256), K2a/K2b at the trainer's
 # 512² and 384² LoDs (max_per_tile 1024, chunk 128).
+RELEASE_BATCH, RELEASE_ACCUM = 256, 8
+
+
+def parity_512_phase(dev):
+    """The port's 512² parity tool (`tools/golden_parity_512.run_parity`)
+    at the release shape: 73,728 splats, `max_per_tile` 8192, its three
+    views; the training path (K2a, K2b), the forward path (K1) and the
+    plain pair against the unbinned oracle, K2b's gradient against the
+    oracle's autograd gradient and the plain pair's, each within the
+    tool's criteria, and each gaussian channel's gradient within
+    `GRAD_CHANNEL_REL` of that channel's own max. The record is printed,
+    never written over the committed artifact. Launch counts are set to 0
+    just before and read just after: K1, K2a and K2b once a view."""
+    import torch
+    from gaussiananything_tpu_torch.tools import golden_parity_512 as gp
+    _reset_launches()
+    t0 = time.perf_counter()
+    rec = gp.run_parity(device=dev,
+                        log=lambda s: print(f"[parity-512] {s}", flush=True))
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    torch.cuda.empty_cache()
+    n = len(gp.VIEWS)
+    print(f"[parity-512] {n} views in {wall:.1f}s; densest tile "
+          f"{rec['densest_tile']} of {rec['max_per_tile']}; K2b vs oracle "
+          f"{json.dumps(rec['grad'])}; vs plain "
+          f"{json.dumps(rec['grad_vs_plain'])}; pass {rec['pass']}",
+          flush=True)
+    if not rec["pass"]:
+        fail(f"the 512² parity tool: {json.dumps(rec)}")
+    if not gp.grad_channels_pass(rec):
+        fail("the 512² parity tool: a gaussian channel's gradient beyond "
+             f"{gp.GRAD_CHANNEL_REL} of its own max")
+    want = {"K1": n, "K2a": n, "K2b": n}
+    if launches != {k: want.get(k, 0) for k in launches}:
+        fail(f"parity-512 launches {_used(launches)}, expected {want}")
+    return launches
+
+
+def fm_release_batch_phase(dev):
+    """The release flow-matching batch through
+    `tools/fm_feasibility.feasibility`: stage-1 DiT-L (`remat`) against
+    the frozen ViT-L, global batch RELEASE_BATCH in RELEASE_ACCUM
+    micro-batches, seeded weights and inputs: a warm-up step and a timed
+    step; the seconds, samples/s and the peak; finite logs, two updates."""
+    import torch
+    from gaussiananything_tpu_torch.tools import fm_feasibility
+    out = fm_feasibility.feasibility(
+        batch=RELEASE_BATCH, accum=RELEASE_ACCUM, stage=1, steps=1,
+        device=dev, log=lambda s: print(f"[fm-release-batch] {s}",
+                                        flush=True))
+    torch.cuda.empty_cache()
+    if out["steps_taken"] != 2 or not all(
+            math.isfinite(v) for v in out["logs"].values()):
+        fail(f"the release-batch step: {json.dumps(out)}")
+    print(f"[fm-release-batch] batch {RELEASE_BATCH} = {RELEASE_ACCUM} x "
+          f"{out['micro']}: warm-up step {out['first_step_s']:.3f}s, timed "
+          f"step {out['steady_step_s']:.3f}s ({out['samples_per_s']:.2f} "
+          f"samples/s), peak {out['peak_bytes'] / 2 ** 30:.2f} GiB; logs "
+          f"{json.dumps(out['logs'])}", flush=True)
+
+
 BAND_CASES = {"K1 512": ("K1", K1_CASES["turntable"]),
               "K2 512": ("K2", K2_CASES["train 512"]),
               "K2 384": ("K2", K2_CASES["train 384"])}
@@ -3138,11 +3209,12 @@ def rank_run(kind: str, argv_json: str, out_dir: str):
 
 def multi_rank_phase(dev):
     """Several ranks on the one card over gloo (RANKS processes under
-    `torch.distributed.run`): the dry run's three phases at tiny widths,
-    each against the unsharded step on the card (`parallel/dryrun.py`:
-    total rtol 1e-5, grad_norm rtol 1e-4); then `cli/train_vae.py
-    --preset vae-release` as a 2 x 1 mesh at batch 2 and a 1 x 2 mesh at
-    batch 1, and `cli/train_flow.py --preset stage1 --freeze-cond` as a
+    `torch.distributed.run`): the dry run's five phases at tiny widths
+    (two of them accumulation steps of two micro-batches), each against
+    the unsharded step on the card (`parallel/dryrun.py`: total rtol
+    1e-5, grad_norm rtol 1e-4); then `cli/train_vae.py --preset
+    vae-release` as a 2 x 1 mesh at batch 2 and a 1 x 2 mesh at batch 1,
+    and `cli/train_flow.py --preset stage1 --freeze-cond --accum 2` as a
     2 x 1 mesh at batch 8 (synthetic stream), RANK_STEPS steps each
     (warm-up 1 step, the transport's evaluation steps cut to 10): steps,
     finite losses equal on every rank, each kernel's launches on each rank,
@@ -3154,7 +3226,7 @@ def multi_rank_phase(dev):
     out, wall = _torchrun(["-m", "gaussiananything_tpu_torch.parallel.dryrun",
                            "--device", "cuda", "--backend", "gloo"], 600)
     phases = out.get("DRYRUN", [])
-    if len(phases) != 3 or not all(p["ok"] for p in phases):
+    if len(phases) != 5 or not all(p["ok"] for p in phases):
         fail(f"the multi-rank dry run: {phases}")
     for p in phases:
         print(f"[multi-rank] dry run {json.dumps(p)}", flush=True)
@@ -3181,7 +3253,7 @@ def multi_rank_phase(dev):
                     str(batch), "--logdir", os.path.join(root, tag),
                     "--dist-backend", "gloo", "--device", "cuda"]
             if kind == "flow":
-                argv += ["--freeze-cond"]
+                argv += ["--freeze-cond", "--accum", "2"]
             rank_dir = os.path.join(root, f"{tag}-ranks")
             os.makedirs(rank_dir)
             _, wall = _torchrun([here, "--rank-run", kind, json.dumps(argv),
@@ -3491,7 +3563,9 @@ def main():
     paths["adv_train"] = adv_train_phase(dev)
     small_flow_train_phase(dev)
     paths["flow_train"] = flow_train_phase(dev)
+    fm_release_batch_phase(dev)
     paths["raster_tools"] = raster_tools_phase(dev)
+    paths["parity_512"] = parity_512_phase(dev)
     paths["multi_rank"] = multi_rank_phase(dev)
     paths["profile"] = profile_phase(dev)
     import_phase(dev)

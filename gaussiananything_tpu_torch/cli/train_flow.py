@@ -128,7 +128,6 @@ def main(argv=None, timers=None):
         FMConfig, XYZ_SCALE, make_fm_train_step, make_sampler)
     from gaussiananything_tpu_torch.parallel import dist as pdist
     from gaussiananything_tpu_torch.parallel.mesh import (replicate,
-                                                          shard_batch,
                                                           training_mesh)
     from gaussiananything_tpu_torch.train.logging import (MetricLogger,
                                                           NullLogger)
@@ -154,7 +153,7 @@ def main(argv=None, timers=None):
     if args.batch:
         cfg.optim.batch_size = args.batch
     B = cfg.optim.batch_size
-    mesh = training_mesh(cfg.mesh_data, cfg.mesh_tile, B)
+    mesh = training_mesh(cfg.mesh_data, cfg.mesh_tile, B, micro=args.accum)
     logdir = args.logdir or os.path.join(cfg.logdir,
                                          f"{cfg.name}-flow-s{args.stage}")
     logger = MetricLogger(logdir) if main_rank else NullLogger()
@@ -357,8 +356,7 @@ def main(argv=None, timers=None):
         timer = StageTimer(dev) if timers is not None else None
         if timer:
             timer.start()
-        with torch.no_grad():
-            batch = shard_batch(mesh, next(it))
+        batch = next(it)
         if timer:
             timer.lap("data")
         gen = torch.Generator().manual_seed(step_seed(cfg.seed, i))

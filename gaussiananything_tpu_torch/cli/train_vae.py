@@ -90,7 +90,6 @@ def main(argv=None, timers=None):
     from gaussiananything_tpu_torch.models.vae import PointVAE
     from gaussiananything_tpu_torch.parallel import dist as pdist
     from gaussiananything_tpu_torch.parallel.mesh import (replicate,
-                                                          shard_batch,
                                                           training_mesh)
     from gaussiananything_tpu_torch.train.evaluation import eval_novelview
     from gaussiananything_tpu_torch.train.logging import (MetricLogger,
@@ -236,8 +235,7 @@ def main(argv=None, timers=None):
             timer = StageTimer(dev) if timers is not None else None
             if timer:
                 timer.start()
-            with torch.no_grad():
-                batch = shard_batch(mesh, next_batch(i))
+            batch = next_batch(i)
             batch.pop("caption", None)
             if timer:
                 timer.lap("data")

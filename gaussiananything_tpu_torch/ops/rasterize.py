@@ -894,37 +894,63 @@ def rasterize_naive(gaussians: torch.Tensor, cam_view: torch.Tensor,
     no footprint clamp, no per-tile cap, only the compositing semantics,
     through the same `composite_chunk` so alpha and depth are bit-identical
     per (pixel, splat) to the tiled path. Returns the maps of
-    `rasterize_tiled`.
+    `rasterize_tiled`. The work is `naive_table` once and `naive_block`
+    for each block of `pixel_block` pixels.
     """
+    packed = naive_table(gaussians, cam_view, cam_view_proj, img_h, img_w,
+                         chunk)
+    px_all, py_all = naive_pixels(img_h, img_w, packed.device)
+    blocks = [naive_block(packed, px_all[p0:p0 + pixel_block],
+                          py_all[p0:p0 + pixel_block], bg, chunk)
+              for p0 in range(0, img_h * img_w, pixel_block)]
+    buf = torch.cat(blocks).t().reshape(N_OUT, img_h, img_w)
+    return split_outputs(buf)
+
+
+def naive_table(gaussians: torch.Tensor, cam_view: torch.Tensor,
+                cam_view_proj: torch.Tensor, img_h: int, img_w: int,
+                chunk: int = 256) -> torch.Tensor:
+    """The oracle's splats: projected, in depth order (invalid ones last),
+    packed to (PACKED_F, N) and padded with zero columns (opacity 0, no
+    contribution) to a multiple of `chunk`; differentiable in
+    `gaussians`."""
     sp = preprocess_splats(gaussians, cam_view, cam_view_proj, img_h, img_w)
     key = torch.where(sp.valid, sp.center_z,
                       torch.full_like(sp.center_z, float("inf")))
     order = torch.sort(key, stable=True).indices
     packed = pack_splat_render(SplatProj(*(a[order] for a in sp)))
-    N = packed.shape[1]
-    pad = (-N) % chunk
-    if pad:     # zero columns: opacity 0, no contribution
+    pad = (-packed.shape[1]) % chunk
+    if pad:
         packed = torch.cat([packed, packed.new_zeros((PACKED_F, pad))], 1)
-    dev = packed.device
+    return packed
+
+
+def naive_pixels(img_h: int, img_w: int, device
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(px, py) float32 of every pixel of the image, row-major."""
     ys, xs = torch.meshgrid(
-        torch.arange(img_h, dtype=torch.float32, device=dev),
-        torch.arange(img_w, dtype=torch.float32, device=dev), indexing="ij")
-    px_all, py_all = xs.reshape(-1), ys.reshape(-1)
-    blocks = []
-    for p0 in range(0, img_h * img_w, pixel_block):
-        px = px_all[None, p0:p0 + pixel_block]
-        py = py_all[None, p0:p0 + pixel_block]
-        state = _init_state(1, px.shape[1], dev)
-        for c0 in range(0, packed.shape[1], chunk):
-            state = composite_chunk(state, px, py,
-                                    packed[:, None, c0:c0 + chunk])
-        rgb = state.rgb + state.trans[..., None] * bg.float()
-        blocks.append(torch.cat([
-            rgb, state.alpha_acc[..., None], state.depth_exp[..., None],
-            state.depth_med[..., None], state.dist[..., None],
-            state.normal], dim=-1)[0])
-    buf = torch.cat(blocks).t().reshape(N_OUT, img_h, img_w)
-    return split_outputs(buf)
+        torch.arange(img_h, dtype=torch.float32, device=device),
+        torch.arange(img_w, dtype=torch.float32, device=device),
+        indexing="ij")
+    return xs.reshape(-1), ys.reshape(-1)
+
+
+def naive_block(packed: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                bg: torch.Tensor, chunk: int = 256,
+                step=composite_chunk) -> torch.Tensor:
+    """The oracle's (P, N_OUT) output rows (channels in `OUT_CHANNELS`) of
+    the P pixels (px, py): every chunk of the `naive_table` composited in
+    order by `step` (`composite_chunk`, or a wrapper of it with its
+    signature, such as a checkpointed one)."""
+    state = _init_state(1, px.shape[0], packed.device)
+    for c0 in range(0, packed.shape[1], chunk):
+        state = step(state, px[None], py[None],
+                     packed[:, None, c0:c0 + chunk])
+    rgb = state.rgb + state.trans[..., None] * bg.float()
+    return torch.cat([
+        rgb, state.alpha_acc[..., None], state.depth_exp[..., None],
+        state.depth_med[..., None], state.dist[..., None],
+        state.normal], dim=-1)[0]
 
 
 def split_outputs(buf: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -1,4 +1,4 @@
-"""The multi-rank dry run: three training steps at tiny widths, each on a
+"""The multi-rank dry run: five training steps at tiny widths, each on a
 mesh of every rank and against the same step unsharded in each process
 (the counterpart of `__graft_entry__.dryrun_multichip`):
 
@@ -8,7 +8,11 @@ mesh of every rank and against the same step unsharded in each process
 2. the VAE step with the full `vae_loss_fn` (perceptual term, the
    geometry regularisers from step 0) on a data × 2 mesh, the renders in
    row bands over the tile axis;
-3. a flow-matching step (stage-1 DiT and conditioner), data-parallel.
+3. a flow-matching step (stage-1 DiT and conditioner), data-parallel;
+4. the VAE step of 1. as gradient accumulation over two micro-batches
+   (`make_accum_train_step`), each rank's micro-batch its slice of the
+   global one (`shard_batch(..., micro=2)`, inside the step);
+5. the flow-matching step of 3. over two micro-batches, laid out alike.
 
 Each sharded step must equal the unsharded one to the JAX package's own
 tolerances (`tests/test_sharded_render.py`): `total` (or `fm_loss`)
@@ -51,34 +55,34 @@ def _vae_batch(seed, batch, res, device):
     return b
 
 
-def vae_step(batch, loss_cfg, mesh, device, seed: int = 0):
+def vae_step(batch, loss_cfg, mesh, device, seed: int = 0, accum: int = 1):
     """One VAE step from the weights of `seed` on `batch` (the global
-    batch; sharded over `mesh` when given); returns its logs as floats."""
+    batch, which the step shards over `mesh` when given), over `accum`
+    micro-batches; returns its logs as floats."""
     from gaussiananything_tpu_torch.models.vae import PointVAE
-    from gaussiananything_tpu_torch.parallel.mesh import shard_batch
     from gaussiananything_tpu_torch.train.state import (TrainState,
                                                         TrainStateConfig)
-    from gaussiananything_tpu_torch.train.vae_trainer import make_train_step
+    from gaussiananything_tpu_torch.train.vae_trainer import (
+        make_accum_train_step, make_train_step)
     torch.manual_seed(seed)
     with torch.device(device):
         model = PointVAE(with_encoder=True, **VAE_SIZES)
     state = TrainState.create(model)
-    step = make_train_step(model, loss_cfg,
-                           TrainStateConfig(lr=1e-4, warmup_steps=1),
-                           mesh=mesh)
-    local = shard_batch(mesh, batch) if mesh is not None else batch
-    logs = step(state, local, generator=torch.Generator().manual_seed(0))
+    tx = TrainStateConfig(lr=1e-4, warmup_steps=1)
+    step = make_train_step(model, loss_cfg, tx, mesh=mesh) if accum == 1 \
+        else make_accum_train_step(model, loss_cfg, accum, tx, mesh=mesh)
+    logs = step(state, batch, generator=torch.Generator().manual_seed(0))
     return {k: float(v) for k, v in logs.items()}
 
 
-def fm_step(n, mesh, device, seed: int = 0):
-    """One stage-1 flow-matching step on a global batch of `n`."""
+def fm_step(n, mesh, device, seed: int = 0, accum: int = 1):
+    """One stage-1 flow-matching step on a global batch of `n`, over
+    `accum` micro-batches."""
     from gaussiananything_tpu_torch.diffusion.transport import \
         create_transport
     from gaussiananything_tpu_torch.models.conditioner import \
         ImageConditioner
     from gaussiananything_tpu_torch.models.dit import stage1_dit
-    from gaussiananything_tpu_torch.parallel.mesh import shard_batch
     from gaussiananything_tpu_torch.train.fm_trainer import (
         FMConfig, make_fm_train_step)
     from gaussiananything_tpu_torch.train.state import (TrainState,
@@ -99,15 +103,14 @@ def fm_step(n, mesh, device, seed: int = 0):
     step = make_fm_train_step(dit, cond, create_transport("gvp"),
                               FMConfig(stage=1),
                               TrainStateConfig(lr=1e-4, warmup_steps=1),
-                              mesh=mesh)
-    local = shard_batch(mesh, batch) if mesh is not None else batch
-    logs = step(TrainState.create(dit), TrainState.create(cond), local,
+                              accum=accum, mesh=mesh)
+    logs = step(TrainState.create(dit), TrainState.create(cond), batch,
                 generator=torch.Generator().manual_seed(1))
     return {k: float(v) for k, v in logs.items()}
 
 
 def run(device="cpu") -> list:
-    """The three phases over every rank of the process group; returns one
+    """The five phases over every rank of the process group; returns one
     dict per phase (sharded and unsharded `total`/`grad_norm` and whether
     they agree). Raises where a phase does not."""
     from gaussiananything_tpu_torch.parallel.dist import get_world_size
@@ -147,6 +150,13 @@ def run(device="cpu") -> list:
     # ---- phase 3: a flow-matching step, data-parallel ---------------------
     record(3, mesh, fm_step(n, mesh, device), fm_step(n, None, device),
            "fm_loss")
+
+    # ---- phases 4 and 5: phases 1 and 3 over two micro-batches ------------
+    batch4 = _vae_batch(2, 2 * n, 32, device)
+    record(4, mesh, vae_step(batch4, cfg, mesh, device, accum=2),
+           vae_step(batch4, cfg, None, device, accum=2), "total")
+    record(5, mesh, fm_step(2 * n, mesh, device, accum=2),
+           fm_step(2 * n, None, device, accum=2), "fm_loss")
     return results
 
 

@@ -89,19 +89,34 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def shard_batch(mesh: Mesh, tree):
-    """This rank's data slice of the leading (batch) dimension of every
-    tensor or array of `tree` (dicts, lists, tuples); 0-dim leaves and
-    other values pass whole."""
+def shard_batch(mesh: Mesh, tree, micro: int = 1):
+    """This rank's rows of the leading (batch) dimension of every tensor
+    or array of `tree` (dicts, lists, tuples); 0-dim leaves and other
+    values pass whole.
+
+    The global batch of B rows is `micro` micro-batches of B / micro rows
+    (the trainers' `accum`), each split over the mesh's R = `mesh.data`
+    data slices: rank r receives, for each micro-batch i in order, the
+    rows [i·B/micro + r·B/(micro·R), i·B/micro + (r+1)·B/(micro·R)),
+    concatenated. So the rank's micro-batch i is its slice of the global
+    micro-batch i, as the JAX package's accumulation under a sharded batch
+    takes it (a `dynamic_slice` of the global batch,
+    `gaussiananything_tpu/train/fm_trainer.py:122-135`), and a sharded
+    accumulation step equals the unsharded one. With `micro` 1 the rows
+    are one contiguous block [r·B/R, (r+1)·B/R)."""
     def _shard(x):
         if not (torch.is_tensor(x) or isinstance(x, np.ndarray)) \
                 or x.ndim == 0:
             return x
-        if x.shape[0] % mesh.data:
-            raise ValueError(f"a batch of {x.shape[0]} does not split over "
-                             f"the mesh's {mesh.data} data slices")
-        per = x.shape[0] // mesh.data
-        return x[mesh.data_index * per:(mesh.data_index + 1) * per]
+        B, rest = x.shape[0], tuple(x.shape[1:])
+        if B % (micro * mesh.data):
+            raise ValueError(
+                f"a batch of {B} does not split into {micro} micro-batches "
+                f"over the mesh's {mesh.data} data slices: it must be a "
+                f"multiple of {micro * mesh.data}")
+        per = B // (micro * mesh.data)
+        return x.reshape((micro, mesh.data, per) + rest)[
+            :, mesh.data_index].reshape((micro * per,) + rest)
 
     return _map(_shard, tree)
 
@@ -126,11 +141,14 @@ def replicate(mesh: Mesh, tree):
 
 
 
-def training_mesh(mesh_data: int, mesh_tile: int, batch: int) -> Mesh:
+def training_mesh(mesh_data: int, mesh_tile: int, batch: int,
+                  micro: int = 1) -> Mesh:
     """The training CLIs' mesh over the ranks the launcher started:
     data = mesh_data or gcd(batch, world // mesh_tile), as the JAX CLIs
     take it over the devices. A launcher chooses the process count, so a
-    world size other than data × tile is refused, not cut to fit."""
+    world size other than data × tile is refused, not cut to fit; so is a
+    batch that `micro` micro-batches (`--accum`) over the data slices do
+    not split (`shard_batch`)."""
     world = get_world_size()
     tile = max(1, mesh_tile)
     data = mesh_data or math.gcd(batch, max(1, world // tile))
@@ -140,7 +158,9 @@ def training_mesh(mesh_data: int, mesh_tile: int, batch: int) -> Mesh:
             f"ranks (mesh_data={mesh_data}, mesh_tile={mesh_tile}, batch "
             f"{batch}), but {world} were started: launch {data * tile} "
             f"processes or set mesh_data/mesh_tile to fit {world}")
-    if batch % data:
-        raise ValueError(f"a batch of {batch} does not split over the "
-                         f"mesh's {data} data slices")
+    if batch % (micro * data):
+        raise ValueError(
+            f"a batch of {batch} does not split into {micro} micro-batches "
+            f"(--accum) over the mesh's {data} data slices: the batch must "
+            f"be a multiple of {micro * data}")
     return make_mesh(data, tile)

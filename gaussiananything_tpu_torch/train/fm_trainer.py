@@ -26,6 +26,7 @@ from gaussiananything_tpu_torch.diffusion.sampling import (
 from gaussiananything_tpu_torch.diffusion.transport import Transport
 from gaussiananything_tpu_torch.models.conditioner import ucg_keep_mask
 from gaussiananything_tpu_torch.parallel.dist import average_, mean_scalars
+from gaussiananything_tpu_torch.parallel.mesh import shard_batch
 from gaussiananything_tpu_torch.train.state import (TrainState,
                                                     TrainStateConfig,
                                                     global_norm)
@@ -87,11 +88,13 @@ def make_fm_train_step(dit_model, conditioner_model, transport: Transport,
     dropout still applied: only its outputs live into the DiT's backward.
 
     `mesh`: a `parallel.mesh.Mesh` (its data axis; the tile axis renders
-    nothing here). `batch` is then the rank's data slice (`shard_batch`);
-    for every micro-batch the rank draws (or is given in `draws`) the
-    draws of the global micro-batch, `mesh.data` times its own, and keeps
-    its slice; the gradients and logs are the data group's means. With
-    `accum` 1 the step equals the unsharded one on the global batch.
+    nothing here). `batch` is still the global batch: the step keeps the
+    rank's rows, `shard_batch(mesh, batch, micro=accum)`, so its
+    micro-batch i is its slice of the global micro-batch i; for every
+    micro-batch the rank draws (or is given in `draws`) the draws of the
+    global micro-batch, `mesh.data` times its own, and keeps its slice;
+    the gradients and logs are the data group's means. The step equals
+    the unsharded one on the global batch.
     """
     tx_cfg = tx_cfg or TrainStateConfig()
     # the embedder group at 0.5× lr (`flow_matching_trainer.py:374-399`)
@@ -141,6 +144,8 @@ def make_fm_train_step(dit_model, conditioner_model, transport: Transport,
     def train_step(state: TrainState, cond_state: TrainState, batch,
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[List[dict]] = None, timer=None):
+        if mesh is not None:
+            batch = shard_batch(mesh, batch, micro=accum)
         B = batch["latent"].shape[0]
         if B % accum:
             raise ValueError(f"a batch of {B} does not split into {accum} "

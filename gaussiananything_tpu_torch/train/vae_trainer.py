@@ -22,17 +22,18 @@ gradient, as in the discriminator's step, the forward-only kernel). The
 step's random draws come from a `torch.Generator` or are passed in
 (`draws`), so two implementations can be fed the same noise.
 
-On a mesh (`parallel.mesh.make_mesh`, one process per rank) each rank
-holds its data slice of the global batch (`shard_batch`); it draws the
-noise of the whole global batch from the same generator and keeps its
-slice, so a sharded step equals the unsharded one. The renders take the
-mesh's tile axis (row bands, `render/sharded.py`). Every term of the loss
-is a mean over the batch, whose gradient is the data group's mean of the
-slices' gradients, except the scale-invariant depth loss, a ratio of sums
-over the whole batch, which is summed over the group before it is divided
-(`parallel.dist.sum_replicated`); the adaptive weight's gradient norms are
-summed over the group as well. The gradients are averaged over the data
-group before the optimizer; the logs are the group's means.
+On a mesh (`parallel.mesh.make_mesh`, one process per rank) each step
+takes the global batch and keeps the rank's rows (`shard_batch`); it
+draws the noise of the whole global batch from the same generator and
+keeps its slice, so a sharded step equals the unsharded one. The renders
+take the mesh's tile axis (row bands, `render/sharded.py`). Every term
+of the loss is a mean over the batch, whose gradient is the data group's
+mean of the slices' gradients, except the scale-invariant depth loss, a
+ratio of sums over the whole batch, which is summed over the group
+before it is divided (`parallel.dist.sum_replicated`); the adaptive
+weight's gradient norms are summed over the group as well. The gradients
+are averaged over the data group before the optimizer; the logs are the
+group's means.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ from gaussiananything_tpu_torch.ops.pointcloud import chamfer_distance
 from gaussiananything_tpu_torch.parallel.dist import (all_reduce_, average_,
                                                       mean_scalars,
                                                       sum_replicated)
+from gaussiananything_tpu_torch.parallel.mesh import shard_batch
 from gaussiananything_tpu_torch.render.renderer import render_multiview
 from gaussiananything_tpu_torch.train import losses as L
 from gaussiananything_tpu_torch.train.state import (TrainState,
@@ -409,16 +411,19 @@ def make_train_step(model, cfg: VAELossConfig,
     gradients, the optimiser and EMA updates of `state` (in place).
     `perceptual_net` and `disc_model` as for `vae_loss_fn`; the
     discriminator's parameters are read as they are at each call. `mesh`:
-    a `parallel.mesh.Mesh`, `batch` the rank's data slice (`shard_batch`);
-    the gradients and logs are the data group's means (the all_reduce in
-    the timer's "optimizer" stage), so every rank takes the same update as
-    an unsharded step on the global batch."""
+    a `parallel.mesh.Mesh`, `batch` the global batch, of which the step
+    keeps the rank's data slice (`shard_batch`); the gradients and logs are
+    the data group's means (the all_reduce in the timer's "optimizer"
+    stage), so every rank takes the same update as an unsharded step on the
+    global batch."""
     tx_cfg = tx_cfg or TrainStateConfig()
 
     def train_step(state: TrainState, batch, generator=None, draws=None,
                    timer: Optional[StageTimer] = None):
         if timer:
             timer.start()
+        if mesh is not None:
+            batch = shard_batch(mesh, batch)
         logs, grads = _data_means(*_loss_and_grads(
             model, state, batch, cfg, generator, draws, perceptual_net,
             disc_model, timer, mesh), mesh)
@@ -448,6 +453,8 @@ def make_disc_step(model, disc_model, cfg: VAELossConfig,
 
     def disc_step(disc_state: TrainState, batch, generator=None,
                   draws=None):
+        if mesh is not None:
+            batch = shard_batch(mesh, batch)
         res = cfg.lod_resolutions[-1]
         with torch.no_grad():
             out = model(batch["images_in"], batch["pcd"],
@@ -493,15 +500,20 @@ def make_accum_train_step(model, cfg: VAELossConfig, n_micro: int,
     and `grad_norm` that of the averaged gradient. draws: optional list of
     one draws dict per micro-batch (the JAX package draws micro-batch i
     from `fold_in(rng, i)`). Peak memory is one micro-batch's. `mesh`: as
-    for `make_train_step`; each rank splits its own data slice into
-    micro-batches, so with more than one micro-batch the rows meet other
-    draws than in an unsharded step (the same mean over the batch)."""
+    for `make_train_step`, the step keeping the global batch's rows that
+    `shard_batch(mesh, batch, micro=n_micro)` gives the rank: its
+    micro-batch i is its slice of the global micro-batch i, whose noise
+    it draws and whose depth-loss sums and `opacity_p95` it takes over
+    the data group, so the step equals the unsharded one on the global
+    batch."""
     tx_cfg = tx_cfg or TrainStateConfig()
 
     def train_step(state: TrainState, batch, generator=None, draws=None,
                    timer: Optional[StageTimer] = None):
         if timer:
             timer.start()
+        if mesh is not None:
+            batch = shard_batch(mesh, batch, micro=n_micro)
         acc, all_logs = None, []
         for i in range(n_micro):
             sub = {k: _micro_slice(v, i, n_micro) for k, v in batch.items()}

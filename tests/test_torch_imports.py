@@ -62,7 +62,8 @@ def test_port_files_found():
                  "parallel/mesh.py", "parallel/dist.py",
                  "parallel/dryrun.py", "render/sharded.py",
                  "cli/import_release.py", "utils/release_import.py",
-                 "render/sh.py", "utils/profiling.py"):
+                 "render/sh.py", "utils/profiling.py",
+                 "tools/golden_parity_512.py", "tools/fm_feasibility.py"):
         assert pkg + name in rel, name
 
 
@@ -189,11 +190,14 @@ def test_training_kernels_raise_on_cuda_tensors_without_a_build(monkeypatch,
 
 
 def test_tools_default_to_cuda_and_refuse_without_it(monkeypatch):
-    from gaussiananything_tpu_torch.tools import (bench, kernel_attribution,
+    from gaussiananything_tpu_torch.tools import (bench, fm_feasibility,
+                                                  golden_parity_512,
+                                                  kernel_attribution,
                                                   kernel_stages,
                                                   rasterizer_timing)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for tool in (bench, kernel_stages, rasterizer_timing, kernel_attribution):
+    for tool in (bench, kernel_stages, rasterizer_timing, kernel_attribution,
+                 golden_parity_512, fm_feasibility):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tool.main([])
 

@@ -79,8 +79,7 @@ def vae_step(rank, world, port, inputs, out):
     (`inputs`: weights, global batch, draws, loss and optimizer settings,
     the perceptual net's weights), and the ranks' layout (`_layout`)."""
     from gaussiananything_tpu_torch.models.vae import PointVAE
-    from gaussiananything_tpu_torch.parallel.mesh import (make_mesh,
-                                                          shard_batch)
+    from gaussiananything_tpu_torch.parallel.mesh import make_mesh
     from gaussiananything_tpu_torch.train.losses import PerceptualNet
     from gaussiananything_tpu_torch.train.state import (TrainState,
                                                         TrainStateConfig)
@@ -99,7 +98,7 @@ def vae_step(rank, world, port, inputs, out):
                            perceptual_net=net.requires_grad_(False),
                            mesh=mesh)
     state = TrainState.create(model)
-    logs = step(state, shard_batch(mesh, d["batch"]), draws=d["draws"])
+    logs = step(state, d["batch"], draws=d["draws"])
     if rank == 0:
         torch.save({"logs": {k: float(v) for k, v in logs.items()},
                     "params": {k: v.detach() for k, v in
@@ -117,3 +116,85 @@ def fm_step(rank, world, port, out):
     if rank == 0:
         torch.save(logs, out)
     dist.destroy_process_group()
+
+
+def accum_step(rank, world, port, inputs, out):
+    """Two accumulation steps (`accum` micro-batches each) on a
+    data-parallel mesh of every rank, from `inputs`' weights, global batch
+    and per-step, per-micro-batch draws of the global micro-batches: the
+    flow-matching step (`kind` "fm": a stage-1 DiT and an image
+    conditioner) or the VAE step (`kind` "vae", `make_accum_train_step`).
+    The step keeps each rank's slice of every global micro-batch
+    (`shard_batch(..., micro=accum)`). Run once for each of `inputs`'
+    `layouts`: "micro" feeds the global batch as it is; "block" feeds it
+    reordered (`block_order`) so that each rank's rows are one block, as
+    `shard_batch(..., micro=1)` gives them, and micro-batch i is that
+    block's slice i. Rank 0 saves each layout's logs and final
+    parameters."""
+    from gaussiananything_tpu_torch.diffusion.transport import \
+        create_transport
+    from gaussiananything_tpu_torch.models.conditioner import \
+        ImageConditioner
+    from gaussiananything_tpu_torch.models.dit import stage1_dit
+    from gaussiananything_tpu_torch.models.vae import PointVAE
+    from gaussiananything_tpu_torch.parallel.mesh import make_mesh
+    from gaussiananything_tpu_torch.train.fm_trainer import (
+        FMConfig, make_fm_train_step)
+    from gaussiananything_tpu_torch.train.losses import PerceptualNet
+    from gaussiananything_tpu_torch.train.state import (TrainState,
+                                                        TrainStateConfig)
+    from gaussiananything_tpu_torch.train.vae_trainer import (
+        VAELossConfig, make_accum_train_step)
+    _init(rank, world, port)
+    d = torch.load(inputs)
+    mesh = make_mesh(data=world, tile=1)
+    tx = TrainStateConfig(**d["tx"])
+    res = {}
+    for layout in d["layouts"]:
+        if d["kind"] == "fm":
+            dit = stage1_dit("S", **d["dit"])
+            dit.load_state_dict(d["dit_weights"])
+            cond = ImageConditioner(**d["cond"])
+            cond.load_state_dict(d["cond_weights"])
+            step = make_fm_train_step(dit.train(), cond.train(),
+                                      create_transport(), FMConfig(stage=1),
+                                      tx, accum=d["accum"], mesh=mesh)
+            state, cstate = TrainState.create(dit), TrainState.create(cond)
+
+            def run(batch, draws):
+                return step(state, cstate, batch, draws=draws)
+        else:
+            model = PointVAE(**d["sizes"])
+            model.load_state_dict(d["weights"])
+            net = PerceptualNet()
+            net.load_state_dict(d["perceptual"])
+            step = make_accum_train_step(
+                model, VAELossConfig(**d["loss"]), d["accum"], tx,
+                perceptual_net=net.requires_grad_(False), mesh=mesh)
+            state = TrainState.create(model)
+
+            def run(batch, draws):
+                return step(state, batch, draws=draws)
+        batch = d["batch"] if layout == "micro" else \
+            block_order(d["batch"], world, d["accum"])
+        logs = [{k: float(v) for k, v in run(batch, dr).items()}
+                for dr in d["draws"]]
+        res[layout] = {"logs": logs, "params": {
+            k: v.detach().clone() for k, v in state.params.items()}}
+    if rank == 0:
+        torch.save(res, out)
+    dist.destroy_process_group()
+
+
+def block_order(batch: dict, ranks: int, micro: int) -> dict:
+    """`batch` with its rows reordered so that the step's layout
+    (`shard_batch(..., micro)`: rank r's micro-batch i is block (i, r) of
+    the global batch) gives rank r's micro-batch i the rows of block
+    (r, i), its i-th slice of the one block `micro` 1 gives it."""
+    def order(x):
+        if not torch.is_tensor(x) or x.dim() == 0:
+            return x
+        rest = tuple(x.shape[1:])
+        return x.reshape((ranks, micro, -1) + rest).transpose(0, 1) \
+            .reshape((-1,) + rest)
+    return {k: order(v) for k, v in batch.items()}
