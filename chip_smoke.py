@@ -28,8 +28,12 @@ Phases, in order; any failure exits non-zero:
 7. train: three training steps at the `vae-release` preset's full width
    through the port's `cli/train_vae.py` on seeded random weights (the
    batch cut to TRAIN_BATCH), checking losses, the step count, that
-   parameters and EMA moved, the kernels' launch counts, and timing the
-   step's stages;
+   parameters and EMA moved, the kernels' launch counts (K2a twice per
+   rendered view: the checkpointed render runs again in the backward),
+   and timing the step's stages; then the same run with
+   `vae.compute_dtype` bfloat16 in its `--config`, checking that the
+   parameters, moments and EMA stay fp32 and that every norm weight at
+   1.0 moved, its stages and peak printed beside the fp32 run's;
 8. small adv train: an adversarial generator step (adaptive weight,
    seeded VGG-LPIPS), a discriminator step and a two-micro-batch
    accumulation step at small widths on the card against the CPU;
@@ -49,8 +53,10 @@ Phases, in order; any failure exits non-zero:
    port's CLIs: `extract_latents --preset vae-release --num 8`, then
    `train_flow --preset stage1` (DiT-L against the frozen scratch ViT-L,
    batch 8 in 2 micro-batches, 3 steps, a checkpoint, an evaluation, a
-   resume to step 4), `--stage 2`, `--preset t23d --cond text` and one
-   synthetic-stream step, checking losses, step counts, that each run's
+   resume to step 4), the first three steps again with
+   `dit.compute_dtype` bfloat16 (stages and peak beside fp32), `--stage
+   2`, `--preset t23d --cond text` and one synthetic-stream step,
+   checking losses, step counts, fp32 states, that each run's
    last update moved the DiT (and a trained conditioner) by its learning
    rate and the EMA by its decay from the checkpoint written before it,
    that a frozen conditioner ends with its `--cond-ckpt` weights, the
@@ -59,7 +65,9 @@ Phases, in order; any failure exits non-zero:
 12. fm-release-batch: the release flow-matching batch through
    `tools/fm_feasibility.py` (stage-1 DiT-L with `remat` against the frozen
    ViT-L, batch 256 in 8 micro-batches): a warm-up step and a timed step,
-   their seconds and the peak;
+   their seconds and the peak; then `tools/release_feasibility.py` at its
+   defaults in fp32 and with `--bf16`, a process each: the release VAE
+   step's first and steady seconds and peak;
 13. rasterizer tools: the rasterizer's own entry points at the release
    shape through `tools/rasterizer_timing.py --all`, `tools/bench.py` and
    `tools/kernel_stages.py`, checking every kernel's launch count against
@@ -95,10 +103,12 @@ It imports nothing of JAX; the port's package must sit beside this file
 `chip_smoke.py --rank-run vae|flow ARGV_JSON OUT_DIR` is one rank of
 phase 16, started by `torch.distributed.run`.
 
-    python3 chip_smoke.py --probe-batch [batch ...]     (default: 8 4 2 1)
+    python3 chip_smoke.py --probe-batch [--bf16] [batch ...]
+                                                        (default: 8 4 2 1)
 
 runs none of the phases: it looks for the largest batch of the
-release-width training step that the card holds. Each batch runs two steps
+release-width training step that the card holds (with `--bf16`, under
+`vae.compute_dtype` bfloat16). Each batch runs two steps
 of `cli/train_vae.py --preset vae-release` in a process of its own (so a
 failed allocation leaves nothing behind), largest first, stopping at the
 first that fits, and prints one JSON line per batch: whether the allocation
@@ -1632,12 +1642,22 @@ def small_serving_phase(dev):
     # pinned to the fp32 one: stage 2 reads sin/cos of xyz at up to 2⁹ per
     # unit, so bf16's stage-1 difference alone would move it by far more
     # than the bf16 arithmetic of the stage itself
-    c16, d116, d216 = (copy.deepcopy(m).to(torch.bfloat16) for m in
-                       (card.cond, card.dit1, card.dit2))
-    with torch.device(dev):
-        v16 = PointVAE(latent_num=K, decoder_width=SMALL_W, decoder_depth=2,
-                       decoder_heads=2, dtype=torch.bfloat16).eval()
-    v16.load_state_dict(cpu.vae.state_dict())
+    def bf16(make, src):
+        """`cli/sample.py --bf16`'s modules: bf16 compute, the restored
+        weights then cast to bf16."""
+        with torch.device(dev):
+            m = make(dtype=torch.bfloat16).eval()
+        m.load_state_dict(src.state_dict())
+        return m.to(torch.bfloat16)
+
+    c16 = bf16(functools.partial(TextConditioner, SMALL_W, 2, 4,
+                                 backbone="openclip"), card.cond)
+    d116 = bf16(functools.partial(PointDiT, in_channels=3, **dk), card.dit1)
+    d216 = bf16(functools.partial(PointDiT, in_channels=ZC,
+                                  use_xyz_pe=True, **dk), card.dit2)
+    v16 = bf16(functools.partial(PointVAE, latent_num=K,
+                                 decoder_width=SMALL_W, decoder_depth=2,
+                                 decoder_heads=2), cpu.vae)
     ids_d = ids.to(dev)
     xyz32 = got["xyz"][None]
     got16 = {
@@ -2058,27 +2078,37 @@ def small_train_phase(dev):
         fail("the small training steps on the card disagree with the CPU")
 
 
-def train_phase(dev):
+def train_phase(dev, compute_dtype="float32", against=None):
     """TRAIN_STEPS steps at the `vae-release` preset's full width through
     the port's training CLI on seeded random weights: encoder width 256,
     768 latents x 10 channels, the DiT2 768 x 12 decoder, upsamplers to
-    73,728 surfels, 4 + 4 views at 512², the (128, 256, 384, 512) ladder.
-    The batch is cut to TRAIN_BATCH and the warm-up to 1 step (through a
-    `--config` file, the preset otherwise unchanged). Launch
-    counts are set to 0 just before and read just after."""
+    73,728 surfels, 4 + 4 views at 512², the (128, 256, 384, 512) ladder,
+    each LoD's render checkpointed (K2a runs again in the backward). The
+    batch is cut to TRAIN_BATCH and the warm-up to 1 step, and
+    `vae.compute_dtype` is `compute_dtype` (through a `--config` file, the
+    preset otherwise unchanged). Checks that the parameters, both moments
+    and the EMA are fp32 and that every norm weight initialised at 1.0
+    moved. Launch counts are set to 0 just before and read just after.
+    Returns the launches and the run's seconds by stage and peak, which a
+    later run prints beside its own (`against`)."""
     with tempfile.TemporaryDirectory() as logdir:
-        return _train_run(dev, logdir)
+        return _train_run(dev, logdir, compute_dtype, against)
 
 
-def _train_run(dev, logdir):
+def _train_run(dev, logdir, compute_dtype, against):
     import torch
     from gaussiananything_tpu_torch.cli import train_vae
     from gaussiananything_tpu_torch.config import preset
+    from gaussiananything_tpu_torch.models.layers import (GroupNorm32,
+                                                          LayerNorm, RMSNorm)
     from gaussiananything_tpu_torch.models.vae import PointVAE
     from gaussiananything_tpu_torch.ops import rasterize_cuda
 
+    tag = "[train]" if compute_dtype == "float32" else \
+        f"[train {compute_dtype}]"
     cfg = preset("vae-release")
     cfg.optim.warmup_steps = 1      # step 0 runs at lr 0, steps 1-2 at lr
+    cfg.vae.compute_dtype = compute_dtype
     cfg_path = os.path.join(logdir, "vae-release.json")
     with open(cfg_path, "w") as f:
         f.write(cfg.to_json())
@@ -2102,22 +2132,26 @@ def _train_run(dev, logdir):
     kernel_s = {k: sum(a.elapsed_time(b) for n, a, b in events if n == k)
                 / 1e3 for k in ("K1", "K2a", "K2b")}
     used = {k: v for k, v in launches.items() if v}
-    print(f"[train] vae-release width, batch {TRAIN_BATCH}, {TRAIN_STEPS} "
-          f"steps, wall {wall:.2f}s (model build included); peak memory "
-          f"{peak / 2**30:.2f} GiB; launches {json.dumps(used)}",
-          flush=True)
+    print(f"{tag} vae-release width, compute dtype {compute_dtype}, batch "
+          f"{TRAIN_BATCH}, {TRAIN_STEPS} steps, wall {wall:.2f}s (model "
+          f"build included); peak memory {peak / 2**30:.2f} GiB"
+          + (f" (float32: {against['peak'] / 2**30:.2f} GiB)" if against
+             else "") + f"; launches {json.dumps(used)}", flush=True)
     for i, (lg, tm) in enumerate(zip(res["logs"], timers)):
-        print(f"[train] step {i}: total {lg['total']:.6g}, grad_norm "
+        beside = "" if against is None else \
+            f"; float32 {json.dumps(_rounded(against['seconds'])[i])}"
+        print(f"{tag} step {i}: total {lg['total']:.6g}, grad_norm "
               f"{lg['grad_norm']:.6g}; seconds by stage "
-              f"{json.dumps({k: round(v, 4) for k, v in tm.items()})}",
-              flush=True)
-    print(f"[train] kernel seconds over the {TRAIN_STEPS} steps (K1 in data, "
-          f"K2a in render, K2b in backward): "
+              f"{json.dumps(_rounded([tm])[0])}{beside}", flush=True)
+    print(f"{tag} kernel seconds over the {TRAIN_STEPS} steps (K1 in data, "
+          f"K2a in render and again in backward, K2b in backward): "
           f"{json.dumps({k: round(v, 5) for k, v in kernel_s.items()})}",
           flush=True)
 
+    # every LoD view renders twice: the forward, and the checkpoint's
+    # recompute in the backward
     expect = {"K1": TRAIN_BATCH * 8 * TRAIN_STEPS,
-              "K2a": TRAIN_BATCH * 4 * 4 * TRAIN_STEPS,
+              "K2a": 2 * TRAIN_BATCH * 4 * 4 * TRAIN_STEPS,
               "K2b": TRAIN_BATCH * 4 * 4 * TRAIN_STEPS}
     expect.update({k: 0 for k in launches if k not in expect})
     if launches != expect:
@@ -2138,17 +2172,34 @@ def _train_run(dev, logdir):
                   for (k, _), q in zip(model.named_parameters(),
                                        init.parameters()))
     n_par = sum(p.numel() for p in model.parameters())
-    print(f"[train] {n_par / 1e6:.1f}M parameters; max |param - init| "
-          f"{moved:.3g}, max |EMA - init| {ema_gap:.3g}", flush=True)
+    dtypes = sorted({str(v.dtype) for tree in (state.params, state.mu,
+                                                state.nu, state.ema)
+                     for v in tree.values()})
+    trained = dict(model.named_modules())
+    ones = [n for n, m in init.named_modules()
+            if isinstance(m, (LayerNorm, RMSNorm, GroupNorm32))
+            and m.weight is not None
+            and bool((m.weight == 1.0).all())]
+    still = [n for n in ones if bool((trained[n].weight == 1.0).all())]
+    print(f"{tag} {n_par / 1e6:.1f}M parameters, compute dtype "
+          f"{model.dtype}; parameters, moments and EMA {dtypes}; max "
+          f"|param - init| {moved:.3g}, max |EMA - init| {ema_gap:.3g}; "
+          f"norm weights initialised at 1.0 that moved: "
+          f"{len(ones) - len(still)} of {len(ones)}", flush=True)
     if not (moved > 0 and ema_gap > 0):
         fail("parameters or EMA did not move")
+    if dtypes != ["torch.float32"] or str(model.dtype) != \
+            f"torch.{compute_dtype}":
+        fail(f"{tag} state dtypes {dtypes}, compute dtype {model.dtype}")
+    if not ones or still:
+        fail(f"{tag} norm weights at 1.0 that did not move: {still}")
     shapes = {"encoder_width": cfg.vae.encoder_width,
               "latent": [cfg.vae.latent_num, cfg.vae.z_channels],
               "lods": list(cfg.render.lod_resolutions)}
     if shapes != {"encoder_width": 256, "latent": [768, 10],
                   "lods": [128, 256, 384, 512]}:
         fail(f"the preset is not the release's: {shapes}")
-    return launches
+    return launches, {"seconds": timers, "peak": peak}
 
 
 def small_adv_train_phase(dev):
@@ -2348,8 +2399,8 @@ def _adv_train_run(dev, root):
               flush=True)
     print(f"[adv train] d_loss {[round(d['d_loss'], 6) for d in d_logs]}; "
           f"evaluations {json.dumps(evals)}; kernel seconds (K1 in export, "
-          f"disc_step and eval, K2a in render, K2b in adversarial and "
-          f"backward): "
+          f"disc_step and eval, K2a in render, adversarial and backward, "
+          f"K2b in adversarial and backward): "
           f"{json.dumps({k: round(v, 5) for k, v in kernel_s.items()})}",
           flush=True)
 
@@ -2362,7 +2413,10 @@ def _adv_train_run(dev, root):
         # export, the discriminator's finest render, the held-out batch of
         # one instance at every LoD
         "K1": ADV_INSTANCES * ADV_VIEWS + n_disc * B * V + n_eval * V * L,
-        "K2a": steps * B * V * L,
+        # every LoD view twice (the forward and the checkpoint's recompute
+        # in the step's backward), the finest twice more (the recompute
+        # in each of the adaptive weight's two gradients)
+        "K2a": steps * (2 * B * V * L + 2 * B * V),
         # the step's backward, and the adaptive weight's two gradients
         # through the finest render the step's forward made
         "K2b": steps * (B * V * L + 2 * B * V)}
@@ -2715,6 +2769,10 @@ def _update_check(state, pre, tx):
             "ema_pre_off": ema_pre_off}
 
 
+def _rounded(timers):
+    return [{k: round(v, 4) for k, v in tm.items()} for tm in timers]
+
+
 def _update_ok(check):
     return (check["max_step_over_lr"] >= 0.5 and not check["tensors_over"]
             and check["ema_off"] == 0 and check["ema_pre_off"] > 0)
@@ -2731,9 +2789,11 @@ def _flow_train_run(dev, root):
 
     lat = os.path.join(root, "latents")
     cfgs = {}
-    for name in ("stage1", "t23d"):
-        c = preset(name)
+    for name in ("stage1", "t23d", "stage1-bf16"):
+        c = preset(name.split("-")[0])
         c.transport.num_steps = FLOW_SAMPLER_STEPS
+        if name.endswith("bf16"):
+            c.dit.compute_dtype = "bfloat16"
         cfgs[name] = os.path.join(root, f"{name}.json")
         with open(cfgs[name], "w") as f:
             f.write(c.to_json())
@@ -2752,6 +2812,10 @@ def _flow_train_run(dev, root):
         ("stage1 resume", ["--config", cfgs["stage1"], "--latent-dir", lat,
                            *frozen, "--steps", "4", "--save-every", "2",
                            "--eval-every", "3", "--resume"], 4),
+        # the stage-1 run's first three steps with bf16 compute
+        ("stage1-bf16", ["--config", cfgs["stage1-bf16"], "--latent-dir",
+                         lat, *frozen, "--steps", "3", "--save-every", "2"],
+         3),
         ("stage2", ["--config", cfgs["stage1"], "--stage", "2",
                     "--latent-dir", lat, *frozen, "--steps", "2",
                     "--save-every", "1", "--eval-every", "2"], 2),
@@ -2781,7 +2845,7 @@ def _flow_train_run(dev, root):
                   "cond": [3, 224, 224], "caption": []}:
         fail(f"the extracted npz holds {shapes}")
 
-    results, bad = {}, []
+    results, bad, step_seconds = {}, [], {}
     for name, args, steps in runs:
         logdir = os.path.join(root, name.split()[0])
         if name == "stage1 resume":
@@ -2817,6 +2881,13 @@ def _flow_train_run(dev, root):
             checks["frozen cond = --cond-ckpt"] = not cstate.mu and all(
                 torch.equal(cstate.params[k].cpu(), v)
                 for k, v in cond0.items())
+        dtypes = sorted({str(v.dtype) for st in (state, cstate) for tree in
+                         (st.params, st.mu, st.nu, st.ema)
+                         for v in tree.values()})
+        want_dt = "torch.bfloat16" if name.endswith("bf16") \
+            else "torch.float32"
+        checks["fp32 state, compute dtype"] = \
+            dtypes == ["torch.float32"] and str(res["dit"].dtype) == want_dt
         n_dit = sum(p.numel() for p in state.params.values())
         n_cond = sum(p.numel() for p in cstate.params.values())
         print(f"[flow train] {name}: {n_dit / 1e6:.1f}M DiT + "
@@ -2843,6 +2914,14 @@ def _flow_train_run(dev, root):
             if check is False or (check is not True
                                   and not _update_ok(check)):
                 bad.append(f"{name}: the last update of {part}: {check}")
+        if name == "stage1-bf16":
+            print(f"[flow train] stage1-bf16 against stage1 (float32): "
+                  f"seconds by stage {json.dumps(_rounded(timers))} "
+                  f"against {json.dumps(_rounded(step_seconds['stage1']))}"
+                  f"; peak "
+                  f"{peak / 2**30:.2f} GiB against "
+                  f"{peaks['stage1'] / 2**30:.2f}", flush=True)
+        step_seconds[name] = timers
         if cstate.frozen != (name != "t23d"):
             bad.append(f"{name}: the conditioner's state is "
                        f"{'frozen' if cstate.frozen else 'trained'}")
@@ -2882,8 +2961,8 @@ def _flow_train_run(dev, root):
     expect.update({k: 0 for k in launches if k not in expect})
     if launches != expect:
         bad.append(f"launches {launches}, expected {expect}")
-    if results != {"stage1": 3, "stage1 resume": 1, "stage2": 2, "t23d": 2,
-                   "synthetic": 1}:
+    if results != {"stage1": 3, "stage1 resume": 1, "stage1-bf16": 3,
+                   "stage2": 2, "t23d": 2, "synthetic": 1}:
         bad.append(f"steps run {results}")
     if bad:
         fail(f"flow train: {bad}")
@@ -2958,6 +3037,46 @@ def fm_release_batch_phase(dev):
           f"step {out['steady_step_s']:.3f}s ({out['samples_per_s']:.2f} "
           f"samples/s), peak {out['peak_bytes'] / 2 ** 30:.2f} GiB; logs "
           f"{json.dumps(out['logs'])}", flush=True)
+
+
+def release_feasibility_phase(dev):
+    """`tools/release_feasibility.py` at its defaults (the `vae` preset,
+    batch 1, 4 + 4 views at 512², the four-LoD ladder with
+    `rand_coarse_lod`, render remat, 5 steady steps), with and without
+    `--bf16`, each in a fresh process: parameters, the first and the
+    steady step's seconds, steps/s and the peak of each, finite losses,
+    six updates."""
+    from gaussiananything_tpu_torch.tools import release_feasibility as rf
+    here = os.path.dirname(os.path.abspath(__file__))
+    outs = {}
+    for extra in ([], ["--bf16"]):
+        cmd = [sys.executable, "-m",
+               "gaussiananything_tpu_torch.tools.release_feasibility",
+               *extra]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=600, cwd=here)
+        wall = time.perf_counter() - t0
+        lines = [ln[len(rf.TAG):] for ln in res.stdout.splitlines()
+                 if ln.startswith(rf.TAG)]
+        if res.returncode != 0 or not lines:
+            fail(f"release feasibility {extra}: exit {res.returncode}\n"
+                 f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+        out = json.loads(lines[-1])
+        outs[out["compute_dtype"]] = out
+        print(f"[release feasibility] {out['compute_dtype']}: "
+              f"{out['params'] / 1e6:.1f}M parameters, first step "
+              f"{out['first_step_s']:.3f}s, steady step "
+              f"{out['steady_step_s'] * 1e3:.1f} ms "
+              f"({out['steps_per_s']:.2f} steps/s), peak "
+              f"{out['peak_bytes'] / 2 ** 30:.2f} GiB; total "
+              f"{out['logs']['total']:.6g}; {wall:.1f}s in its process; "
+              f"{out['card']}", flush=True)
+        if out["steps_taken"] != 6 or not all(
+                math.isfinite(v) for v in out["logs"].values()):
+            fail(f"release feasibility: {json.dumps(out)}")
+    if sorted(outs) != ["bfloat16", "float32"]:
+        fail(f"release feasibility ran {sorted(outs)}")
 
 
 BAND_CASES = {"K1 512": ("K1", K1_CASES["turntable"]),
@@ -3270,7 +3389,7 @@ def multi_rank_phase(dev):
             local = batch // data
             if kind == "vae":
                 want = {"K1": batch * 8 * RANK_STEPS,
-                        "K2a": local * 16 * RANK_STEPS,
+                        "K2a": 2 * local * 16 * RANK_STEPS,
                         "K2b": local * 16 * RANK_STEPS}
             else:
                 want = {"K1": batch * RANK_STEPS}
@@ -3496,16 +3615,22 @@ def import_phase(dev):
                   a, b, 3e-4, 1e-3)
 
 
-def probe_one(batch: int):
+def probe_one(batch: int, compute_dtype: str):
     import torch
     from gaussiananything_tpu_torch.cli import train_vae
+    from gaussiananything_tpu_torch.config import preset
     timers = []
-    out = {"batch": batch, "oom": False}
+    out = {"batch": batch, "compute_dtype": compute_dtype, "oom": False}
     with tempfile.TemporaryDirectory() as logdir:
+        cfg = preset("vae-release")
+        cfg.vae.compute_dtype = compute_dtype
+        path = os.path.join(logdir, "vae-release.json")
+        with open(path, "w") as f:
+            f.write(cfg.to_json())
         try:
-            train_vae.main(["--preset", "vae-release", "--steps", "2",
-                            "--batch", str(batch), "--logdir", logdir],
-                           timers=timers)
+            train_vae.main(["--config", path, "--steps", "2",
+                            "--batch", str(batch), "--logdir",
+                            os.path.join(logdir, "run")], timers=timers)
             out["step_seconds"] = {k: round(v, 4)
                                    for k, v in timers[-1].items()}
         except torch.OutOfMemoryError:      # the answer the probe is after
@@ -3516,11 +3641,14 @@ def probe_one(batch: int):
     print("PROBE " + json.dumps(out), flush=True)
 
 
-def probe_batches(batches):
+def probe_batches(args):
+    compute_dtype = "float32"
+    if args[:1] == ["--bf16"]:
+        compute_dtype, args = "bfloat16", args[1:]
     _, smi_line = device_phase()
-    for batch in batches or [8, 4, 2, 1]:
+    for batch in [int(a) for a in args] or [8, 4, 2, 1]:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--probe-one", str(batch)],
+                              "--probe-one", str(batch), compute_dtype],
                              capture_output=True, text=True)
         lines = [ln for ln in res.stdout.splitlines()
                  if ln.startswith("PROBE ")]
@@ -3535,9 +3663,9 @@ def probe_batches(batches):
 
 def main():
     if sys.argv[1:2] == ["--probe-one"]:
-        return probe_one(int(sys.argv[2]))
+        return probe_one(int(sys.argv[2]), sys.argv[3])
     if sys.argv[1:2] == ["--probe-batch"]:
-        return probe_batches([int(a) for a in sys.argv[2:]])
+        return probe_batches(sys.argv[2:])
     if sys.argv[1:2] == ["--rank-run"]:
         return rank_run(*sys.argv[2:5])
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3558,12 +3686,14 @@ def main():
     small_serving_phase(dev)
     paths["serving"] = serving_phase(dev)
     small_train_phase(dev)
-    paths["train"] = train_phase(dev)
+    paths["train"], train32 = train_phase(dev)
+    paths["train bf16"], _ = train_phase(dev, "bfloat16", against=train32)
     small_adv_train_phase(dev)
     paths["adv_train"] = adv_train_phase(dev)
     small_flow_train_phase(dev)
     paths["flow_train"] = flow_train_phase(dev)
     fm_release_batch_phase(dev)
+    release_feasibility_phase(dev)
     paths["raster_tools"] = raster_tools_phase(dev)
     paths["parity_512"] = parity_512_phase(dev)
     paths["multi_rank"] = multi_rank_phase(dev)

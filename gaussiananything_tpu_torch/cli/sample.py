@@ -200,9 +200,16 @@ def build_models(args, cfg, device) -> ReleaseModels:
         if args.stage2_cond_ckpt:
             models.cond2 = restore(args.stage2_cond_ckpt,
                                    copy.deepcopy(models.cond))
-    for m in dataclasses.astuple(models):
+    for f in dataclasses.fields(models):
+        m = getattr(models, f.name)     # (`astuple` would deep-copy them)
         if isinstance(m, nn.Module):
             m.eval()
+            if args.bf16:
+                # sampling only: the parameters themselves go to bf16 once
+                # restored, as the JAX CLI's `_cast` does; the modules
+                # compute in bf16 either way, the norms in fp32 from the
+                # rounded weights
+                m.to(torch.bfloat16)
     return models
 
 
@@ -261,9 +268,9 @@ def parse_args(argv=None):
                         "checkpoints (random weights from --seed)")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 inference: DiT, conditioner and VAE "
-                        "decoder weights and activations in bf16, norms and "
-                        "softmax in fp32; the gaussians the rasterizer "
-                        "reads stay fp32")
+                        "decoder compute in bf16 and their restored weights "
+                        "are cast to bf16; norms and softmax in fp32; the "
+                        "gaussians the rasterizer reads stay fp32")
     p.add_argument("--image-dir", default=None,
                    help="folder of real conditioning images (i23d); the "
                         "first serves every request")

@@ -18,7 +18,9 @@ classifier-free-guidance dropout (`sgm/modules/encoders/modules.py:
 159-166`), whose zeros are the unconditional branch that sampling uses
 (`unconditional`, or `torch.zeros_like` in `make_sampler`). The keep mask
 (B, 1, 1) is drawn from a `torch.Generator` on the host, or given.
-`dtype` is the compute dtype (`models/layers.py`).
+`dtype` is the compute dtype (`models/layers.py`): the parameters are
+fp32; the embeddings and the learned tokens enter the blocks cast to it,
+and the final norms return fp32, as the JAX backbones do.
 """
 from __future__ import annotations
 
@@ -77,14 +79,17 @@ class VisionTransformer(nn.Module):
     1e-5), a final LayerNorm (eps 1e-6) → (tokens, tokens[:, 0])."""
 
     def __init__(self, patch: int = 14, width: int = 1024, depth: int = 24,
-                 heads: int = 16, num_registers: int = 4):
+                 heads: int = 16, num_registers: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.width = width
-        self.patch_embed = SameConv2d(3, width, patch, stride=patch)
+        self.patch_embed = SameConv2d(3, width, patch, stride=patch,
+                                      dtype=dtype)
         self.cls_token = nn.Parameter(torch.randn(1, 1, width) * 0.02)
         self.reg_tokens = nn.Parameter(
             torch.randn(1, num_registers, width) * 0.02)
-        self.blocks = nn.ModuleList([TransformerBlock(width, heads)
+        self.blocks = nn.ModuleList([TransformerBlock(width, heads,
+                                                      dtype=dtype)
                                      for _ in range(depth)])
         self.norm = LayerNorm(width, eps=1e-6)
 
@@ -96,8 +101,9 @@ class VisionTransformer(nn.Module):
         x = x.flatten(2).transpose(1, 2)
         pos = torch.from_numpy(get_2d_sincos_pos_embed(self.width, g))
         x = x + pos.to(x.device, x.dtype)[None]
-        x = torch.cat([self.cls_token.expand(B, -1, -1),
-                       self.reg_tokens.expand(B, -1, -1), x], dim=1)
+        x = torch.cat([self.cls_token.expand(B, -1, -1).to(x.dtype),
+                       self.reg_tokens.expand(B, -1, -1).to(x.dtype), x],
+                      dim=1)
         for blk in self.blocks:
             x = blk(x)
         x = self.norm(x)
@@ -115,13 +121,12 @@ class ImageConditioner(nn.Module):
         self.backbone = backbone
         if backbone == "dinov2":
             self.vit = Dinov2ViT(width=width, depth=depth, heads=heads,
-                                 img_size=img_size)
+                                 img_size=img_size, dtype=dtype)
         elif backbone == "scratch":
             self.vit = VisionTransformer(width=width, depth=depth,
-                                         heads=heads)
+                                         heads=heads, dtype=dtype)
         else:
             raise ValueError(f"unknown image backbone {backbone!r}")
-        self.to(dtype)
 
     def forward(self, images: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
@@ -151,17 +156,20 @@ class TextTransformer(nn.Module):
     non-pad tokens."""
 
     def __init__(self, vocab: int = 257, width: int = 768, depth: int = 12,
-                 heads: int = 12, max_len: int = 77):
+                 heads: int = 12, max_len: int = 77,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.embed = nn.Embedding(vocab, width)
         self.pos = nn.Parameter(torch.randn(1, max_len, width) * 0.01)
-        self.blocks = nn.ModuleList([TransformerBlock(width, heads)
+        self.blocks = nn.ModuleList([TransformerBlock(width, heads,
+                                                      dtype=dtype)
                                      for _ in range(depth)])
         self.norm = LayerNorm(width, eps=1e-6)
 
     def forward(self, token_ids: torch.Tensor):
         """token_ids (B, max_len) int → (tokens (B, L, width), pooled)."""
-        x = self.embed(token_ids) + self.pos
+        x = self.embed(token_ids).to(self.dtype) + self.pos.to(self.dtype)
         for blk in self.blocks:
             x = blk(x)
         x = self.norm(x)
@@ -193,13 +201,13 @@ class TextConditioner(nn.Module):
                 OpenClipTextTower
             self.text = OpenClipTextTower(width=width, depth=depth,
                                           heads=heads, max_len=max_len,
-                                          embed_dim=width)
+                                          embed_dim=width, dtype=dtype)
         elif backbone == "bytes":
             self.text = TextTransformer(width=width, depth=depth,
-                                        heads=heads, max_len=max_len)
+                                        heads=heads, max_len=max_len,
+                                        dtype=dtype)
         else:
             raise ValueError(f"unknown text backbone {backbone!r}")
-        self.to(dtype)
 
     def forward(self, token_ids: torch.Tensor,
                 generator: Optional[torch.Generator] = None,

@@ -5,6 +5,9 @@ The reference conditions on torch-hub `dinov2_vitl14_reg` at 518 px
 (`sgm/modules/encoders/modules.py:791-933`). Parameter names are torch-hub's:
 cls_token, pos_embed, register_tokens, patch_embed.proj, blocks.{i}.{norm1,
 attn.qkv, attn.proj, ls1.gamma, norm2, mlp.fc1, mlp.fc2, ls2.gamma}, norm.
+`dtype` is the compute dtype (`models/layers.py`): the image, the learned
+tokens and the position table enter the blocks cast to it, as the JAX
+`Dinov2ViT`'s.
 """
 from __future__ import annotations
 
@@ -13,8 +16,9 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from gaussiananything_tpu_torch.models.layers import (Attention, LayerNorm,
-                                                      Mlp, exact_gelu)
+from gaussiananything_tpu_torch.models.layers import (Attention, Conv2d,
+                                                      LayerNorm, Mlp,
+                                                      exact_gelu)
 from gaussiananything_tpu_torch.utils.image import resize
 
 
@@ -28,13 +32,15 @@ class LayerScale(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, heads)
+        self.attn = Attention(dim, heads, dtype=dtype)
         self.ls1 = LayerScale(dim)
         self.norm2 = LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, act=exact_gelu)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, act=exact_gelu,
+                       dtype=dtype)
         self.ls2 = LayerScale(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -43,12 +49,13 @@ class Block(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    def __init__(self, patch: int, width: int):
+    def __init__(self, patch: int, width: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.proj = nn.Conv2d(3, width, patch, stride=patch)
+        self.proj = Conv2d(3, width, patch, stride=patch, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj(x.to(self.proj.weight.dtype))
+        return self.proj(x)
 
 
 def interpolate_pos_embed(pos: torch.Tensor, grid: int) -> torch.Tensor:
@@ -72,18 +79,18 @@ class Dinov2ViT(nn.Module):
 
     def __init__(self, patch: int = 14, width: int = 1024, depth: int = 24,
                  heads: int = 16, num_registers: int = 4,
-                 img_size: int = 518):
+                 img_size: int = 518, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.patch = patch
         self.width = width
         self.num_registers = num_registers
         n0 = (img_size // patch) ** 2
-        self.patch_embed = PatchEmbed(patch, width)
+        self.patch_embed = PatchEmbed(patch, width, dtype=dtype)
         self.cls_token = nn.Parameter(torch.randn(1, 1, width) * 1e-6)
         self.pos_embed = nn.Parameter(torch.randn(1, 1 + n0, width) * 0.02)
         self.register_tokens = nn.Parameter(
             torch.randn(1, num_registers, width) * 1e-6)
-        self.blocks = nn.ModuleList([Block(width, heads)
+        self.blocks = nn.ModuleList([Block(width, heads, dtype=dtype)
                                      for _ in range(depth)])
         self.norm = LayerNorm(width, eps=1e-6)
 
@@ -97,10 +104,12 @@ class Dinov2ViT(nn.Module):
         x = self.patch_embed(images)                        # (B, D, g, g)
         grid = x.shape[-1]
         x = x.flatten(2).transpose(1, 2)                    # (B, g², D)
-        x = torch.cat([self.cls_token.expand(B, -1, -1), x], dim=1)
+        x = torch.cat([self.cls_token.expand(B, -1, -1).to(x.dtype), x],
+                      dim=1)
         x = x + interpolate_pos_embed(self.pos_embed, grid).to(x.dtype)
         # registers go in AFTER the pos add: they carry no position
-        x = torch.cat([x[:, :1], self.register_tokens.expand(B, -1, -1),
+        x = torch.cat([x[:, :1],
+                       self.register_tokens.expand(B, -1, -1).to(x.dtype),
                        x[:, 1:]], dim=1)
         for blk in self.blocks:
             x = blk(x)

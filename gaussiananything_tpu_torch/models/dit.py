@@ -26,8 +26,9 @@ plain Linear (`vector_proj`), the tokens are projected to the width
 the tanh GELU, and the final layer takes its shift/scale from a Linear on
 SiLU(t-embedding) with an RMSNorm.
 
-`dtype` is the compute dtype: the weights are held in it (`--bf16`), norms
-and softmaxes run in fp32 (`models/layers.py`); the velocity is fp32.
+`dtype` is the compute dtype (`models/layers.py`): the parameters are
+fp32, the products run in it, the norms, softmaxes and the adaLN sums with
+the fp32 `scale_shift_table`s in fp32; the velocity is fp32.
 
 `remat` recomputes each block's activations in the backward instead of
 holding them (the JAX package's `nn.remat` per block, which its
@@ -61,16 +62,17 @@ class ClayDiTBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, ctx_dim: int,
                  mlp_ratio: float = 4.0, release_parity: bool = True,
-                 variant: str = "clay"):
+                 variant: str = "clay", dtype: torch.dtype = torch.float32):
         super().__init__()
         if variant not in ("clay", "text"):
             raise ValueError(f"unknown block variant {variant!r}")
         self.variant = variant
         self.norm1 = RMSNorm(dim)
         self.norm2 = RMSNorm(dim)
-        self.attn = Attention(dim, heads, qk_norm=True)
+        self.attn = Attention(dim, heads, qk_norm=True, dtype=dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim,
-                       act=exact_gelu if release_parity else approx_gelu)
+                       act=exact_gelu if release_parity else approx_gelu,
+                       dtype=dtype)
         self.scale_shift_table = nn.Parameter(
             torch.randn(6, dim) * (0.02 / dim ** 0.5))
         if release_parity:
@@ -78,9 +80,10 @@ class ClayDiTBlock(nn.Module):
             # (`:346-347`); equal at every release width
             ca = CrossAttention(dim, ctx_dim, heads,
                                 dim_head=dim // heads if variant == "clay"
-                                else 64, qk_norm=True)
+                                else 64, qk_norm=True, dtype=dtype)
         else:
-            ca = CrossAttention(dim, ctx_dim, heads, qkv_bias=True)
+            ca = CrossAttention(dim, ctx_dim, heads, qkv_bias=True,
+                                dtype=dtype)
         if variant == "clay":
             self.cross_attn_dino = ca
             self.prenorm_ca_dino = RMSNorm(dim)
@@ -115,7 +118,8 @@ class FinalLayer(nn.Module):
     `release_parity` the shift/scale come from `adaLN_modulation` on the
     t-embedding and the norm is an RMSNorm."""
 
-    def __init__(self, dim: int, out_ch: int, release_parity: bool = True):
+    def __init__(self, dim: int, out_ch: int, release_parity: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if release_parity:
             self.norm_final = LayerNorm(dim, elementwise_affine=False,
@@ -123,9 +127,9 @@ class FinalLayer(nn.Module):
             self.adaLN_modulation = None
         else:
             self.norm_final = RMSNorm(dim)
-            self.adaLN_modulation = nn.Sequential(nn.SiLU(),
-                                                  Linear(dim, 2 * dim))
-        self.linear = Linear(dim, out_ch)
+            self.adaLN_modulation = nn.Sequential(
+                nn.SiLU(), Linear(dim, 2 * dim, dtype=dtype))
+        self.linear = Linear(dim, out_ch, dtype=dtype)
         self.scale_shift_table = nn.Parameter(
             torch.randn(2, dim) * (0.02 / dim ** 0.5))
 
@@ -150,33 +154,33 @@ class PointDiT(nn.Module):
         self.remat = remat
         self.width = width
         self.release_parity = release_parity
-        self.x_embedder = Mlp(in_channels, width, width)
-        self.t_embedder = TimestepEmbedder(width)
+        self.dtype = dtype
+        self.x_embedder = Mlp(in_channels, width, width, dtype=dtype)
+        self.t_embedder = TimestepEmbedder(width, dtype=dtype)
         if release_parity:
             # the t23d checkpoints name it `cap_embedder`
             self.vec_name = ("cap_embedder" if variant == "text"
                              else "pooled_vec_embedder")
             self.add_module(self.vec_name, nn.Sequential(
-                LayerNorm(vector_dim, eps=1e-5), Linear(vector_dim, width)))
+                LayerNorm(vector_dim, eps=1e-5),
+                Linear(vector_dim, width, dtype=dtype)))
             self.cond_proj = None
         else:
             self.vec_name = "vector_proj"
-            self.vector_proj = Linear(vector_dim, width)
-            self.cond_proj = Linear(cond_dim, width)
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(),
-                                              Linear(width, 6 * width))
+            self.vector_proj = Linear(vector_dim, width, dtype=dtype)
+            self.cond_proj = Linear(cond_dim, width, dtype=dtype)
+        self.adaLN_modulation = nn.Sequential(
+            nn.SiLU(), Linear(width, 6 * width, dtype=dtype))
         ctx_dim = cond_dim if release_parity else width
         self.blocks = nn.ModuleList([
             ClayDiTBlock(width, heads, ctx_dim,
-                         release_parity=release_parity, variant=variant)
+                         release_parity=release_parity, variant=variant,
+                         dtype=dtype)
             for _ in range(depth)])
-        self.final_layer = FinalLayer(width, in_channels, release_parity)
-        self.xyz_pos_embed = XYZPosEmbed(width) if use_xyz_pe else None
-        self.to(dtype)
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.final_layer.linear.weight.dtype
+        self.final_layer = FinalLayer(width, in_channels, release_parity,
+                                      dtype=dtype)
+        self.xyz_pos_embed = XYZPosEmbed(width, dtype=dtype) \
+            if use_xyz_pe else None
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 cond_tokens: torch.Tensor, cond_vector: torch.Tensor,

@@ -9,7 +9,8 @@ EVEN blocks attend within each of the 3 contiguous K/3-token groups, ODD
 blocks globally; attention is qk-normed, MLPs use exact GELU, and no norm
 follows the last block. Without `release_parity` every block attends
 globally, without qk-norm and with the tanh GELU, and a LayerNorm (`norm`)
-follows the last block.
+follows the last block. `dtype` is the compute dtype (`models/layers.py`):
+the query table enters the blocks cast to it, as the JAX trunk's.
 """
 from __future__ import annotations
 
@@ -24,15 +25,18 @@ from gaussiananything_tpu_torch.models.layers import (Attention, LayerNorm,
 
 class DiTBlock2(nn.Module):
     def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0,
-                 release_parity: bool = True):
+                 release_parity: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm1 = LayerNorm(dim, elementwise_affine=False, eps=1e-6)
         self.norm2 = LayerNorm(dim, elementwise_affine=False, eps=1e-6)
-        self.attn = Attention(dim, heads, qk_norm=release_parity)
+        self.attn = Attention(dim, heads, qk_norm=release_parity,
+                              dtype=dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim,
-                       act=exact_gelu if release_parity else approx_gelu)
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(),
-                                              Linear(dim, 6 * dim))
+                       act=exact_gelu if release_parity else approx_gelu,
+                       dtype=dtype)
+        self.adaLN_modulation = nn.Sequential(
+            nn.SiLU(), Linear(dim, 6 * dim, dtype=dtype))
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         """x, c: (B, K, D); c is the per-token conditioning."""
@@ -45,9 +49,11 @@ class DiTBlock2(nn.Module):
 class DiT2(nn.Module):
     def __init__(self, num_tokens: int = 768, width: int = 768,
                  depth: int = 12, heads: int = 12, plane_n: int = 3,
-                 release_parity: bool = True):
+                 release_parity: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.release_parity = release_parity
+        self.dtype = dtype
         if release_parity and num_tokens % plane_n:
             raise ValueError(f"{num_tokens} tokens do not split into "
                              f"{plane_n} planes")
@@ -55,15 +61,15 @@ class DiT2(nn.Module):
         self.pos_embed = nn.Parameter(
             torch.randn(1, num_tokens, width) * 0.02)
         self.blocks = nn.ModuleList(
-            [DiTBlock2(width, heads, release_parity=release_parity)
-             for _ in range(depth)])
+            [DiTBlock2(width, heads, release_parity=release_parity,
+                       dtype=dtype) for _ in range(depth)])
         self.norm = None if release_parity else LayerNorm(width, eps=1e-6)
 
     def forward(self, c: torch.Tensor) -> torch.Tensor:
         """c (B, K, D) projected latent tokens → (B, K, D)."""
         B, K, D = c.shape
         n = self.plane_n
-        x = self.pos_embed.expand(B, -1, -1)
+        x = self.pos_embed.expand(B, -1, -1).to(self.dtype)
         for i, blk in enumerate(self.blocks):
             if self.release_parity and i % 2 == 0:
                 x = blk(x.reshape(B * n, K // n, D),

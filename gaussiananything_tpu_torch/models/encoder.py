@@ -7,6 +7,7 @@ in one set → Fourier position embedding of each token's unprojected xyz
 anchors of the surface point cloud (`:533-538`) → the anchors cross-attend
 to the tokens (`agg_ca`, `:475-479,594`) → a small SRT transformer
 (`:461-468,602`) → pre-norm MLP to 2·z_channels (`:487-494,604`).
+`dtype` is the compute dtype (`models/layers.py`), as the JAX encoder's.
 """
 from __future__ import annotations
 
@@ -17,8 +18,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gaussiananything_tpu_torch.models.layers import (
-    Attention, CrossAttention, CrossAttentionBlock, GroupNorm32, Mlp,
-    ResBlock, SameConv2d, TransformerBlock, XYZPosEmbed, exact_gelu)
+    Attention, CrossAttention, CrossAttentionBlock, GroupNorm32, LayerNorm,
+    Linear, Mlp, ResBlock, SameConv2d, TransformerBlock, XYZPosEmbed,
+    exact_gelu)
 from gaussiananything_tpu_torch.models.sd_encoder import SDEncoderTrunk
 from gaussiananything_tpu_torch.ops.fps import sample_farthest_points
 
@@ -30,23 +32,23 @@ class MVConvEncoder(nn.Module):
 
     def __init__(self, in_ch: int = 15, ch: int = 64,
                  ch_mult: Sequence[int] = (1, 2, 4, 4), out_ch: int = 256,
-                 heads: int = 8):
+                 heads: int = 8, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv_in = SameConv2d(in_ch, ch, 3)
+        self.conv_in = SameConv2d(in_ch, ch, 3, dtype=dtype)
         self.blocks = nn.ModuleList()
         self.downs = nn.ModuleList()
         c = ch
         for i, mult in enumerate(ch_mult):
-            self.blocks.append(ResBlock(c, ch * mult))
+            self.blocks.append(ResBlock(c, ch * mult, dtype=dtype))
             c = ch * mult
             if i < len(ch_mult) - 1:
-                self.downs.append(SameConv2d(c, c, 3, stride=2))
-        self.mid_block_1 = ResBlock(c, c)
-        self.mid_norm = nn.LayerNorm(c, eps=1e-6)
-        self.mid_attn = Attention(c, heads)
-        self.mid_block_2 = ResBlock(c, c)
+                self.downs.append(SameConv2d(c, c, 3, stride=2, dtype=dtype))
+        self.mid_block_1 = ResBlock(c, c, dtype=dtype)
+        self.mid_norm = LayerNorm(c, eps=1e-6)
+        self.mid_attn = Attention(c, heads, dtype=dtype)
+        self.mid_block_2 = ResBlock(c, c, dtype=dtype)
         self.norm_out = GroupNorm32(c)
-        self.conv_out = SameConv2d(c, out_ch, 3)
+        self.conv_out = SameConv2d(c, out_ch, 3, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, V, C, H, W = x.shape
@@ -85,7 +87,8 @@ class HybridPCDEncoder(nn.Module):
     def __init__(self, latent_num: int = 768, z_channels: int = 10,
                  width: int = 384, conv_ch: int = 64, conv_out: int = 256,
                  srt_depth: int = 3, heads: int = 8, downsample: int = 8,
-                 release_parity: bool = False):
+                 release_parity: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.latent_num = latent_num
         self.downsample = downsample
@@ -94,22 +97,25 @@ class HybridPCDEncoder(nn.Module):
             if width != conv_out:
                 raise ValueError("parity mode runs at the conv trunk width "
                                  f"({conv_out}), got width={width}")
-            self.sd_trunk = SDEncoderTrunk(ch=conv_ch)
-            self.xyz_pos_embed = XYZPosEmbed(width)
+            self.sd_trunk = SDEncoderTrunk(ch=conv_ch, dtype=dtype)
+            self.xyz_pos_embed = XYZPosEmbed(width, dtype=dtype)
             self.agg_ca = CrossAttention(width, width, heads, dim_head=64,
-                                         qk_norm=True, qkv_bias=False)
+                                         qk_norm=True, qkv_bias=False,
+                                         dtype=dtype)
         else:
             self.conv = MVConvEncoder(ch=conv_ch, out_ch=conv_out,
-                                      heads=heads)
-            self.token_proj = nn.Linear(conv_out, width)
-            self.token_embed = XYZPosEmbed(width)
-            self.anchor_embed = XYZPosEmbed(width)
-            self.agg_ca = CrossAttentionBlock(width, heads, qk_norm=True)
+                                      heads=heads, dtype=dtype)
+            self.token_proj = Linear(conv_out, width, dtype=dtype)
+            self.token_embed = XYZPosEmbed(width, dtype=dtype)
+            self.anchor_embed = XYZPosEmbed(width, dtype=dtype)
+            self.agg_ca = CrossAttentionBlock(width, heads, qk_norm=True,
+                                              dtype=dtype)
         kw = dict(qk_norm=True, act=exact_gelu) if release_parity else {}
         self.srt = nn.ModuleList(
-            [TransformerBlock(width, heads, **kw) for _ in range(srt_depth)])
-        self.norm_out = nn.LayerNorm(width, eps=1e-5)
-        self.mlp_out = Mlp(width, width, 2 * z_channels)
+            [TransformerBlock(width, heads, dtype=dtype, **kw)
+             for _ in range(srt_depth)])
+        self.norm_out = LayerNorm(width, eps=1e-5)
+        self.mlp_out = Mlp(width, width, 2 * z_channels, dtype=dtype)
 
     def forward(self, images: torch.Tensor, pcd: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

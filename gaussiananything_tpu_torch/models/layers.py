@@ -19,13 +19,19 @@ Attention is plain PyTorch, the same math as the JAX package's XLA path
 (`layers.py:32-68`): matmul, fp32 softmax, matmul, computed in query blocks
 once the score matrix would exceed 4096² elements.
 
-The compute dtype (the JAX modules' `dtype`, `--bf16`) is the dtype a
-module's weights are held in: `Linear` and `SameConv2d` cast their input to
-their weight's dtype, while `LayerNorm` and `RMSNorm` compute and return
-fp32 whatever their weights' dtype, as the JAX package pins every norm with
-`dtype=jnp.float32`. Attention scores and the softmax are fp32; the
-probabilities are cast back to the values' dtype for the second product
-(`jax.nn.dot_product_attention`).
+`dtype` is the compute dtype, the JAX modules' `dtype`: mixed precision
+as `config.VAEModelConfig.compute_dtype` defines it. The parameters are
+fp32 whatever it is. `Linear`, `Conv2d` and `SameConv2d` cast their
+input, weight and bias to it at the point of use (flax `nn.Dense(dtype=
+...)`'s promotion), so under bfloat16 the products run in bf16 and
+autograd returns fp32 gradients to the fp32 parameters. `LayerNorm`,
+`RMSNorm` and `GroupNorm32` compute and return fp32, as the JAX package
+pins every norm with `dtype=jnp.float32`. Attention scores and the softmax
+are fp32; the probabilities are cast back to the values' dtype for the
+second product (`jax.nn.dot_product_attention`). A module whose
+parameters were themselves cast to bf16 (the sampling-only cast of
+`cli/sample.py --bf16`, as the JAX CLI's) computes the same way, its
+norms reading the rounded weights.
 """
 from __future__ import annotations
 
@@ -123,21 +129,34 @@ class LayerNorm(nn.LayerNorm):
         return F.layer_norm(x.float(), self.normalized_shape, w, b, self.eps)
 
 
+def _at(t: Optional[torch.Tensor], dtype: torch.dtype
+        ) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
 class Linear(nn.Linear):
-    """`nn.Linear` that computes in its weight's dtype: the input is cast
-    to it (flax `nn.Dense(dtype=...)`)."""
+    """`nn.Linear` with fp32 parameters that computes in `dtype`: input,
+    weight and bias are cast to it at use (flax `nn.Dense(dtype=...)`)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        _at(self.bias, self.dtype))
 
 
 class Mlp(nn.Module):
     def __init__(self, d_in: int, hidden: int, d_out: Optional[int] = None,
-                 act: Callable = approx_gelu):
+                 act: Callable = approx_gelu,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = act
-        self.fc1 = Linear(d_in, hidden)
-        self.fc2 = Linear(hidden, d_out or d_in)
+        self.dtype = dtype
+        self.fc1 = Linear(d_in, hidden, dtype=dtype)
+        self.fc2 = Linear(hidden, d_out or d_in, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.act(self.fc1(x)))
@@ -148,14 +167,15 @@ class Attention(nn.Module):
     RMSNorm on q and k (the JAX `Attention` with `context=None`)."""
 
     def __init__(self, dim: int, heads: int, qk_norm: bool = False,
-                 qkv_bias: bool = True):
+                 qkv_bias: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.heads = heads
+        self.dtype = dtype
         dh = dim // heads
-        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
+        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
         self.q_norm = RMSNorm(dh) if qk_norm else None
         self.k_norm = RMSNorm(dh) if qk_norm else None
-        self.proj = Linear(dim, dim)
+        self.proj = Linear(dim, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, D = x.shape
@@ -174,17 +194,18 @@ class CrossAttention(nn.Module):
 
     def __init__(self, dim: int, context_dim: int, heads: int,
                  dim_head: Optional[int] = None, qk_norm: bool = False,
-                 qkv_bias: bool = False):
+                 qkv_bias: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.heads = heads
+        self.dtype = dtype
         dh = dim_head or dim // heads
         inner = dh * heads
-        self.to_q = Linear(dim, inner, bias=qkv_bias)
-        self.to_k = Linear(context_dim, inner, bias=qkv_bias)
-        self.to_v = Linear(context_dim, inner, bias=qkv_bias)
+        self.to_q = Linear(dim, inner, bias=qkv_bias, dtype=dtype)
+        self.to_k = Linear(context_dim, inner, bias=qkv_bias, dtype=dtype)
+        self.to_v = Linear(context_dim, inner, bias=qkv_bias, dtype=dtype)
         self.q_norm = RMSNorm(dh) if qk_norm else None
         self.k_norm = RMSNorm(dh) if qk_norm else None
-        self.to_out = nn.Sequential(Linear(inner, dim))
+        self.to_out = nn.Sequential(Linear(inner, dim, dtype=dtype))
 
     def forward(self, x: torch.Tensor, context: torch.Tensor
                 ) -> torch.Tensor:
@@ -215,11 +236,15 @@ class TransformerBlock(nn.ModuleList):
     x + attn(LN(x)), then + mlp(LN(x)); LayerNorm eps 1e-5."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0,
-                 qk_norm: bool = False, act: Callable = approx_gelu):
+                 qk_norm: bool = False, act: Callable = approx_gelu,
+                 dtype: torch.dtype = torch.float32):
         super().__init__([
-            PreNorm(dim, Attention(dim, heads, qk_norm=qk_norm)),
-            PreNorm(dim, Mlp(dim, int(dim * mlp_ratio), dim, act=act)),
+            PreNorm(dim, Attention(dim, heads, qk_norm=qk_norm,
+                                   dtype=dtype)),
+            PreNorm(dim, Mlp(dim, int(dim * mlp_ratio), dim, act=act,
+                             dtype=dtype)),
         ])
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self[0](x)
@@ -245,14 +270,15 @@ class CrossAttentionBlock(nn.Module):
     queries attend to LN(kv tokens) with q/k RMSNorm and biased q/k/v."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0,
-                 qk_norm: bool = True):
+                 qk_norm: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.norm_q = LayerNorm(dim, eps=1e-5)
         self.norm_kv = LayerNorm(dim, eps=1e-5)
         self.attn = CrossAttention(dim, dim, heads, qk_norm=qk_norm,
-                                   qkv_bias=True)
+                                   qkv_bias=True, dtype=dtype)
         self.norm_mlp = LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype)
 
     def forward(self, q_tokens: torch.Tensor, kv_tokens: torch.Tensor
                 ) -> torch.Tensor:
@@ -276,10 +302,13 @@ def fourier_embed(x: torch.Tensor, multires: int = 10,
 class XYZPosEmbed(nn.Module):
     """Fourier-encode xyz, then a linear projection (`xyz_projection`)."""
 
-    def __init__(self, dim: int, multires: int = 10):
+    def __init__(self, dim: int, multires: int = 10,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.multires = multires
-        self.xyz_projection = Linear(3 * (2 * multires + 1), dim)
+        self.dtype = dtype
+        self.xyz_projection = Linear(3 * (2 * multires + 1), dim,
+                                     dtype=dtype)
 
     def forward(self, xyz: torch.Tensor) -> torch.Tensor:
         return self.xyz_projection(fourier_embed(xyz.float(), self.multires))
@@ -289,11 +318,14 @@ class TimestepEmbedder(nn.Module):
     """Sinusoidal (cos first, 256 frequencies) embedding + 2-layer SiLU MLP
     (`dit/dit_models_xformers.py:88`)."""
 
-    def __init__(self, hidden: int, freq_dim: int = 256):
+    def __init__(self, hidden: int, freq_dim: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.freq_dim = freq_dim
-        self.mlp = nn.Sequential(Linear(freq_dim, hidden), nn.SiLU(),
-                                 Linear(hidden, hidden))
+        self.dtype = dtype
+        self.mlp = nn.Sequential(Linear(freq_dim, hidden, dtype=dtype),
+                                 nn.SiLU(), Linear(hidden, hidden,
+                                                   dtype=dtype))
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         half = self.freq_dim // 2
@@ -303,16 +335,33 @@ class TimestepEmbedder(nn.Module):
         return self.mlp(torch.cat([torch.cos(args), torch.sin(args)], -1))
 
 
-class SameConv2d(nn.Conv2d):
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` with fp32 parameters that computes in `dtype` (flax
+    `nn.Conv(dtype=...)`), as `Linear` does."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int, stride: int = 1,
+                 padding: int = 0, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(c_in, c_out, kernel, stride=stride,
+                         padding=padding, bias=bias)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x.to(self.dtype),
+                                  self.weight.to(self.dtype),
+                                  _at(self.bias, self.dtype))
+
+
+class SameConv2d(Conv2d):
     """Conv2d with flax's "SAME" padding on NCHW input: the output is
     ceil(size / stride), the total padding split with the extra pixel at
     the bottom/right (torch's own padding is symmetric, which differs for a
     stride-2 kernel on an even size)."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int, stride: int = 1,
-                 bias: bool = True):
-        super().__init__(c_in, c_out, kernel, stride=stride, padding=0,
-                         bias=bias)
+                 bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__(c_in, c_out, kernel, stride=stride, bias=bias,
+                         dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, s = self.kernel_size[0], self.stride[0]
@@ -320,7 +369,7 @@ class SameConv2d(nn.Conv2d):
         for size in (x.shape[-1], x.shape[-2]):         # F.pad: W first
             total = max((-(-size // s) - 1) * s + k - size, 0)
             pads += [total // 2, total - total // 2]
-        return super().forward(F.pad(x.to(self.weight.dtype), pads))
+        return super().forward(F.pad(x.to(self.dtype), pads))
 
 
 class GroupNorm32(nn.GroupNorm):
@@ -341,13 +390,15 @@ class ResBlock(nn.Module):
     diffusionmodules/model.py:469` with temb_channels=0, dropout=0), whose
     parameter names it takes."""
 
-    def __init__(self, c_in: int, c_out: int):
+    def __init__(self, c_in: int, c_out: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.norm1 = GroupNorm32(c_in)
-        self.conv1 = SameConv2d(c_in, c_out, 3)
+        self.conv1 = SameConv2d(c_in, c_out, 3, dtype=dtype)
         self.norm2 = GroupNorm32(c_out)
-        self.conv2 = SameConv2d(c_out, c_out, 3)
-        self.nin_shortcut = SameConv2d(c_in, c_out, 1) \
+        self.conv2 = SameConv2d(c_out, c_out, 3, dtype=dtype)
+        self.nin_shortcut = SameConv2d(c_in, c_out, 1, dtype=dtype) \
             if c_in != c_out else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -45,29 +45,33 @@ class ClipAttention(nn.Module):
     """torch `nn.MultiheadAttention`'s parameters: one packed in-projection
     ([q; k; v] on the output dim) and `out_proj`."""
 
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.heads = heads
+        self.dtype = dtype
         self.in_proj_weight = nn.Parameter(
             torch.randn(3 * width, width) / width ** 0.5)
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
-        self.out_proj = Linear(width, width)
+        self.out_proj = Linear(width, width, dtype=dtype)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         B, L, D = x.shape
-        w = self.in_proj_weight
-        qkv = F.linear(x.to(w.dtype), w, self.in_proj_bias)
+        dt = self.dtype
+        qkv = F.linear(x.to(dt), self.in_proj_weight.to(dt),
+                       self.in_proj_bias.to(dt))
         q, k, v = (t.reshape(B, L, self.heads, D // self.heads)
                    for t in qkv.chunk(3, dim=-1))
         return self.out_proj(dot_attention(q, k, v, mask).reshape(B, L, D))
 
 
 class ClipMlp(nn.Module):
-    def __init__(self, width: int, quick: bool = True):
+    def __init__(self, width: int, quick: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = quick_gelu if quick else F.gelu
-        self.c_fc = Linear(width, 4 * width)
-        self.c_proj = Linear(4 * width, width)
+        self.c_fc = Linear(width, 4 * width, dtype=dtype)
+        self.c_proj = Linear(4 * width, width, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.c_proj(self.act(self.c_fc(x)))
@@ -77,12 +81,13 @@ class ClipResBlock(nn.Module):
     """open_clip `ResidualAttentionBlock`: x + attn(ln_1(x)), then
     x + mlp(ln_2(x)); LayerNorm eps 1e-5."""
 
-    def __init__(self, width: int, heads: int, quick_gelu: bool = True):
+    def __init__(self, width: int, heads: int, quick_gelu: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.ln_1 = LayerNorm(width, eps=1e-5)
-        self.attn = ClipAttention(width, heads)
+        self.attn = ClipAttention(width, heads, dtype=dtype)
         self.ln_2 = LayerNorm(width, eps=1e-5)
-        self.mlp = ClipMlp(width, quick_gelu)
+        self.mlp = ClipMlp(width, quick_gelu, dtype=dtype)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x), mask)
@@ -91,10 +96,11 @@ class ClipResBlock(nn.Module):
 
 class ClipTransformer(nn.Module):
     def __init__(self, width: int, depth: int, heads: int,
-                 quick_gelu: bool = True):
+                 quick_gelu: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.resblocks = nn.ModuleList([ClipResBlock(width, heads, quick_gelu)
-                                        for _ in range(depth)])
+        self.resblocks = nn.ModuleList([
+            ClipResBlock(width, heads, quick_gelu, dtype=dtype)
+            for _ in range(depth)])
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         for blk in self.resblocks:
@@ -108,12 +114,14 @@ class OpenClipTextTower(nn.Module):
 
     def __init__(self, vocab: int = 49408, width: int = 768, depth: int = 12,
                  heads: int = 12, max_len: int = 77, embed_dim: int = 768,
-                 quick_gelu: bool = True):
+                 quick_gelu: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.token_embedding = nn.Embedding(vocab, width)
         self.positional_embedding = nn.Parameter(
             torch.randn(max_len, width) * 0.01)
-        self.transformer = ClipTransformer(width, depth, heads, quick_gelu)
+        self.transformer = ClipTransformer(width, depth, heads, quick_gelu,
+                                           dtype=dtype)
         self.ln_final = LayerNorm(width, eps=1e-5)
         self.text_projection = nn.Parameter(
             torch.randn(width, embed_dim) * 0.01)
@@ -121,7 +129,8 @@ class OpenClipTextTower(nn.Module):
     def forward(self, token_ids: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         B, L = token_ids.shape
-        x = self.token_embedding(token_ids) + self.positional_embedding[:L]
+        x = self.token_embedding(token_ids).to(self.dtype) \
+            + self.positional_embedding[:L].to(self.dtype)
         # open_clip's additive causal mask
         causal = torch.full((L, L), float("-inf"), device=x.device).triu(1)
         tokens = self.transformer(x, causal[None, None])

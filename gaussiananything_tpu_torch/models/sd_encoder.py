@@ -9,7 +9,9 @@ are the reference's: `conv_in`, `down.{i}.block.0`, `down.{i}.downsample.
 conv`, `mid.block_1`, `mid.attn_1`, `mid.block_2`, `norm_out`.
 
 Tensors are NCHW inside (the JAX package runs NHWC); the public layout is
-(B, V, C, H, W) in and out.
+(B, V, C, H, W) in and out. `dtype` is the compute dtype of the convs and
+linear layers (`models/layers.py`); the norms are fp32, and so is the
+trunk's output (`norm_out`).
 """
 from __future__ import annotations
 
@@ -19,8 +21,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from gaussiananything_tpu_torch.models.layers import (Attention, GroupNorm32,
-                                                      ResBlock, exact_gelu)
+from gaussiananything_tpu_torch.models.layers import (Attention, Conv2d,
+                                                      GroupNorm32, LayerNorm,
+                                                      Linear, ResBlock,
+                                                      exact_gelu)
 
 SDResnetBlock = ResBlock
 
@@ -28,9 +32,9 @@ SDResnetBlock = ResBlock
 class SDDownsample(nn.Module):
     """`Downsample`: pad (0,1,0,1), then a VALID 3x3 stride-2 conv."""
 
-    def __init__(self, ch: int):
+    def __init__(self, ch: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3, stride=2, padding=0)
+        self.conv = Conv2d(ch, ch, 3, stride=2, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(F.pad(x, (0, 1, 0, 1)))
@@ -40,12 +44,13 @@ class GEGLUFeedForward(nn.Module):
     """`FeedForward(glu=True)`: GEGLU projection dim → 2·4·dim, then a
     Linear back (`ldm/modules/attention.py`; names `net.0.proj`, `net.2`)."""
 
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         geglu = nn.Module()
-        geglu.proj = nn.Linear(dim, 2 * dim * mult)
+        geglu.proj = Linear(dim, 2 * dim * mult, dtype=dtype)
         self.net = nn.ModuleList([geglu, nn.Identity(),
-                                  nn.Linear(dim * mult, dim)])
+                                  Linear(dim * mult, dim, dtype=dtype)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.net[0].proj(x).chunk(2, dim=-1)
@@ -59,18 +64,19 @@ class MVMidAttention(nn.Module):
     around the whole module with a zero-initialised `proj_out`. GroupNorm
     statistics are per view. Input and output (B, V, C, h, w)."""
 
-    def __init__(self, ch: int, heads: int = 8, dim_head: int = 64):
+    def __init__(self, ch: int, heads: int = 8, dim_head: int = 64,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm32(ch)
-        self.proj_in = nn.Linear(ch, inner)
-        self.norm1 = nn.LayerNorm(inner, eps=1e-5)
-        self.attn1 = Attention(inner, heads, qkv_bias=False)
-        self.norm2 = nn.LayerNorm(inner, eps=1e-5)
-        self.attn2 = Attention(inner, heads, qkv_bias=False)
-        self.norm3 = nn.LayerNorm(inner, eps=1e-5)
-        self.ff = GEGLUFeedForward(inner)
-        self.proj_out = nn.Linear(inner, ch)
+        self.proj_in = Linear(ch, inner, dtype=dtype)
+        self.norm1 = LayerNorm(inner, eps=1e-5)
+        self.attn1 = Attention(inner, heads, qkv_bias=False, dtype=dtype)
+        self.norm2 = LayerNorm(inner, eps=1e-5)
+        self.attn2 = Attention(inner, heads, qkv_bias=False, dtype=dtype)
+        self.norm3 = LayerNorm(inner, eps=1e-5)
+        self.ff = GEGLUFeedForward(inner, dtype=dtype)
+        self.proj_out = Linear(inner, ch, dtype=dtype)
         nn.init.zeros_(self.proj_out.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -91,22 +97,24 @@ class SDEncoderTrunk(nn.Module):
     silu(norm_out(mid))."""
 
     def __init__(self, in_ch: int = 15, ch: int = 64,
-                 ch_mult: Sequence[int] = (1, 2, 4, 4)):
+                 ch_mult: Sequence[int] = (1, 2, 4, 4),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv_in = nn.Conv2d(in_ch, ch, 3, padding=1)
+        self.conv_in = Conv2d(in_ch, ch, 3, padding=1, dtype=dtype)
         self.down = nn.ModuleList()
         c = ch
         for i, mult in enumerate(ch_mult):
             level = nn.Module()
-            level.block = nn.ModuleList([ResBlock(c, ch * mult)])
+            level.block = nn.ModuleList([ResBlock(c, ch * mult,
+                                                  dtype=dtype)])
             c = ch * mult
             if i < len(ch_mult) - 1:
-                level.downsample = SDDownsample(c)
+                level.downsample = SDDownsample(c, dtype=dtype)
             self.down.append(level)
         self.mid = nn.Module()
-        self.mid.block_1 = ResBlock(c, c)
-        self.mid.attn_1 = MVMidAttention(c)
-        self.mid.block_2 = ResBlock(c, c)
+        self.mid.block_1 = ResBlock(c, c, dtype=dtype)
+        self.mid.attn_1 = MVMidAttention(c, dtype=dtype)
+        self.mid.block_2 = ResBlock(c, c, dtype=dtype)
         self.norm_out = GroupNorm32(c)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,8 @@ GELU); a pre-norm linear head gives the 13-channel residual, and the
 children's raw parameters are the parent's, repeated f times, plus it.
 Without `release_parity` the queries also carry the parent's xyz embedding
 (`xyz_embed`) and the transformer has 8 heads, no qk-norm, tanh GELU.
+`dtype` is the compute dtype (`models/layers.py`); the query table enters
+cast to it, as the JAX upsampler's.
 """
 from __future__ import annotations
 
@@ -23,19 +25,23 @@ from gaussiananything_tpu_torch.models.layers import (Linear, PreNorm,
 
 class GaussianUpsampler(nn.Module):
     def __init__(self, dim: int, factor: int, depth: int = 1,
-                 release_parity: bool = True, heads: int = 8):
+                 release_parity: bool = True, heads: int = 8,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.factor = factor
+        self.dtype = dtype
         self.latent_embedding = nn.Parameter(
             torch.randn(1, factor, dim) * 0.02)
         if release_parity:
             self.xyz_embed = None
             self.transformer = Transformer(dim, depth, dim // 64,
-                                           qk_norm=True, act=exact_gelu)
+                                           qk_norm=True, act=exact_gelu,
+                                           dtype=dtype)
         else:
-            self.xyz_embed = XYZPosEmbed(dim)
-            self.transformer = Transformer(dim, depth, heads)
-        self.gaussian_residual_pred = PreNorm(dim, Linear(dim, 13))
+            self.xyz_embed = XYZPosEmbed(dim, dtype=dtype)
+            self.transformer = Transformer(dim, depth, heads, dtype=dtype)
+        self.gaussian_residual_pred = PreNorm(dim, Linear(dim, 13,
+                                                          dtype=dtype))
 
     def forward(self, feat: torch.Tensor, raw_gaussians: torch.Tensor,
                 parent_xyz: Optional[torch.Tensor] = None
@@ -48,7 +54,7 @@ class GaussianUpsampler(nn.Module):
         residual alone (`vit/vit_triplane.py:1044-1049`)."""
         B, N, D = feat.shape
         f = self.factor
-        q = self.latent_embedding.expand(B * N, -1, -1)
+        q = self.latent_embedding.expand(B * N, -1, -1).to(self.dtype)
         if self.xyz_embed is not None:
             q = q + self.xyz_embed(parent_xyz).reshape(B * N, 1, D)
         grp = torch.cat([feat.reshape(B * N, 1, D), q], dim=1)

@@ -14,9 +14,11 @@ gaussian decoder (port of `gaussiananything_tpu/models/vae.py`).
 
 Parameter names are the reference AE's (`encoder.*`, `decoder.vit_decoder.*`,
 `decoder.superresolution.*`). Sampling builds the decoder alone
-(`with_encoder=False`); training builds both. `dtype` is the decoder's
-compute dtype (`--bf16`, `models/layers.py`); the activated gaussians that
-reach the rasterizer are fp32 whatever it is.
+(`with_encoder=False`); training builds both. `dtype` is the compute
+dtype of the encoder, the quant and post-quant MLPs, DiT2, the surfel head
+and the upsamplers (`models/layers.py`, JAX `models/vae.py:124-148`); the
+parameters, the latent statistics and the activated gaussians that reach
+the rasterizer are fp32 whatever it is.
 """
 from __future__ import annotations
 
@@ -64,9 +66,11 @@ class SurfelHead(nn.Module):
     (`vit/vit_triplane.py:287-341`): zero weights but rotation rows 1,
     biases 0 but raw scale `scale_bias` and rgb 0.5."""
 
-    def __init__(self, width: int, scale_bias: float = -2.5):
+    def __init__(self, width: int, scale_bias: float = -2.5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.gaussian_pred = nn.Sequential(nn.SiLU(), Linear(width, 13))
+        self.gaussian_pred = nn.Sequential(nn.SiLU(),
+                                           Linear(width, 13, dtype=dtype))
         lin = self.gaussian_pred[1]
         with torch.no_grad():
             lin.weight.zero_()
@@ -104,30 +108,32 @@ class PointVAE(nn.Module):
         self.latent_shape = (latent_num, z_channels)
         self.up_factors = tuple(up_factors)
         self.release_parity = release_parity
+        self.dtype = dtype
         sr = nn.ModuleDict({
             # timm Mlp with hidden = in (`vit/vit_triplane.py:1318-1326`)
-            "post_quant_conv": Mlp(z_channels, z_channels, decoder_width),
-            "conv_sr": SurfelHead(decoder_width, scale_bias),
+            "post_quant_conv": Mlp(z_channels, z_channels, decoder_width,
+                                   dtype=dtype),
+            "conv_sr": SurfelHead(decoder_width, scale_bias, dtype=dtype),
         })
         if with_encoder:
             sr["quant_conv"] = Mlp(2 * z_channels, 2 * z_channels,
-                                   2 * z_channels)
+                                   2 * z_channels, dtype=dtype)
         if not release_parity:
-            sr["anchor_pe"] = XYZPosEmbed(decoder_width)
+            sr["anchor_pe"] = XYZPosEmbed(decoder_width, dtype=dtype)
         for k, (f, d) in enumerate(zip(up_factors, up_depths)):
             sr[f"ada_CA_f4_{k + 1}"] = GaussianUpsampler(
-                decoder_width, f, d, release_parity=release_parity)
+                decoder_width, f, d, release_parity=release_parity,
+                dtype=dtype)
         self.decoder = nn.ModuleDict({
             "vit_decoder": DiT2(latent_num, decoder_width, decoder_depth,
                                 decoder_heads,
-                                release_parity=release_parity),
+                                release_parity=release_parity, dtype=dtype),
             "superresolution": sr,
         })
         self.encoder = HybridPCDEncoder(
             latent_num=latent_num, z_channels=z_channels,
-            width=encoder_width, release_parity=release_parity) \
-            if with_encoder else None
-        self.decoder.to(dtype)
+            width=encoder_width, release_parity=release_parity,
+            dtype=dtype) if with_encoder else None
 
     @classmethod
     def from_config(cls, vae_cfg, with_encoder: bool = False,

@@ -405,9 +405,11 @@ class _CompositeTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_buf):
         img_h, img_w, tile, chunk, row0 = ctx.frame
-        d_tab = composite_backward(*ctx.saved_tensors[:5], ct_buf,
-                                   *ctx.saved_tensors[5:], img_h, img_w,
-                                   tile=tile, chunk=chunk, row0=row0)
+        # read once: under a checkpointed render each read unpacks anew,
+        # which `torch.utils.checkpoint` refuses
+        saved = ctx.saved_tensors
+        d_tab = composite_backward(*saved[:5], ct_buf, *saved[5:], img_h,
+                                   img_w, tile=tile, chunk=chunk, row0=row0)
         return (d_tab,) + (None,) * 9
 
 

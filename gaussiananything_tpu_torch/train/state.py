@@ -8,6 +8,12 @@ decay on EVERY parameter), with a learning rate that warms up linearly from
 has lr 0), scaled per top-level module by `lr_mults`. `torch.optim.AdamW`
 differs in its eps placement's bias correction and has no such schedule or
 clipping built in, so it is not used.
+
+The parameters, both moments and every EMA copy are fp32 whatever the
+models' compute dtype (`models/layers.py`): bf16 activations with fp32
+parameters need no loss scaling, as in the JAX package. `TrainState`
+refuses parameters of another dtype. A checkpoint of bf16 tensors loads by
+`copy_`, which rounds nothing on the way up.
 """
 from __future__ import annotations
 
@@ -70,6 +76,11 @@ class TrainState:
                  frozen: bool = False):
         if frozen and extra_ema_decays:
             raise ValueError("a frozen state keeps no EMA copies")
+        low = sorted(k for k, p in params.items() if p.dtype != torch.float32)
+        if low:
+            raise ValueError(f"{len(low)} parameters are not float32, e.g. "
+                             f"{low[:3]}: the compute dtype goes to the "
+                             "modules, the parameters stay fp32")
         self.params = params
         self.frozen = frozen
         self.mu = {} if frozen else {k: torch.zeros_like(p)

@@ -42,6 +42,7 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from gaussiananything_tpu_torch.ops.pointcloud import chamfer_distance
 from gaussiananything_tpu_torch.parallel.dist import (all_reduce_, average_,
@@ -111,17 +112,35 @@ class StageTimer:
 def render_lods(lods: Sequence[torch.Tensor], cam_view: torch.Tensor,
                 cam_view_proj: torch.Tensor, bg: torch.Tensor,
                 resolutions: Sequence[int], max_per_tile: int = 1024,
-                impl: str = "cuda", chunk: int = 128, mesh=None
-                ) -> List[Dict[str, torch.Tensor]]:
+                impl: str = "cuda", chunk: int = 128, mesh=None,
+                remat: bool = True) -> List[Dict[str, torch.Tensor]]:
     """Render each LoD at its ladder resolution: a list of the map dicts of
     `render_multiview` (row bands over `mesh`'s tile axis). chunk 128 is
-    the training kernels' chunk."""
+    the training kernels' chunk.
+
+    remat: under autograd, each LoD's render is checkpointed
+    (`torch.utils.checkpoint`, as the JAX package's `jax.checkpoint`):
+    the backward renders it again instead of holding what the render
+    saved, so K2a runs twice per rendered view. The binning sorts are
+    stable, so the recompute builds the same pair table; on a mesh every
+    rank recomputes its bands, so the joins' collectives run again in the
+    same order on every rank. Losses and gradients are the same with and
+    without it."""
     B, V = cam_view.shape[:2]
     bg = bg.float().expand(B, V, 3)
-    return [render_multiview(g, cam_view, cam_view_proj, bg, res, tile=16,
-                             max_per_tile=max_per_tile, chunk=chunk,
-                             impl=impl, mesh=mesh)
-            for g, res in zip(lods, resolutions)]
+
+    def render(g, res):
+        return render_multiview(g, cam_view, cam_view_proj, bg, res, tile=16,
+                                max_per_tile=max_per_tile, chunk=chunk,
+                                impl=impl, mesh=mesh)
+
+    out = []
+    for g, res in zip(lods, resolutions):
+        if remat and torch.is_grad_enabled() and g.requires_grad:
+            out.append(checkpoint(render, g, res, use_reentrant=False))
+        else:
+            out.append(render(g, res))
+    return out
 
 
 def _resize_to(x: torch.Tensor, res: int) -> torch.Tensor:

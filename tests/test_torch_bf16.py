@@ -1,6 +1,7 @@
-"""bf16 inference (`--bf16`) in the port, against its own fp32 and against
-the JAX package's bf16 (`tests/test_bf16.py`): weights held in bf16, norms
-and softmax in fp32, the activated gaussians fp32.
+"""bf16 compute in the port, against its own fp32 and against the JAX
+package's bf16 (`tests/test_bf16.py`): the parameters fp32 (JAX
+`tests/test_bf16.py:34-41`), the Linear layers' outputs bf16, norms and
+softmax in fp32, the activated gaussians fp32.
 
 Bounds are the JAX package's own: the DiT velocity within 0.05·max(scale,
 1) (`tests/test_bf16.py:94-96`), the decoded gaussians within 0.05
@@ -47,6 +48,14 @@ def _float_dtypes(module):
         b.dtype for b in module.buffers() if b.is_floating_point()}
 
 
+def _linear_dtypes(module):
+    """Record the output dtype of every Linear of `module` on a forward."""
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, i, o: seen.append(o.dtype))
+             for m in module.modules() if isinstance(m, layers.Linear)]
+    return seen, hooks
+
+
 def _dit_case(kind):
     r = np.random.default_rng(0)
     x = r.normal(size=(2, 32, 3)).astype(np.float32)
@@ -77,14 +86,16 @@ def test_dit_bf16(kind):
     m32.load_state_dict(from_jax_params(params, m32))
     m16 = make(dtype=BF16)
     m16.load_state_dict(from_jax_params(params, m16))
-    assert _float_dtypes(m16) == {BF16}
+    assert _float_dtypes(m16) == {torch.float32}
     seen, hooks = _norm_dtypes(m16)
+    lin, lin_hooks = _linear_dtypes(m16)
     with torch.no_grad():
         v32 = m32(*map(t, args))
         v16 = m16(*map(t, args))
-    for h in hooks:
+    for h in hooks + lin_hooks:
         h.remove()
     assert seen and set(seen) == {torch.float32}
+    assert lin and set(lin) == {BF16}
     assert v16.dtype == torch.float32
     scale = float(v32.abs().max())
     np.testing.assert_allclose(v16.numpy(), v32.numpy(),
@@ -118,14 +129,16 @@ def test_vae_decode_bf16(release):
     m32.load_state_dict(from_jax_params(params, m32))
     m16 = PointVAE(dtype=BF16, **kw)
     m16.load_state_dict(from_jax_params(params, m16))
-    assert _float_dtypes(m16.decoder) == {BF16}
+    assert _float_dtypes(m16.decoder) == {torch.float32}
     seen, hooks = _norm_dtypes(m16)
+    lin, lin_hooks = _linear_dtypes(m16.decoder)
     with torch.no_grad():
         g32 = m32.decode(t(z), t(anchors))
         g16 = m16.decode(t(z), t(anchors))
-    for h in hooks:
+    for h in hooks + lin_hooks:
         h.remove()
     assert seen and set(seen) == {torch.float32}
+    assert lin and set(lin) == {BF16}
     for a, b, j in zip(g16, g32, jlods):
         assert a.dtype == torch.float32          # what the rasterizer reads
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=0.05)
@@ -142,8 +155,8 @@ def test_activation_pins_fp32():
 
 @pytest.mark.parametrize("which", ["scratch", "dinov2", "bytes", "openclip"])
 def test_conditioners_bf16(which):
-    """bf16 conditioners: bf16 weights, fp32 norms, finite outputs within
-    0.05 of their own fp32."""
+    """bf16 conditioners: fp32 weights, bf16 Linear outputs, finite
+    outputs within 0.05 of their own fp32."""
     torch.manual_seed(0)
     if which in ("scratch", "dinov2"):
         make = functools.partial(ImageConditioner, width=32, depth=1,
@@ -156,9 +169,13 @@ def test_conditioners_bf16(which):
     m32 = make().eval()
     m16 = make(dtype=BF16).eval()
     m16.load_state_dict(m32.state_dict())
-    assert _float_dtypes(m16) == {BF16}
+    assert _float_dtypes(m16) == {torch.float32}
+    lin, hooks = _linear_dtypes(m16)
     with torch.no_grad():
         c32, c16 = m32(inp), m16(inp)
+    for h in hooks:
+        h.remove()
+    assert lin and set(lin) == {BF16}
     for a, b in zip(c16, c32):
         assert torch.isfinite(a.float()).all()
         scale = max(float(b.abs().max()), 1.0)

@@ -279,6 +279,30 @@ def test_training_function_gradient_matches_plain(card):
 
 
 @pytest.mark.cuda
+def test_checkpointed_render_recomputes_the_pair_bit_for_bit(card):
+    """`vae_trainer.render_lods(remat=True)` on the card: the backward runs
+    K2a again (one launch more per view), and the gradient is bit-equal to
+    the render without the checkpoint."""
+    from gaussiananything_tpu_torch.data.synthetic import make_batch
+    from gaussiananything_tpu_torch.train.vae_trainer import render_lods
+    b = make_batch(seed=1, batch=1, n_views_in=1, n_views_sup=2, res=64,
+                   n_pts=64, n_splats=1024, device=card)
+    grads, launches = [], []
+    for remat in (False, True):
+        g = b["gt_gaussians"].clone().requires_grad_(True)
+        k2a = rasterize_cuda.composite_entries.launches
+        out = render_lods([g], b["cam_view"], b["cam_view_proj"],
+                          torch.ones(3, device=card), [64], remat=remat)[0]
+        gen = torch.Generator().manual_seed(2)
+        sum((v * torch.randn(v.shape, generator=gen).to(card)).sum()
+            for v in out.values()).backward()
+        grads.append(g.grad)
+        launches.append(rasterize_cuda.composite_entries.launches - k2a)
+    assert launches == [2, 4]
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
 def test_impl_cuda_launches_k1_without_grad_and_the_pair_with(card):
     """`rasterize_tiled(impl="cuda")` launches K2a (and K2b in the backward)
     only where autograd will ask for a gradient, and K1 otherwise."""

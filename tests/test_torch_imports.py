@@ -63,7 +63,8 @@ def test_port_files_found():
                  "parallel/dryrun.py", "render/sharded.py",
                  "cli/import_release.py", "utils/release_import.py",
                  "render/sh.py", "utils/profiling.py",
-                 "tools/golden_parity_512.py", "tools/fm_feasibility.py"):
+                 "tools/golden_parity_512.py", "tools/fm_feasibility.py",
+                 "tools/release_feasibility.py"):
         assert pkg + name in rel, name
 
 
@@ -194,10 +195,11 @@ def test_tools_default_to_cuda_and_refuse_without_it(monkeypatch):
                                                   golden_parity_512,
                                                   kernel_attribution,
                                                   kernel_stages,
-                                                  rasterizer_timing)
+                                                  rasterizer_timing,
+                                                  release_feasibility)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for tool in (bench, kernel_stages, rasterizer_timing, kernel_attribution,
-                 golden_parity_512, fm_feasibility):
+                 golden_parity_512, fm_feasibility, release_feasibility):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tool.main([])
 
