@@ -92,11 +92,27 @@ Phases, in order; any failure exits non-zero:
 17. profile: `utils/profiling.trace` around one batch-2 release DiT-L
    evaluation and one 512² turntable view: top kernels by device time and
    the device-busy share;
-18. import: mirrors of the released stage-1 DiT and VAE through
+18. precision: the JAX package's matmul precision policy
+   (`utils/precision.py`): the geometry's HIGHEST products bit-equal under
+   the default (TF32) and the IEEE policy, again beside a
+   `MultiViewDataset` prefetch thread and training steps; a DiT-L linear
+   under both, its TF32 GEMM named in the trace; release-width stages
+   (DINOv2, both DiT-Ls, the VAE decode and encode, a VAE step's loss and
+   gradient norm, a flow step's loss) DEFAULT against HIGHEST within
+   PRECISION_REL; the cascade end to end, printed;
+19. import: mirrors of the released stage-1 DiT and VAE through
    `cli/import_release`, restored into the port's modules on the card and
    held against the mirrors' forward;
-19. report: one JSON line of kernel records, the kernels launched, the
+20. report: one JSON line of kernel records, the kernels launched, the
    card's name and power limit, then the `{"ok": true, ...}` line last.
+
+Every comparison of the card against the CPU or of a kernel against its
+plain version (phases 3, 4, 6, 8, 10, the small serving, 15, 19) runs
+under the IEEE policy (`matmul_policy("highest")`); the paths run under
+the default one, the JAX package's (`Precision.DEFAULT` products in TF32),
+and the timed ones (the cascade, the release VAE step in fp32 and bf16,
+the stage-1 flow step, the release batch, release feasibility) again
+under IEEE, their seconds printed beside.
 
 It imports nothing of JAX; the port's package must sit beside this file
 (and `tests/torch_mirror_ga.py`, torch only, for the import phase).
@@ -117,6 +133,7 @@ stage.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import io
@@ -1475,10 +1492,17 @@ def cascade_phase(dev):
     one view, each request's turntable eight."""
     num, steps = 2, 10
     with tempfile.TemporaryDirectory() as out_dir:
-        return _cascade_run(dev, num, steps, out_dir)
+        launches, secs = _cascade_run(dev, num, steps, out_dir)
+    with matmul_policy("highest"), tempfile.TemporaryDirectory() as out_dir:
+        _, ieee = _cascade_run(dev, num, steps, out_dir, "[cascade IEEE]")
+    for i, (a, b) in enumerate(zip(secs, ieee)):
+        print(f"[cascade] request {i} seconds, default (TF32) against "
+              f"IEEE: " + json.dumps({k: [round(a[k], 4), round(b[k], 4)]
+                                      for k in a}), flush=True)
+    return launches
 
 
-def _cascade_run(dev, num, steps, out_dir):
+def _cascade_run(dev, num, steps, out_dir, tag="[cascade]"):
     import torch
     from gaussiananything_tpu_torch.cli import sample
     from gaussiananything_tpu_torch.ops import rasterize_cuda
@@ -1489,13 +1513,13 @@ def _cascade_run(dev, num, steps, out_dir):
                            "--out", out_dir, "--device", str(dev)])
     wall = time.perf_counter() - t0
     launches = {"K1": rasterize_cuda.composite.launches}
-    print(f"[cascade] {num} requests, {steps} Heun steps, wall {wall:.2f}s "
+    print(f"{tag} {num} requests, {steps} Heun steps, wall {wall:.2f}s "
           f"(model build included); launches {json.dumps(launches)}",
           flush=True)
     if launches["K1"] != 1 + 8 * num:
         fail(f"K1 launched {launches['K1']} times, expected 1 + 8 x {num}")
     for i, res in enumerate(results):
-        print(f"[cascade] request {i} seconds: "
+        print(f"{tag} request {i} seconds: "
               f"{json.dumps(res['timings'])}", flush=True)
         lods = res["lods"]
         if [tuple(x.shape) for x in lods] != [(1, n, 13) for n in
@@ -1513,7 +1537,7 @@ def _cascade_run(dev, num, steps, out_dir):
         if float((qn - 1).abs().max()) > 1e-4:
             fail("quaternions are not unit")
         cover = float((res["render"]["alpha"] > 1e-3).float().mean())
-        print(f"[cascade] request {i}: alpha coverage {cover:.4f}, "
+        print(f"{tag} request {i}: alpha coverage {cover:.4f}, "
               f"xyz range {float(res['xyz'].min()):.3f}.."
               f"{float(res['xyz'].max()):.3f}", flush=True)
         if cover <= 0:
@@ -1522,7 +1546,7 @@ def _cascade_run(dev, num, steps, out_dir):
                      f"gaussians_{i}.ply", f"turntable_{i}.png"):
             if not os.path.getsize(os.path.join(out_dir, name)):
                 fail(f"{name} is empty")
-    return launches
+    return launches, [res["timings"] for res in results]
 
 
 SMALL_W = 64
@@ -2078,7 +2102,8 @@ def small_train_phase(dev):
         fail("the small training steps on the card disagree with the CPU")
 
 
-def train_phase(dev, compute_dtype="float32", against=None):
+def train_phase(dev, compute_dtype="float32", against=None,
+                ieee=False):
     """TRAIN_STEPS steps at the `vae-release` preset's full width through
     the port's training CLI on seeded random weights: encoder width 256,
     768 latents x 10 channels, the DiT2 768 x 12 decoder, upsamplers to
@@ -2090,12 +2115,16 @@ def train_phase(dev, compute_dtype="float32", against=None):
     and the EMA are fp32 and that every norm weight initialised at 1.0
     moved. Launch counts are set to 0 just before and read just after.
     Returns the launches and the run's seconds by stage and peak, which a
-    later run prints beside its own (`against`)."""
+    later run prints beside its own (`against`). `ieee`: the run under the
+    IEEE policy (every product fp32), beside the default (TF32) one."""
     with tempfile.TemporaryDirectory() as logdir:
-        return _train_run(dev, logdir, compute_dtype, against)
+        if not ieee:
+            return _train_run(dev, logdir, compute_dtype, against)
+        with matmul_policy("highest"):
+            return _train_run(dev, logdir, compute_dtype, against, "IEEE")
 
 
-def _train_run(dev, logdir, compute_dtype, against):
+def _train_run(dev, logdir, compute_dtype, against, policy="TF32"):
     import torch
     from gaussiananything_tpu_torch.cli import train_vae
     from gaussiananything_tpu_torch.config import preset
@@ -2104,8 +2133,10 @@ def _train_run(dev, logdir, compute_dtype, against):
     from gaussiananything_tpu_torch.models.vae import PointVAE
     from gaussiananything_tpu_torch.ops import rasterize_cuda
 
-    tag = "[train]" if compute_dtype == "float32" else \
-        f"[train {compute_dtype}]"
+    tag = "[train" + ("" if compute_dtype == "float32" else
+                      f" {compute_dtype}") \
+        + ("" if policy == "TF32" else f" {policy}") + "]"
+    label = f"{compute_dtype} {policy}"
     cfg = preset("vae-release")
     cfg.optim.warmup_steps = 1      # step 0 runs at lr 0, steps 1-2 at lr
     cfg.vae.compute_dtype = compute_dtype
@@ -2135,11 +2166,13 @@ def _train_run(dev, logdir, compute_dtype, against):
     print(f"{tag} vae-release width, compute dtype {compute_dtype}, batch "
           f"{TRAIN_BATCH}, {TRAIN_STEPS} steps, wall {wall:.2f}s (model "
           f"build included); peak memory {peak / 2**30:.2f} GiB"
-          + (f" (float32: {against['peak'] / 2**30:.2f} GiB)" if against
-             else "") + f"; launches {json.dumps(used)}", flush=True)
+          + (f" ({against['label']}: {against['peak'] / 2**30:.2f} GiB)"
+             if against else "") + f"; launches {json.dumps(used)}",
+          flush=True)
     for i, (lg, tm) in enumerate(zip(res["logs"], timers)):
         beside = "" if against is None else \
-            f"; float32 {json.dumps(_rounded(against['seconds'])[i])}"
+            f"; {against['label']} " \
+            f"{json.dumps(_rounded(against['seconds'])[i])}"
         print(f"{tag} step {i}: total {lg['total']:.6g}, grad_norm "
               f"{lg['grad_norm']:.6g}; seconds by stage "
               f"{json.dumps(_rounded([tm])[0])}{beside}", flush=True)
@@ -2199,7 +2232,7 @@ def _train_run(dev, logdir, compute_dtype, against):
     if shapes != {"encoder_width": 256, "latent": [768, 10],
                   "lods": [128, 256, 384, 512]}:
         fail(f"the preset is not the release's: {shapes}")
-    return launches, {"seconds": timers, "peak": peak}
+    return launches, {"seconds": timers, "peak": peak, "label": label}
 
 
 def small_adv_train_phase(dev):
@@ -2812,10 +2845,13 @@ def _flow_train_run(dev, root):
         ("stage1 resume", ["--config", cfgs["stage1"], "--latent-dir", lat,
                            *frozen, "--steps", "4", "--save-every", "2",
                            "--eval-every", "3", "--resume"], 4),
-        # the stage-1 run's first three steps with bf16 compute
+        # the stage-1 run's first three steps with bf16 compute, and
+        # under the IEEE policy (every product fp32)
         ("stage1-bf16", ["--config", cfgs["stage1-bf16"], "--latent-dir",
                          lat, *frozen, "--steps", "3", "--save-every", "2"],
          3),
+        ("stage1-ieee", ["--config", cfgs["stage1"], "--latent-dir", lat,
+                         *frozen, "--steps", "3", "--save-every", "2"], 3),
         ("stage2", ["--config", cfgs["stage1"], "--stage", "2",
                     "--latent-dir", lat, *frozen, "--steps", "2",
                     "--save-every", "1", "--eval-every", "2"], 2),
@@ -2853,8 +2889,10 @@ def _flow_train_run(dev, root):
         torch.cuda.reset_peak_memory_stats()
         timers = []
         t0 = time.perf_counter()
-        res = train_flow.main(args + common + ["--logdir", logdir],
-                              timers=timers)
+        with (matmul_policy("highest") if name == "stage1-ieee"
+              else contextlib.nullcontext()):
+            res = train_flow.main(args + common + ["--logdir", logdir],
+                                  timers=timers)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
@@ -2914,8 +2952,8 @@ def _flow_train_run(dev, root):
             if check is False or (check is not True
                                   and not _update_ok(check)):
                 bad.append(f"{name}: the last update of {part}: {check}")
-        if name == "stage1-bf16":
-            print(f"[flow train] stage1-bf16 against stage1 (float32): "
+        if name in ("stage1-bf16", "stage1-ieee"):
+            print(f"[flow train] {name} against stage1 (float32, TF32): "
                   f"seconds by stage {json.dumps(_rounded(timers))} "
                   f"against {json.dumps(_rounded(step_seconds['stage1']))}"
                   f"; peak "
@@ -2962,7 +3000,8 @@ def _flow_train_run(dev, root):
     if launches != expect:
         bad.append(f"launches {launches}, expected {expect}")
     if results != {"stage1": 3, "stage1 resume": 1, "stage1-bf16": 3,
-                   "stage2": 2, "t23d": 2, "synthetic": 1}:
+                   "stage1-ieee": 3, "stage2": 2, "t23d": 2,
+                   "synthetic": 1}:
         bad.append(f"steps run {results}")
     if bad:
         fail(f"flow train: {bad}")
@@ -3037,6 +3076,18 @@ def fm_release_batch_phase(dev):
           f"step {out['steady_step_s']:.3f}s ({out['samples_per_s']:.2f} "
           f"samples/s), peak {out['peak_bytes'] / 2 ** 30:.2f} GiB; logs "
           f"{json.dumps(out['logs'])}", flush=True)
+    # one step under the IEEE policy (the shapes are warm)
+    with matmul_policy("highest"):
+        ieee = fm_feasibility.feasibility(
+            batch=RELEASE_BATCH, accum=RELEASE_ACCUM, stage=1, steps=0,
+            device=dev, log=lambda s: print(f"[fm-release-batch IEEE] {s}",
+                                            flush=True))
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(v) for v in ieee["logs"].values()):
+        fail(f"the release-batch step under IEEE: {json.dumps(ieee)}")
+    print(f"[fm-release-batch] step seconds, default (TF32) against IEEE: "
+          f"{out['steady_step_s']:.3f} against {ieee['first_step_s']:.3f}",
+          flush=True)
 
 
 def release_feasibility_phase(dev):
@@ -3049,10 +3100,19 @@ def release_feasibility_phase(dev):
     from gaussiananything_tpu_torch.tools import release_feasibility as rf
     here = os.path.dirname(os.path.abspath(__file__))
     outs = {}
-    for extra in ([], ["--bf16"]):
+    ieee_code = ("import runpy, sys\n"
+                 "from chip_smoke import matmul_policy\n"
+                 "sys.argv = ['release_feasibility', *sys.argv[1:]]\n"
+                 "with matmul_policy('highest'):\n"
+                 "    runpy.run_module('gaussiananything_tpu_torch.tools."
+                 "release_feasibility', run_name='__main__')\n")
+    for extra, policy in (([], "TF32"), (["--bf16"], "TF32"),
+                          (["--steps", "3"], "IEEE"),
+                          (["--bf16", "--steps", "3"], "IEEE")):
         cmd = [sys.executable, "-m",
                "gaussiananything_tpu_torch.tools.release_feasibility",
-               *extra]
+               *extra] if policy == "TF32" else \
+            [sys.executable, "-c", ieee_code, *extra]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=600, cwd=here)
@@ -3063,8 +3123,8 @@ def release_feasibility_phase(dev):
             fail(f"release feasibility {extra}: exit {res.returncode}\n"
                  f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
         out = json.loads(lines[-1])
-        outs[out["compute_dtype"]] = out
-        print(f"[release feasibility] {out['compute_dtype']}: "
+        outs[f"{out['compute_dtype']} {policy}"] = out
+        print(f"[release feasibility] {out['compute_dtype']} {policy}: "
               f"{out['params'] / 1e6:.1f}M parameters, first step "
               f"{out['first_step_s']:.3f}s, steady step "
               f"{out['steady_step_s'] * 1e3:.1f} ms "
@@ -3072,11 +3132,17 @@ def release_feasibility_phase(dev):
               f"{out['peak_bytes'] / 2 ** 30:.2f} GiB; total "
               f"{out['logs']['total']:.6g}; {wall:.1f}s in its process; "
               f"{out['card']}", flush=True)
-        if out["steps_taken"] != 6 or not all(
+        if out["steps_taken"] != (6 if policy == "TF32" else 4) or not all(
                 math.isfinite(v) for v in out["logs"].values()):
             fail(f"release feasibility: {json.dumps(out)}")
-    if sorted(outs) != ["bfloat16", "float32"]:
+    if sorted(outs) != ["bfloat16 IEEE", "bfloat16 TF32", "float32 IEEE",
+                        "float32 TF32"]:
         fail(f"release feasibility ran {sorted(outs)}")
+    print("[release feasibility] steady step ms, default (TF32) against "
+          "IEEE: " + json.dumps({
+              dt: [round(outs[f"{dt} {p}"]["steady_step_s"] * 1e3, 1)
+                   for p in ("TF32", "IEEE")]
+              for dt in ("float32", "bfloat16")}), flush=True)
 
 
 BAND_CASES = {"K1 512": ("K1", K1_CASES["turntable"]),
@@ -3463,12 +3529,13 @@ def _trace_window(trace_path, window, n_top=8):
 
 def profile_phase(dev):
     """`utils/profiling.trace` (torch.profiler, CPU and CUDA activities)
-    around one batch-2 evaluation of the release stage-1 DiT-L (fp32, TF32
-    off; seeded weights; 1,369 DINOv2 context tokens, the cascade's CFG
-    batch) and around one 512² turntable view of 73,728 splats through
-    `rasterize_tiled` (K1): the top kernels by device time and the share of
-    each window the card was busy. Launch counts are set to 0 just before
-    and read just after."""
+    around one batch-2 evaluation of the release stage-1 DiT-L (fp32
+    parameters, the default policy's TF32 GEMMs; seeded weights; 1,369
+    DINOv2 context tokens, the cascade's CFG batch) and around one 512²
+    turntable view of 73,728 splats through `rasterize_tiled` (K1): the
+    top kernels by device time and the share of each window the card was
+    busy; the evaluation again under the IEEE policy, beside. Launch
+    counts are set to 0 just before the two and read just after."""
     import torch
     from gaussiananything_tpu_torch.data.synthetic import make_object
     from gaussiananything_tpu_torch.models.dit import stage1_dit_release
@@ -3509,7 +3576,17 @@ def profile_phase(dev):
                         torch.cuda.synchronize()
                 found[name] = _trace_window(
                     os.path.join(sub, "trace.json"), name)
-        launches = _read_launches()
+            launches = _read_launches()
+            # the same evaluation under the IEEE policy, beside
+            with matmul_policy("highest"):
+                dit(x, t, ctx, vec)
+                sub = os.path.join(logdir, "ieee")
+                with profiling.trace(sub):
+                    with profiling.annotate("dit_eval"):
+                        dit(x, t, ctx, vec)
+                        torch.cuda.synchronize()
+                found["dit_eval IEEE"] = _trace_window(
+                    os.path.join(sub, "trace.json"), "dit_eval")
     del dit
     for name, (busy, span, top) in found.items():
         print(f"[profile] {name}: window {span * 1e3:.3f} ms, device busy "
@@ -3615,6 +3692,401 @@ def import_phase(dev):
                   a, b, 3e-4, 1e-3)
 
 
+# ---- the matmul precision policy ---------------------------------------
+
+# DEFAULT (TF32) against HIGHEST (IEEE) stage by stage, relative Frobenius:
+# TF32 rounds an operand by at most 2^-11 relative, 1e-2 allows 20x growth
+PRECISION_REL = 1e-2
+PREFETCH_BATCHES = 3
+
+
+@contextlib.contextmanager
+def matmul_policy(name: str):
+    """The enclosed code under the `name` matmul precision policy
+    (`utils.device.resolve_device`); an entry point inside that calls
+    `resolve_device` itself (which would set its default) gets `name` too.
+    The enclosing policy (the default outside any) is set again after it."""
+    from gaussiananything_tpu_torch.utils import device
+    current = device.resolve_device
+    real = getattr(current, "__wrapped__", current)
+    outer = getattr(current, "policy", "default")
+
+    def pinned(dev="cuda", matmul_precision="default"):
+        return real(dev, name)
+    pinned.__wrapped__, pinned.policy = real, name
+
+    def swap(old, new):
+        for mod in list(sys.modules.values()):
+            if getattr(mod, "__dict__", {}).get("resolve_device") is old:
+                mod.resolve_device = new
+
+    swap(current, pinned)
+    real("cuda", name)
+    try:
+        yield
+    finally:
+        swap(pinned, current)
+        real("cuda", outer)
+
+
+def _flat_tensors(out):
+    import torch
+    if torch.is_tensor(out):
+        return [out.detach()]
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in _flat_tensors(out[k])]
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _flat_tensors(o)]
+    return []
+
+
+def _frob(got, ref) -> float:
+    """The largest relative Frobenius error over paired output tensors."""
+    import torch
+    return max(float(torch.linalg.vector_norm(a.double() - b.double())
+                     / max(float(torch.linalg.vector_norm(b.double())),
+                           1e-30)) for a, b in zip(got, ref))
+
+
+def _geometry_scene(dev):
+    import torch
+    from gaussiananything_tpu_torch.data.synthetic import make_object
+    from gaussiananything_tpu_torch.render import cameras
+    gen = torch.Generator(device=dev).manual_seed(3)
+    V, res = 4, 512
+    return {
+        "g": make_object(0, n=73728, kind="sphere", device=dev),
+        "g_small": make_object(1, n=1024, kind="sphere", device=dev),
+        "pa": torch.randn((1, 2048, 3), generator=gen, device=dev),
+        "pb": torch.randn((1, 2048, 3), generator=gen, device=dev),
+        "pos": torch.randn((1, 1 + 37 * 37, 1024), generator=gen,
+                           device=dev),
+        "maps": [torch.rand((1, V, c, res, res), generator=gen, device=dev)
+                 * s + o for c, s, o in ((3, 1, 0), (3, 2, -1),
+                                         (1, 1.5, 1.0), (1, 1, 0))],
+        "poses": torch.as_tensor(cameras.generate_input_camera(
+            1.8, [(20, 45), (-10, 120), (40, 200), (0, 300)]),
+            device=dev)[None],
+    }
+
+
+def _geometry(dev, sc):
+    """The HIGHEST outputs the paths compute on the card: the turntable's
+    cameras, the 512² projection table of 73,728 splats, its binning, the
+    plain pair's maps and surfel gradients at 64², the point-cloud
+    distances, chamfer and Sinkhorn values, the DINOv2 pos-embed resize
+    (37² to 16², the 224² view's grid), the encoder input's Plücker rays
+    and backprojection at 512². Under torch's deterministic algorithms:
+    the plain backward's `index_add_` is otherwise a float atomic sum on
+    the card, whose order (and last bits) vary from run to run under
+    either policy."""
+    import torch
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _geometry_outputs(dev, sc)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
+def _geometry_outputs(dev, sc):
+    import torch
+    from gaussiananything_tpu_torch.data import postprocess as post
+    from gaussiananything_tpu_torch.models.dinov2 import \
+        interpolate_pos_embed
+    from gaussiananything_tpu_torch.ops import pointcloud
+    from gaussiananything_tpu_torch.ops import rasterize as rz
+    from gaussiananything_tpu_torch.render import cameras
+    out = {}
+    cam = cameras.pose_to_gs_camera(cameras.uni_mesh_path(8)[:8],
+                                    device=dev)
+    out["turntable cameras"] = cam
+    sp = rz.preprocess_splats(sc["g"], cam["cam_view"][0],
+                              cam["cam_view_proj"][0], 512, 512)
+    out["512² table"] = rz.splat_table(sp, 512, 512)
+    out["binning"] = rz.build_tile_pairs(sp, 512, 512, 16, 2048)
+    gs = sc["g_small"].clone().requires_grad_(True)
+    maps = rz.rasterize_tiled(gs, cam["cam_view"][1],
+                              cam["cam_view_proj"][1],
+                              torch.ones(3, device=dev), 64, 64,
+                              max_per_tile=256, chunk=64, impl="plain")
+    sum((v * v).sum() for v in maps.values()).backward()
+    out["plain pair fwd+bwd"] = (maps, gs.grad)
+    a, b = sc["pa"], sc["pb"]
+    out["pointcloud"] = (pointcloud._sq_dists(a, b),
+                         pointcloud.chamfer_distance(a, b),
+                         pointcloud.sinkhorn_emd(a, b, iters=50))
+    out["pos-embed resize"] = interpolate_pos_embed(sc["pos"], 16)
+    out["encoder input"] = post.assemble_encoder_input(*sc["maps"],
+                                                       sc["poses"])
+    return {k: _flat_tensors(v) for k, v in out.items()}
+
+
+def _unequal(ref, got):
+    import torch
+    return [k for k in ref if len(ref[k]) != len(got[k]) or not all(
+        torch.equal(a, b) for a, b in zip(ref[k], got[k]))]
+
+
+def _kernel_names(trace_path):
+    """Distinct device kernel names of a trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+
+
+def _linear_policies(dev):
+    """One release-width DiT-L linear (1024 → 4096, 2 x 768 tokens) under
+    both policies: CUDA-event medians and the GEMM kernels the trace
+    names; the DEFAULT one must be a TF32 GEMM, the IEEE one must not."""
+    import torch
+    from gaussiananything_tpu_torch.models.layers import Linear
+    from gaussiananything_tpu_torch.utils import profiling
+    torch.manual_seed(0)
+    lin = Linear(1024, 4096).to(dev)
+    x = torch.randn((2, 768, 1024), device=dev)
+    rec = {}
+    with torch.no_grad(), tempfile.TemporaryDirectory() as logdir:
+        for name in ("default", "highest", "default"):
+            with matmul_policy(name):
+                ms = time_cuda(lambda: lin(x), reps=50)
+                sub = os.path.join(logdir, name)
+                with profiling.trace(sub):
+                    lin(x)
+                kernels = _kernel_names(os.path.join(sub, "trace.json"))
+            rec.setdefault(name, {"ms": [], "kernels": kernels})
+            rec[name]["ms"].append(round(ms, 5))
+    flops = 2 * 2 * 768 * 1024 * 4096
+    for name, r in rec.items():
+        print(f"[precision] DiT-L linear 1024->4096 x 1536 tokens, {name}: "
+              f"{r['ms']} ms ({flops / min(r['ms']) / 1e9:.1f} TFLOP/s); "
+              f"kernels {json.dumps(r['kernels'])}", flush=True)
+    if not any("tf32" in k.lower() for k in rec["default"]["kernels"]):
+        fail("the default policy ran no TF32 GEMM: "
+             f"{rec['default']['kernels']}")
+    if any("tf32" in k.lower() for k in rec["highest"]["kernels"]):
+        fail(f"the highest policy ran a TF32 GEMM: "
+             f"{rec['highest']['kernels']}")
+    return rec
+
+
+def _both_policies(fn):
+    """fn() under the IEEE then the default policy: the flat outputs."""
+    with matmul_policy("highest"):
+        ref = _flat_tensors(fn())
+    return _flat_tensors(fn()), ref
+
+
+def _stage_errors(dev):
+    """Stage by stage at release width on seeded weights, DEFAULT against
+    HIGHEST from the same inputs: DINOv2 ViT-L, one stage-1 and one
+    stage-2 DiT-L evaluation (the CFG batch 2), the VAE decode to
+    gaussians, the VAE encode, one VAE training step's loss and gradient
+    norm (`vae-release`, batch 1, 4 + 4 views at 512²), one stage-1 flow
+    step's loss (batch 8, the frozen DINOv2); then the cascade end to end
+    (10 Heun steps), printed only. Returns the models for the prefetch
+    check's training steps."""
+    import torch
+    from gaussiananything_tpu_torch.cli import sample
+    from gaussiananything_tpu_torch.config import preset, release_config
+    from gaussiananything_tpu_torch.data.synthetic import make_batch
+    from gaussiananything_tpu_torch.diffusion.transport import \
+        create_transport
+    from gaussiananything_tpu_torch.models.vae import PointVAE
+    from gaussiananything_tpu_torch.train.fm_trainer import FMConfig
+    from gaussiananything_tpu_torch.train.vae_trainer import (VAELossConfig,
+                                                              vae_loss_fn)
+    cfg = release_config(preset("demo-e2e"))
+    models = sample.build_models(sample.parse_args(
+        ["--release", "--full", "--seed", "0", "--device", str(dev)]),
+        cfg, dev)
+    img = sample.demo_condition_image(cfg.dit.cond_img_size, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    with torch.no_grad(), matmul_policy("highest"):
+        c = models.cond(img)
+    ctx = torch.cat([c.crossattn, torch.zeros_like(c.crossattn)])
+    vec = torch.cat([c.vector, torch.zeros_like(c.vector)])
+    t2 = torch.rand((2,), generator=gen, device=dev)
+    xyz = torch.clamp(rnd(1, 768, 3) * 0.2, -0.45, 0.45)
+    cfg_v = preset("vae-release")
+    torch.manual_seed(0)
+    with torch.device(dev):
+        vae = PointVAE.from_config(cfg_v.vae, with_encoder=True)
+    batch = make_batch(seed=0, batch=1, n_views_in=4, n_views_sup=4,
+                       res=512, n_pts=4096, n_splats=4096, device=dev)
+    batch.pop("gt_gaussians")
+    loss_cfg = VAELossConfig(lod_resolutions=cfg_v.render.lod_resolutions)
+
+    def vae_step():
+        total, _ = vae_loss_fn(vae, batch, 0, loss_cfg,
+                               generator=torch.Generator().manual_seed(0))
+        grads = torch.autograd.grad(total, list(vae.parameters()),
+                                    allow_unused=True)
+        return total, torch.sqrt(sum(g.double().square().sum()
+                                     for g in grads if g is not None))
+
+    transport = create_transport("gvp")
+    fgen = torch.Generator(device=dev).manual_seed(1)
+    img8 = img.expand(8, -1, -1, -1)
+    latent = torch.randn((8, 768, 3), generator=fgen, device=dev)
+    t8 = torch.rand((8,), generator=fgen, device=dev)
+    x08 = torch.randn((8, 768, 3), generator=fgen, device=dev)
+
+    def flow_loss():
+        models.dit1.train()
+        try:
+            with torch.no_grad():
+                cc = models.cond(img8)
+                loss, _ = transport.training_loss(
+                    lambda xt, t: models.dit1(xt, t, cc.crossattn,
+                                              cc.vector),
+                    latent, t=t8, x0=x08)
+        finally:
+            models.dit1.eval()
+        return loss
+
+    stages = {
+        "DINOv2 ViT-L conditioning": lambda: models.cond(img),
+        "stage-1 DiT-L evaluation": lambda: models.dit1(
+            rnd(2, 768, 3), t2, ctx, vec),
+        "stage-2 DiT-L evaluation": lambda: models.dit2(
+            rnd(2, 768, 10), t2, ctx, vec,
+            xyz=torch.cat([xyz, xyz]) / 0.45),
+        "VAE decode to gaussians": lambda: models.vae.decode(
+            rnd(1, 768, 10), xyz),
+        "VAE encode": lambda: vae.encode(batch["images_in"], batch["pcd"]),
+    }
+    errs = {}
+    with torch.no_grad():
+        for name, fn in stages.items():
+            state = gen.get_state()
+
+            def same_draws():
+                gen.set_state(state)
+                return fn()
+            got, ref = _both_policies(same_draws)
+            errs[name] = _frob(got, ref)
+    got, ref = _both_policies(vae_step)
+    errs["VAE training step loss"] = _frob(got[:1], ref[:1])
+    errs["VAE training step gradient norm"] = _frob(got[1:], ref[1:])
+    errs["stage-1 flow step loss"] = _frob(*_both_policies(flow_loss))
+    print(f"[precision] DEFAULT against HIGHEST, relative Frobenius, "
+          f"release width: {json.dumps(errs)}", flush=True)
+
+    fm1 = FMConfig(stage=1, cfg_scale=cfg.transport.cfg_scale,
+                   num_steps=10, sampler=cfg.transport.sampler)
+    fm2 = dataclasses.replace(fm1, stage=2)
+    x0 = (rnd(1, 768, 3), rnd(1, 768, 10))
+
+    def cascade():
+        res = sample.sample_request(models, img, fm1, fm2, cfg.render,
+                                    x0_stage1=x0[0], x0_stage2=x0[1],
+                                    log=lambda s: None)
+        return [res["xyz_n"], res["kl"], res["lods"][-1],
+                res["render"]["image"]]
+    got, ref = _both_policies(cascade)
+    e2e = {k: _frob([a], [b]) for k, a, b in zip(
+        ("stage-1 xyz", "stage-2 latent", "finest LoD", "turntable image"),
+        got, ref)}
+    print(f"[precision] end to end through 10 Heun steps, DEFAULT against "
+          f"HIGHEST, relative Frobenius (printed only: stage 2's Fourier "
+          f"features amplify a stage-1 difference): {json.dumps(e2e)}",
+          flush=True)
+    over = {k: v for k, v in errs.items() if not v <= PRECISION_REL}
+    if over:
+        fail(f"stages beyond {PRECISION_REL} of their HIGHEST run: {over}")
+    return vae, loss_cfg
+
+
+def _prefetch_check(dev, sc, ref_geom, vae, loss_cfg):
+    """The geometry once more while a `MultiViewDataset` prefetch thread
+    assembles batches (Plücker rays, backprojection, cameras: HIGHEST) in
+    parallel with release-width VAE training steps on the main thread
+    under the default policy: the geometry, and every prefetched batch
+    against the same batch assembled under the IEEE policy, bit-equal."""
+    import torch
+    from gaussiananything_tpu_torch.data.gbuffer import (
+        MultiViewDataset, export_synthetic_dataset)
+    from gaussiananything_tpu_torch.train.state import TrainState
+    from gaussiananything_tpu_torch.train.vae_trainer import make_train_step
+    keys = ("images_in", "pcd", "cam_view", "cam_view_proj", "cam_pos",
+            "tanfov")
+    with tempfile.TemporaryDirectory() as root:
+        export_synthetic_dataset(root, n_instances=3, n_views=8, res=512,
+                                 n_splats=4096, device=dev)
+        kw = dict(n_views_in=4, n_views_sup=4, n_points=4096, seed=0,
+                  device=dev)
+        with matmul_policy("highest"):
+            ds = MultiViewDataset(root, **kw)
+            refs = [ds.batch(1) for _ in range(PREFETCH_BATCHES)]
+        step = make_train_step(vae, loss_cfg)
+        state = TrainState.create(vae)
+        it = MultiViewDataset(root, **kw).iterator(1, prefetch=2)
+        bad, steps = [], []
+        try:
+            for i in range(PREFETCH_BATCHES):
+                b = next(it)
+                b.pop("caption")
+                t0 = time.perf_counter()
+                logs = step(state, b, generator=torch.Generator()
+                            .manual_seed(i))
+                steps.append(round(time.perf_counter() - t0, 4))
+                bad += [f"batch {i} {k}" for k in keys
+                        if not torch.equal(b[k], refs[i][k])]
+                bad += [f"step {i} {k}" for k in
+                        _unequal(ref_geom, _geometry(dev, sc))]
+                if not math.isfinite(float(logs["total"])):
+                    fail("a training step beside the prefetch thread "
+                         "is not finite")
+        finally:
+            it.close()
+    print(f"[precision] geometry and {PREFETCH_BATCHES} prefetched 512² "
+          f"batches beside {PREFETCH_BATCHES} release-width VAE steps "
+          f"({steps} s, default policy): "
+          + ("bit-equal to the IEEE policy" if not bad else
+             f"DIFFER in {bad}"), flush=True)
+    if bad:
+        fail(f"HIGHEST products moved beside the prefetch thread: {bad}")
+
+
+def precision_phase(dev):
+    """The JAX package's precision policy on the card
+    (`utils/precision.py`): (1) the geometry's HIGHEST products bit-equal
+    under both policies; (2) the default policy reaches the tensor cores
+    (a DiT-L linear timed under both, its TF32 GEMM named in the trace);
+    (3) DEFAULT against HIGHEST stage by stage within PRECISION_REL; (4)
+    the geometry and prefetched batches again, a `MultiViewDataset`
+    prefetch thread beside training steps. Any failed check fails the
+    run."""
+    import torch
+    sc = _geometry_scene(dev)
+    with matmul_policy("highest"):
+        ref = _geometry(dev, sc)
+    bad = _unequal(ref, _geometry(dev, sc))
+    print(f"[precision] geometry under the default policy against the "
+          f"IEEE one ({', '.join(ref)}): "
+          + ("bit-equal" if not bad else f"DIFFER in {bad}"), flush=True)
+    if bad:
+        fail(f"HIGHEST products moved under the default policy: {bad}")
+    from gaussiananything_tpu_torch.data.postprocess import \
+        canonicalize_poses
+    c_got, c_ref = _both_policies(
+        lambda: canonicalize_poses(sc["poses"][0]))
+    print(f"[precision] canonicalize_poses, whose `fixed @ inv(c2w)` is "
+          f"DEFAULT as in the JAX package: max|DEFAULT - HIGHEST| "
+          f"{float((c_got[0] - c_ref[0]).abs().max()):.3g} of max "
+          f"{float(c_ref[0].abs().max()):.3g} (printed only)", flush=True)
+    _linear_policies(dev)
+    vae, loss_cfg = _stage_errors(dev)
+    _prefetch_check(dev, sc, ref, vae, loss_cfg)
+    del vae
+    torch.cuda.empty_cache()
+
+
 def probe_one(batch: int, compute_dtype: str):
     import torch
     from gaussiananything_tpu_torch.cli import train_vae
@@ -3673,32 +4145,57 @@ def main():
         fail("gaussiananything_tpu_torch/ is missing beside chip_smoke.py")
     dev, smi_line = device_phase()
     build_phase()
-    records = [k1_phase(dev), k2a_phase(dev), k2b_phase(dev), k6_phase(dev),
-               k3_phase(dev), k4_phase(dev), k5_phase(dev)]
-    records += stages_phase(dev)
-    band_errs = bands_phase(dev)
+    walls = {}
+
+    def run(name, fn, *args, policy="default", **kw):
+        """A phase under `policy`: "highest" (IEEE products) where the
+        card is held against its plain versions or the CPU, the default
+        (TF32, the JAX package's `Precision.DEFAULT`) on the paths."""
+        t0 = time.perf_counter()
+        with matmul_policy(policy):
+            out = fn(*args, **kw)
+        walls[name] = round(time.perf_counter() - t0, 1)
+        print(f"[phase] {name}: {walls[name]} s", flush=True)
+        return out
+
+    hi = dict(policy="highest")
+    records = [run("K1", k1_phase, dev, **hi),
+               run("K2a", k2a_phase, dev, **hi),
+               run("K2b", k2b_phase, dev, **hi),
+               run("K6", k6_phase, dev, **hi),
+               run("K3", k3_phase, dev, **hi),
+               run("K4", k4_phase, dev, **hi),
+               run("K5", k5_phase, dev, **hi)]
+    records += run("stages", stages_phase, dev, **hi)
+    band_errs = run("bands", bands_phase, dev, **hi)
     for rec in records:
         if rec["name"] in band_errs:
             rec["max_abs_err"] = max(rec["max_abs_err"],
                                      band_errs[rec["name"]])
-    small_cascade_phase(dev)
-    paths = {"cascade": cascade_phase(dev)}
-    small_serving_phase(dev)
-    paths["serving"] = serving_phase(dev)
-    small_train_phase(dev)
-    paths["train"], train32 = train_phase(dev)
-    paths["train bf16"], _ = train_phase(dev, "bfloat16", against=train32)
-    small_adv_train_phase(dev)
-    paths["adv_train"] = adv_train_phase(dev)
-    small_flow_train_phase(dev)
-    paths["flow_train"] = flow_train_phase(dev)
-    fm_release_batch_phase(dev)
-    release_feasibility_phase(dev)
-    paths["raster_tools"] = raster_tools_phase(dev)
-    paths["parity_512"] = parity_512_phase(dev)
-    paths["multi_rank"] = multi_rank_phase(dev)
-    paths["profile"] = profile_phase(dev)
-    import_phase(dev)
+    run("small cascade", small_cascade_phase, dev, **hi)
+    paths = {"cascade": run("cascade", cascade_phase, dev)}
+    run("small serving", small_serving_phase, dev, **hi)
+    paths["serving"] = run("serving", serving_phase, dev)
+    run("small train", small_train_phase, dev, **hi)
+    paths["train"], train32 = run("train", train_phase, dev)
+    run("train IEEE", train_phase, dev, against=train32, ieee=True)
+    paths["train bf16"], train16 = run("train bf16", train_phase, dev,
+                                       "bfloat16", against=train32)
+    run("train bf16 IEEE", train_phase, dev, "bfloat16", against=train16,
+        ieee=True)
+    run("small adv train", small_adv_train_phase, dev, **hi)
+    paths["adv_train"] = run("adv train", adv_train_phase, dev)
+    run("small flow train", small_flow_train_phase, dev, **hi)
+    paths["flow_train"] = run("flow train", flow_train_phase, dev)
+    run("fm-release-batch", fm_release_batch_phase, dev)
+    run("release feasibility", release_feasibility_phase, dev)
+    paths["raster_tools"] = run("raster tools", raster_tools_phase, dev)
+    paths["parity_512"] = run("parity-512", parity_512_phase, dev)
+    paths["multi_rank"] = run("multi-rank", multi_rank_phase, dev)
+    paths["profile"] = run("profile", profile_phase, dev)
+    run("precision", precision_phase, dev)
+    run("import", import_phase, dev, **hi)
+    print(f"phase seconds: {json.dumps(walls)}", flush=True)
     for rec in records:
         # a kernel's launches over the main paths, each read just after its
         # run: K1 is on all of them, K2a and K2b on training and the tools

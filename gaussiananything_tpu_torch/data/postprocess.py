@@ -5,14 +5,19 @@ The reference dataset's `PostProcess`
 (`datasets/g_buffer_objaverse.py:109,189-261`): per view, rgb (3,
 imagenet-normalised) ‖ normal (3) ‖ Plücker rays (6) ‖ world xyz (3); depth
 maps are backprojected with the camera and masked pixels get xyz = 0.
-The products are fp32 (`utils/device.resolve_device` turns TF32 off on
-the card), the counterpart of JAX's `Precision.HIGHEST`.
+The backprojection, the pose rebase and the point move are IEEE fp32
+whatever the policy (`utils/precision.highest_*`, JAX's
+`Precision.HIGHEST`); `fixed @ inv(c2w)` is a plain product, at the
+process policy, as JAX's plain `@` is at `Precision.DEFAULT`.
 """
 from __future__ import annotations
 
 import torch
 
 from gaussiananything_tpu_torch.render import cameras as cam_mod
+from gaussiananything_tpu_torch.utils.precision import (highest_einsum,
+                                                        highest_inv,
+                                                        highest_matmul)
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -31,8 +36,8 @@ def backproject_depth(depth: torch.Tensor, c2w: torch.Tensor,
         .expand(depth.shape[:-3])[..., None, None]
     z = depth[..., 0, :, :]
     pts_view = torch.stack([gx * tf * z, gy * tf * z, z], dim=-1)
-    pts_world = torch.einsum("...hwj,...ij->...hwi", pts_view,
-                             c2w[..., :3, :3]) \
+    pts_world = highest_einsum("...hwj,...ij->...hwi", pts_view,
+                               c2w[..., :3, :3]) \
         + c2w[..., None, None, :3, 3]
     return pts_world.movedim(-1, -3)
 
@@ -57,7 +62,7 @@ def _canonical_transform(c2w: torch.Tensor) -> torch.Tensor:
     c2w to identity rotation on −z at its own radius."""
     fixed = torch.eye(4, dtype=c2w.dtype, device=c2w.device)
     fixed[2, 3] = -torch.linalg.vector_norm(c2w[:3, 3])
-    return fixed @ torch.linalg.inv(c2w)
+    return fixed @ highest_inv(c2w)
 
 
 def canonicalize_poses(pose25: torch.Tensor, canonical_idx: int = 0
@@ -68,7 +73,8 @@ def canonicalize_poses(pose25: torch.Tensor, canonical_idx: int = 0
     `datasets/g_buffer_objaverse.py:355-399`)."""
     V = pose25.shape[0]
     c2w = pose25[:, :16].reshape(V, 4, 4)
-    new_c2w = _canonical_transform(c2w[canonical_idx]) @ c2w
+    new_c2w = highest_matmul(_canonical_transform(c2w[canonical_idx]),
+                             c2w)
     return torch.cat([new_c2w.reshape(V, 16), pose25[:, 16:]], dim=-1)
 
 
@@ -78,4 +84,4 @@ def canonicalize_pts(pose25: torch.Tensor, pcd: torch.Tensor,
     `canonicalize_poses` applies to the cameras
     (`datasets/g_buffer_objaverse.py:291-321`)."""
     t = _canonical_transform(pose25[canonical_idx, :16].reshape(4, 4))
-    return pcd @ t[:3, :3].T + t[:3, 3]
+    return highest_matmul(pcd, t[:3, :3].T) + t[:3, 3]

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 
 POS_BOUND = 0.45
+# offsets: tanh · 0.45 · 0.5 · skip_weight 0.1 (`vit/vit_triplane.py:1289`)
+POS_OFFSET_GAIN = 0.45 * 0.5 * 0.1
 SCALE_GAIN = 0.45 * 0.01 / float(np.log(2.0))  # softplus(0) = ln 2
 
 
@@ -60,3 +62,8 @@ def activate_gaussians_at(pos: torch.Tensor, raw: torch.Tensor
     rot = rot * torch.rsqrt((rot * rot).sum(-1, keepdim=True) + 1e-16)
     rgb = 0.5 * torch.tanh(raw[..., 10:13]) + 0.5
     return torch.cat([pos.float(), opacity, scale, rot, rgb], dim=-1)
+
+
+def inverse_sigmoid(x, eps: float = 1e-6) -> torch.Tensor:
+    x = torch.clamp(torch.as_tensor(x), eps, 1 - eps)
+    return torch.log(x) - torch.log1p(-x)

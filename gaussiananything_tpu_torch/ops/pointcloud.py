@@ -9,13 +9,15 @@ from typing import Optional
 
 import torch
 
+from gaussiananything_tpu_torch.utils.precision import highest_bmm
+
 
 def _sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(B,N,3), (B,M,3) → (B,N,M) squared distances by the product
     expansion."""
     an = (a * a).sum(-1)
     bn = (b * b).sum(-1)
-    ab = torch.bmm(a, b.transpose(1, 2))
+    ab = highest_bmm(a, b.transpose(1, 2))
     return torch.clamp(an[:, :, None] + bn[:, None, :] - 2 * ab, min=0.0)
 
 

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from gaussiananything_tpu_torch.ops.gaussians import unpack_gaussians
+from gaussiananything_tpu_torch.utils.precision import highest_bmm
 from gaussiananything_tpu_torch.utils.quaternions import normalize
 
 # Constants of `gaussiananything_tpu/ops/rasterize.py:44-65` (see there for
@@ -422,7 +423,7 @@ def composite_chunk(state: PixelState, px: torch.Tensor, py: torch.Tensor,
 
     feats = torch.stack([data[16], data[17], data[18], data[19], data[20],
                          data[21], torch.ones_like(data[0])], dim=-1)
-    acc = torch.bmm(w, feats)                               # (G, P, 7)
+    acc = highest_bmm(w, feats)                             # (G, P, 7)
     s_w = acc[..., 6]
     depth_exp = state.depth_exp + (w * depth).sum(-1)
 
@@ -528,7 +529,7 @@ def chunk_backward(state: PixelState, px: torch.Tensor, py: torch.Tensor,
     feats6 = torch.stack([data[16], data[17], data[18],
                           data[19], data[20], data[21]], dim=-1)  # (G, K, 6)
     ct_acc6 = torch.cat([ct.rgb, ct.normal], dim=-1)              # (G, P, 6)
-    cw = torch.bmm(ct_acc6, feats6.transpose(1, 2))               # (G, P, K)
+    cw = highest_bmm(ct_acc6, feats6.transpose(1, 2))             # (G, P, K)
     cw = cw + ct_s_w[..., None] \
         + ct.depth_exp[..., None] * depth \
         + ct_s_wm[..., None] * m + ct_s_wm2[..., None] * (m * m)
@@ -596,8 +597,8 @@ def chunk_backward(state: PixelState, px: torch.Tensor, py: torch.Tensor,
     G, P, K = u.shape
     basis = torch.stack([px, py, torch.ones_like(px)], dim=1)     # (G, 3, P)
     ct_lin = torch.stack([ct_p0, ct_p1, ct_p2, ct_num], dim=2)    # (G,P,4,K)
-    ct_coef = torch.bmm(basis, ct_lin.reshape(G, P, 4 * K)
-                        ).reshape(G, 3, 4, K)
+    ct_coef = highest_bmm(basis, ct_lin.reshape(G, P, 4 * K)
+                          ).reshape(G, 3, 4, K)
     ct_tza, ct_tzb, ct_tzc = ct_coef[:, 0, 3], ct_coef[:, 1, 3], \
         ct_coef[:, 2, 3]
     ca = [ct_coef[:, 0, i] + ct_tza * tz for i, tz in enumerate((tz0, tz1,
@@ -608,7 +609,7 @@ def chunk_backward(state: PixelState, px: torch.Tensor, py: torch.Tensor,
                                                                  tz2))]
     ct_tz = [ct_tza * data[i] + ct_tzb * data[3 + i] + ct_tzc * data[6 + i]
              for i in range(3)]
-    ct_feats = torch.bmm(w.transpose(1, 2), ct_acc6)              # (G, K, 6)
+    ct_feats = highest_bmm(w.transpose(1, 2), ct_acc6)            # (G, K, 6)
 
     ct_data = torch.stack([*ca, *cb, *cc, *ct_tz, ct_cx, ct_cy, ct_cz, ct_op,
                            *ct_feats.unbind(-1)], dim=0)          # (22, G, K)
@@ -1201,7 +1202,7 @@ def composite_lists_plain(geom: torch.Tensor, feat: torch.Tensor,
             t_excl = torch.exp(cums - log1m)
             w = tau * alpha * t_excl                            # (G, P, K)
 
-            acc = torch.bmm(w, fe)                              # (G, P, 8)
+            acc = highest_bmm(w, fe)                            # (G, P, 8)
             w_sum = acc[..., 6]
             t_after = tau * torch.exp(cums)
             crossed = (t_in > 0.5) & (t_after <= 0.5)

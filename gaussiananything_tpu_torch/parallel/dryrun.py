@@ -171,7 +171,10 @@ def main(argv=None):
     from gaussiananything_tpu_torch.parallel import dist as pdist
     from gaussiananything_tpu_torch.utils.device import resolve_device
     pdist.setup_dist(args.backend)
-    dev = pdist.rank_device(resolve_device(args.device))
+    # a check, held at tolerances set in IEEE fp32: under TF32 cuBLAS picks
+    # its GEMM by shape, and a rank's micro-batch is not the whole batch
+    dev = pdist.rank_device(resolve_device(args.device,
+                                           matmul_precision="highest"))
     results = run(dev)
     if pdist.is_main():
         for rec in results:

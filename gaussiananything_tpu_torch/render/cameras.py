@@ -14,14 +14,51 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from gaussiananything_tpu_torch.utils.precision import (highest_einsum,
+                                                        highest_inv,
+                                                        highest_matmul)
+from gaussiananything_tpu_torch.utils.quaternions import rotmat_to_quat
+
 ZNEAR = 0.01
 ZFAR = 100.0
+
+
+def fov2focal(fov: float, pixels: float) -> float:
+    return pixels / (2 * math.tan(fov / 2))
+
+
+def focal2fov(focal, pixels: float = 1.0):
+    return 2 * torch.atan2(torch.full_like(focal, pixels), 2 * focal)
+
+
+def world2view(c2w: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) camera-to-world -> ROW-VECTOR world-to-view transform
+    M, x_view = [x_world, 1] @ M (`getWorld2View2(R, t).T` of the
+    reference); the inverse in IEEE fp32."""
+    return highest_inv(c2w).transpose(-1, -2)
+
+
+def projection_matrix(znear: float = ZNEAR, zfar: float = ZFAR,
+                      fov_x: float = math.radians(30.0),
+                      fov_y: float | None = None) -> torch.Tensor:
+    """Row-vector perspective projection (transpose of the reference's
+    `getProjectionMatrix`, `utils/gs_utils/graphics_utils.py:65-88`)."""
+    if fov_y is None:
+        fov_y = fov_x
+    P = np.zeros((4, 4), dtype=np.float32)
+    P[0, 0] = 1.0 / math.tan(fov_x / 2)
+    P[1, 1] = 1.0 / math.tan(fov_y / 2)
+    P[2, 2] = zfar / (zfar - znear)
+    P[2, 3] = 1.0
+    P[3, 2] = -(zfar * znear) / (zfar - znear)
+    return torch.from_numpy(P)
 
 
 def pose_to_gs_camera(pose25, znear: float = ZNEAR, zfar: float = ZFAR,
                       device="cpu") -> Dict[str, torch.Tensor]:
     """25-dim flat pose(s) (..., 25) -> render camera dict with cam_view,
-    cam_view_proj (..., 4, 4), cam_pos (..., 3) and tanfov (...,)."""
+    cam_view_proj (..., 4, 4), cam_pos (..., 3), tanfov (...,),
+    source_cv2wT_quat (..., 4) and orig_c2w (..., 4, 4)."""
     pose25 = torch.as_tensor(pose25, dtype=torch.float32, device=device)
     batch = pose25.shape[:-1]
     c2w = pose25[..., :16].reshape(batch + (4, 4))
@@ -29,7 +66,7 @@ def pose_to_gs_camera(pose25, znear: float = ZNEAR, zfar: float = ZFAR,
     fov = focal2fov(fx)
     tanfov = torch.tan(fov / 2)
 
-    cam_view = torch.linalg.inv(c2w).transpose(-1, -2)
+    cam_view = world2view(c2w)
     inv_tan = 1.0 / tanfov
     zeros = torch.zeros_like(inv_tan)
     ones = torch.ones_like(inv_tan)
@@ -43,14 +80,13 @@ def pose_to_gs_camera(pose25, znear: float = ZNEAR, zfar: float = ZFAR,
     ], dim=-2)
     return {
         "cam_view": cam_view,
-        "cam_view_proj": cam_view @ proj,
+        "cam_view_proj": highest_matmul(cam_view, proj),
         "cam_pos": c2w[..., :3, 3],
         "tanfov": tanfov,
+        "source_cv2wT_quat": rotmat_to_quat(
+            c2w[..., :3, :3].transpose(-1, -2)),
+        "orig_c2w": c2w,
     }
-
-
-def focal2fov(focal, pixels: float = 1.0):
-    return 2 * torch.atan2(torch.full_like(focal, pixels), 2 * focal)
 
 
 def plucker_rays(c2w: torch.Tensor, K: torch.Tensor, h: int, w: int
@@ -67,7 +103,8 @@ def plucker_rays(c2w: torch.Tensor, K: torch.Tensor, h: int, w: int
     cx, cy = K[..., 0, 2, None, None], K[..., 1, 2, None, None]
     dirs_cam = torch.stack([(xx - cx) / fx, (yy - cy) / fy,
                             torch.ones_like(xx) * torch.ones_like(cx)], -1)
-    d = torch.einsum("...hwj,...ij->...hwi", dirs_cam, c2w[..., :3, :3])
+    d = highest_einsum("...hwj,...ij->...hwi", dirs_cam,
+                       c2w[..., :3, :3])
     d = d * torch.rsqrt((d * d).sum(-1, keepdim=True) + 1e-16)
     o = c2w[..., None, None, :3, 3].expand_as(d)
     plucker = torch.cat([torch.linalg.cross(o, d), d], dim=-1)
@@ -121,3 +158,14 @@ def uni_mesh_path(n_azimuths: int = 10, radius: float = 1.8,
     poses = [(e, a) for e in elevations
              for a in np.linspace(0, 360, n_azimuths, endpoint=False)]
     return generate_input_camera(radius, poses, fov_deg)
+
+
+def sample_uniform_cameras_on_sphere(rng: np.random.Generator, n: int,
+                                     radius: float = 1.8,
+                                     fov_deg: float = 30.0) -> np.ndarray:
+    """Uniform sphere sampling (`nsr/camera_utils.py:268`)."""
+    z = rng.uniform(-1, 1, n)
+    phi = rng.uniform(0, 2 * np.pi, n)
+    elev = np.degrees(np.arcsin(z))
+    azi = np.degrees(phi)
+    return generate_input_camera(radius, list(zip(elev, azi)), fov_deg)

@@ -218,7 +218,8 @@ def run_parity(res: int = RES, n_splats: int = N_SPLATS,
     view's seconds (host clock, synchronised) and "pass". `impl` "cuda"
     runs the kernels on a CUDA device (their plain versions for CPU
     tensors); "plain" takes the plain pair for both tiled paths."""
-    dev = resolve_device(device)
+    # a check against the oracle: every product in IEEE fp32
+    dev = resolve_device(device, matmul_precision="highest")
     if dev.type == "cuda":
         from gaussiananything_tpu_torch.ops import rasterize_cuda
         rasterize_cuda.build()          # no view's seconds include nvcc

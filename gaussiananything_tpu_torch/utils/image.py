@@ -5,8 +5,9 @@ it uses the cubic kernel with a = −0.75 and clamps at the borders, while
 the JAX package resizes (`data/synthetic.py:100`, `models/conditioner.py:141`,
 `models/dinov2.py:96`) with Keys' kernel a = −0.5 at half-pixel centres,
 renormalises the weights at the borders and, when downsampling, widens the
-kernel (antialias). This module builds those resize matrices itself, and
-writes PNGs with the standard library alone.
+kernel (antialias). This module builds those resize matrices itself and
+applies them in IEEE fp32 (`jax.image.resize`'s default precision is
+`Precision.HIGHEST`), and writes PNGs with the standard library alone.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import zlib
 
 import numpy as np
 import torch
+
+from gaussiananything_tpu_torch.utils.precision import highest_einsum
 
 
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
@@ -58,11 +61,11 @@ def resize(x: torch.Tensor, size, method: str = "cubic",
     H, W = x.shape[-2:]
     x = x.float()
     if H != h:
-        x = torch.einsum("...hw,hH->...Hw", x,
-                         resize_matrix(H, h, method, antialias, x.device))
+        x = highest_einsum("...hw,hH->...Hw", x,
+                           resize_matrix(H, h, method, antialias, x.device))
     if W != w:
-        x = torch.einsum("...hw,wW->...hW", x,
-                         resize_matrix(W, w, method, antialias, x.device))
+        x = highest_einsum("...hw,wW->...hW", x,
+                           resize_matrix(W, w, method, antialias, x.device))
     return x
 
 

@@ -19,7 +19,8 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the port's kernels are CUDA kernels")
     from gaussiananything_tpu_torch.utils.device import resolve_device
-    return resolve_device("cuda")
+    # the card held against plain versions and the CPU: IEEE products
+    return resolve_device("cuda", matmul_precision="highest")
 
 
 @pytest.mark.cuda

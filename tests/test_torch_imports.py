@@ -121,13 +121,6 @@ def test_serve_defaults_to_cuda_and_refuses_without_it(monkeypatch):
         serve.build_pipeline(args)
 
 
-def test_resolve_device_pins_fp32_products():
-    from gaussiananything_tpu_torch.utils.device import resolve_device
-    resolve_device("cpu")
-    assert torch.backends.cuda.matmul.allow_tf32 is False
-    assert torch.backends.cudnn.allow_tf32 is False
-
-
 def test_train_cli_defaults_to_cuda_and_refuses_without_it(monkeypatch,
                                                            tmp_path):
     from gaussiananything_tpu_torch.cli import train_vae
