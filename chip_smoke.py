@@ -2131,7 +2131,7 @@ def _train_run(dev, logdir, compute_dtype, against, policy="TF32"):
     from gaussiananything_tpu_torch.models.layers import (GroupNorm32,
                                                           LayerNorm, RMSNorm)
     from gaussiananything_tpu_torch.models.vae import PointVAE
-    from gaussiananything_tpu_torch.ops import rasterize_cuda
+    from gaussiananything_tpu_torch.utils import profiling
 
     tag = "[train" + ("" if compute_dtype == "float32" else
                       f" {compute_dtype}") \
@@ -2145,23 +2145,18 @@ def _train_run(dev, logdir, compute_dtype, against, policy="TF32"):
         f.write(cfg.to_json())
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
-    rasterize_cuda.event_log = []       # device time of every launch
     timers = []
     t0 = time.perf_counter()
-    try:
+    with profiling.recording(dev) as rec:   # device time of every launch
         res = train_vae.main(
             ["--config", cfg_path, "--steps", str(TRAIN_STEPS), "--batch",
              str(TRAIN_BATCH), "--logdir", os.path.join(logdir, "run"),
              "--device", str(dev)], timers=timers)
         torch.cuda.synchronize()
-        events = rasterize_cuda.event_log
-    finally:
-        rasterize_cuda.event_log = None
     wall = time.perf_counter() - t0
     launches = _read_launches()
     peak = torch.cuda.max_memory_allocated()
-    kernel_s = {k: sum(a.elapsed_time(b) for n, a, b in events if n == k)
-                / 1e3 for k in ("K1", "K2a", "K2b")}
+    kernel_s = _kernel_seconds(rec, ("K1", "K2a", "K2b"))
     used = {k: v for k, v in launches.items() if v}
     print(f"{tag} vae-release width, compute dtype {compute_dtype}, batch "
           f"{TRAIN_BATCH}, {TRAIN_STEPS} steps, wall {wall:.2f}s (model "
@@ -2368,7 +2363,7 @@ def _adv_train_run(dev, root):
     from gaussiananything_tpu_torch.config import preset
     from gaussiananything_tpu_torch.data.gbuffer import \
         export_synthetic_dataset
-    from gaussiananything_tpu_torch.ops import rasterize_cuda
+    from gaussiananything_tpu_torch.utils import profiling
 
     cfg = preset("vae-release")
     data, npz = os.path.join(root, "data"), os.path.join(root, "lpips.npz")
@@ -2380,9 +2375,8 @@ def _adv_train_run(dev, root):
             str(dev)]
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
-    rasterize_cuda.event_log = []
     seconds, timers = {}, []
-    try:
+    with profiling.recording(dev) as rec:
         t0 = time.perf_counter()
         export_synthetic_dataset(data, n_instances=ADV_INSTANCES,
                                  n_views=ADV_VIEWS, res=cfg.data.resolution,
@@ -2409,12 +2403,8 @@ def _adv_train_run(dev, root):
             runs.append({k: res[k] for k in ("logs", "d_logs", "evals")})
             runs[-1]["steps"] = (res["state"].step, res["disc_state"].step)
             del res
-        events = rasterize_cuda.event_log
-    finally:
-        rasterize_cuda.event_log = None
     launches = _read_launches()
-    kernel_s = {k: sum(a.elapsed_time(b) for n, a, b in events if n == k)
-                / 1e3 for k in ("K1", "K2a", "K2b")}
+    kernel_s = _kernel_seconds(rec, ("K1", "K2a", "K2b"))
     used = {k: v for k, v in launches.items() if v}
     print(f"[adv train] vae-release width, batch {TRAIN_BATCH}, "
           f"{ADV_STEPS} + 1 steps; wall seconds "
@@ -3494,6 +3484,14 @@ def multi_rank_phase(dev):
     return total
 
 
+def _kernel_seconds(rec, kernels):
+    """{kernel id: device seconds of its `ga.kernel.<id>` spans} of a
+    `utils/profiling.recording`."""
+    spans = rec.spans()
+    return {k: sum(s.device_s for s in spans if s.name == "ga.kernel." + k)
+            for k in kernels}
+
+
 def _trace_window(trace_path, window, n_top=8):
     """(device-busy seconds, window seconds, top kernels) of a trace: the
     kernels, copies and sets from the start of the CPU range named
@@ -3570,8 +3568,8 @@ def profile_phase(dev):
             for name, fn in (("dit_eval", lambda: dit(x, t, ctx, vec)),
                              ("turntable_view", view)):
                 sub = os.path.join(logdir, name)
-                with profiling.trace(sub):
-                    with profiling.annotate(name):
+                with profiling.recording(dev), profiling.trace(sub):
+                    with profiling.span(name):
                         fn()
                         torch.cuda.synchronize()
                 found[name] = _trace_window(
@@ -3581,8 +3579,8 @@ def profile_phase(dev):
             with matmul_policy("highest"):
                 dit(x, t, ctx, vec)
                 sub = os.path.join(logdir, "ieee")
-                with profiling.trace(sub):
-                    with profiling.annotate("dit_eval"):
+                with profiling.recording(dev), profiling.trace(sub):
+                    with profiling.span("dit_eval"):
                         dit(x, t, ctx, vec)
                         torch.cuda.synchronize()
                 found["dit_eval IEEE"] = _trace_window(

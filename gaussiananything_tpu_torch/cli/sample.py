@@ -39,6 +39,7 @@ from gaussiananything_tpu_torch.render import cameras
 from gaussiananything_tpu_torch.render.renderer import render_multiview
 from gaussiananything_tpu_torch.train.fm_trainer import (FMConfig, XYZ_SCALE,
                                                          make_sampler)
+from gaussiananything_tpu_torch.utils import profiling
 from gaussiananything_tpu_torch.utils.device import resolve_device
 
 # --mesh: 176³ is the reference's voxel = radius/160 over the
@@ -96,53 +97,59 @@ def sample_request(models: ReleaseModels, cond_img: torch.Tensor,
     world points, per-stage seconds under `timings` and, with stage 2, kl
     (1,K,z), lods, the turntable maps under `render` and the mesh (verts,
     faces, vertex colors) under `mesh`."""
-    dev = cond_img.device
-    timings: Dict[str, float] = {}
+    with profiling.span(profiling.REQUEST):
+        dev = cond_img.device
+        timings: Dict[str, float] = {}
 
-    def mark(label, t0):
-        _sync(dev)
-        t1 = time.perf_counter()
-        timings[label] = t1 - t0
-        log(f"    [t] {label}: {t1 - t0:.2f}s")
-        return t1
+        def mark(label, t0):
+            _sync(dev)
+            t1 = time.perf_counter()
+            timings[label] = t1 - t0
+            log(f"    [t] {label}: {t1 - t0:.2f}s")
+            return t1
 
-    K = models.latent_num or \
-        models.vae.decoder["vit_decoder"].pos_embed.shape[1]
-    t0 = time.perf_counter()
-    xyz_n = make_sampler(models.dit1, models.cond, fm1, (K, 3))(
-        cond_img, generator, x0=x0_stage1)
-    t0 = mark("stage-1 sample", t0)
-    # clip to the scene extent before the stage-2 conditioning and export
-    # (`flow_matching_trainer.py:2131-2145`)
-    xyz = torch.clamp(xyz_n[0] * XYZ_SCALE, -0.45, 0.45)
-    out = {"xyz_n": xyz_n, "xyz": xyz, "timings": timings}
-    if models.dit2 is None:
+        K = models.latent_num or \
+            models.vae.decoder["vit_decoder"].pos_embed.shape[1]
+        t0 = time.perf_counter()
+        with profiling.span("ga.stage1"):
+            xyz_n = make_sampler(models.dit1, models.cond, fm1, (K, 3))(
+                cond_img, generator, x0=x0_stage1)
+            t0 = mark("stage-1 sample", t0)
+        # clip to the scene extent before the stage-2 conditioning and
+        # export (`flow_matching_trainer.py:2131-2145`)
+        xyz = torch.clamp(xyz_n[0] * XYZ_SCALE, -0.45, 0.45)
+        out = {"xyz_n": xyz_n, "xyz": xyz, "timings": timings}
+        if models.dit2 is None:
+            return out
+        zc = models.dit2.in_channels
+        with profiling.span("ga.stage2"):
+            kl = make_sampler(models.dit2, models.cond2 or models.cond, fm2,
+                              (K, zc))(cond_img, generator,
+                                       xyz=xyz[None] / models.xyz_cond_scale,
+                                       x0=x0_stage2)
+            t0 = mark("stage-2 sample", t0)
+        with profiling.span("ga.decode"):
+            lods = models.vae.decode(kl, xyz[None])
+            t0 = mark("VAE cascade decode", t0)
+        with profiling.span("ga.render"):
+            sweep = cameras.uni_mesh_path(8)[:8]
+            cam = cameras.pose_to_gs_camera(sweep, device=dev)
+            out["render"] = render_multiview(
+                lods[-1], cam["cam_view"][None], cam["cam_view_proj"][None],
+                torch.ones((1, 8, 3), device=dev), render.output_size,
+                tile=16, max_per_tile=render.max_per_tile,
+                chunk=render.chunk)
+            t0 = mark("8-view turntable render", t0)
+        out.update(kl=kl, lods=lods)
+        if mesh is not None:
+            from gaussiananything_tpu_torch.render.tsdf import \
+                mesh_from_gaussians
+            out["mesh"] = mesh_from_gaussians(lods[-1][0], timings=timings,
+                                              **mesh)
+            for k in ("mesh render", "mesh integrate", "mesh surface nets"):
+                log(f"    [t] {k}: {timings[k]:.2f}s")
+            mark("TSDF fuse + surface nets", t0)
         return out
-    zc = models.dit2.in_channels
-    kl = make_sampler(models.dit2, models.cond2 or models.cond, fm2,
-                      (K, zc))(cond_img, generator,
-                               xyz=xyz[None] / models.xyz_cond_scale,
-                               x0=x0_stage2)
-    t0 = mark("stage-2 sample", t0)
-    lods = models.vae.decode(kl, xyz[None])
-    t0 = mark("VAE cascade decode", t0)
-    sweep = cameras.uni_mesh_path(8)[:8]
-    cam = cameras.pose_to_gs_camera(sweep, device=dev)
-    out["render"] = render_multiview(
-        lods[-1], cam["cam_view"][None], cam["cam_view_proj"][None],
-        torch.ones((1, 8, 3), device=dev), render.output_size, tile=16,
-        max_per_tile=render.max_per_tile, chunk=render.chunk)
-    t0 = mark("8-view turntable render", t0)
-    out.update(kl=kl, lods=lods)
-    if mesh is not None:
-        from gaussiananything_tpu_torch.render.tsdf import \
-            mesh_from_gaussians
-        out["mesh"] = mesh_from_gaussians(lods[-1][0], timings=timings,
-                                          **mesh)
-        for k in ("mesh render", "mesh integrate", "mesh surface nets"):
-            log(f"    [t] {k}: {timings[k]:.2f}s")
-        mark("TSDF fuse + surface nets", t0)
-    return out
 
 
 def build_models(args, cfg, device) -> ReleaseModels:

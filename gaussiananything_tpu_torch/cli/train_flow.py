@@ -73,8 +73,8 @@ def main(argv=None, timers=None):
     """Runs the training loop; returns {"state", "cond_state", "dit",
     "cond", "logs" (one dict of floats per step), "evals" (one dict per
     evaluation), "logdir"}. `timers`: optional list that receives one
-    `StageTimer.seconds` dict per step (each stage then ends in a device
-    synchronise)."""
+    `StageTimer.seconds` dict per step (CUDA events on the device's
+    stream; one synchronise a step, when the dict is read)."""
     p = argparse.ArgumentParser(allow_abbrev=False)
     p.add_argument("--preset", default="demo-e2e")
     p.add_argument("--config", default=None, help="RunConfig json path")

@@ -40,8 +40,8 @@ def main(argv=None, timers=None):
     of floats per step), "disc_state" (None without `--adv`), "d_logs"
     and "evals" (one dict of floats per discriminator step and per
     evaluation)}. `timers`: optional list that receives one
-    `StageTimer.seconds` dict per step (each stage then ends in a device
-    synchronise)."""
+    `StageTimer.seconds` dict per step (CUDA events on the device's
+    stream; one synchronise a step, when the dict is read)."""
     p = argparse.ArgumentParser(allow_abbrev=False)
     p.add_argument("--preset", default="vae-small")
     p.add_argument("--config", default=None, help="RunConfig json path")

@@ -16,6 +16,7 @@ import torch
 
 from gaussiananything_tpu_torch.diffusion.transport import (
     Path, gvp_path, score_from_velocity, sde_diffusion)
+from gaussiananything_tpu_torch.utils import profiling
 
 
 def cfg_velocity_fn(velocity_fn: Callable, cond: NamedTuple,
@@ -25,10 +26,11 @@ def cfg_velocity_fn(velocity_fn: Callable, cond: NamedTuple,
     c2 = type(cond)(*(torch.cat([a, b], dim=0) for a, b in zip(cond, uncond)))
 
     def guided(x, t):
-        v = velocity_fn(torch.cat([x, x], dim=0), torch.cat([t, t], dim=0),
-                        c2)
-        v_c, v_u = v.chunk(2, dim=0)
-        return v_u + cfg_scale * (v_c - v_u)
+        with profiling.span("ga.velocity"):
+            v = velocity_fn(torch.cat([x, x], dim=0),
+                            torch.cat([t, t], dim=0), c2)
+            v_c, v_u = v.chunk(2, dim=0)
+            return v_u + cfg_scale * (v_c - v_u)
 
     return guided
 
@@ -44,13 +46,14 @@ def sample_ode(velocity_fn: Callable, x0: torch.Tensor, num_steps: int = 250,
     ts = torch.arange(num_steps, dtype=torch.float32, device=x0.device) * dt
     x = x0
     for t in ts:
-        tb = t.expand(B)
-        v1 = velocity_fn(x, tb)
-        if method == "euler":
-            x = x + dt * v1
-        else:
-            v2 = velocity_fn(x + dt * v1, tb + dt)
-            x = x + 0.5 * dt * (v1 + v2)
+        with profiling.span("ga.step"):
+            tb = t.expand(B)
+            v1 = velocity_fn(x, tb)
+            if method == "euler":
+                x = x + dt * v1
+            else:
+                v2 = velocity_fn(x + dt * v1, tb + dt)
+                x = x + 0.5 * dt * (v1 + v2)
     return x
 
 
@@ -160,14 +163,15 @@ def sample_ode_adaptive(velocity_fn: Callable, x0: torch.Tensor,
     dt = _initial_step(fn, t, y, f, rtol, atol)
     coeff = (y,) * 5
     while t < target and dt > 0:
-        y1, f1, err, k = _rk_step(fn, y, f, t, dt)
-        tol = atol + rtol * torch.maximum(y.abs(), y1.abs())
-        ratio = _f32(torch.sqrt(((err / tol) ** 2).mean()).item())
-        new_dt = _next_step(dt, ratio)
-        if ratio <= 1:
-            coeff = _interp_fit(y, y1, k, dt)
-            y, f, last_t, t = y1, f1, t, _f32(t + dt)
-        dt = new_dt
+        with profiling.span("ga.step"):
+            y1, f1, err, k = _rk_step(fn, y, f, t, dt)
+            tol = atol + rtol * torch.maximum(y.abs(), y1.abs())
+            ratio = _f32(torch.sqrt(((err / tol) ** 2).mean()).item())
+            new_dt = _next_step(dt, ratio)
+            if ratio <= 1:
+                coeff = _interp_fit(y, y1, k, dt)
+                y, f, last_t, t = y1, f1, t, _f32(t + dt)
+            dt = new_dt
     r = float(_f32((target - last_t) / (t - last_t)))
     out = torch.zeros_like(x0)
     for c in coeff:

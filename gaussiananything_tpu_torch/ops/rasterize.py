@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from gaussiananything_tpu_torch.ops.gaussians import unpack_gaussians
+from gaussiananything_tpu_torch.utils import profiling
 from gaussiananything_tpu_torch.utils.precision import highest_bmm
 from gaussiananything_tpu_torch.utils.quaternions import normalize
 
@@ -989,12 +990,13 @@ def rasterize_tiled(gaussians: torch.Tensor, cam_view: torch.Tensor,
     _check_frame_args(img_h, img_w, tile, max_per_tile, chunk)
     if impl not in ("cuda", "plain"):
         raise ValueError(f"unknown rasterizer impl {impl!r}")
-    sp = preprocess_splats(gaussians, cam_view, cam_view_proj,
-                           full_h or img_h, img_w)
-    with torch.no_grad():
+    with profiling.span("ga.render.project"):
+        sp = preprocess_splats(gaussians, cam_view, cam_view_proj,
+                               full_h or img_h, img_w)
+        tab = splat_table(sp, full_h or img_h, img_w)
+    with profiling.span("ga.render.bin"), torch.no_grad():
         pairs, starts, counts = build_tile_pairs(sp, img_h, img_w, tile,
                                                  max_per_tile, row0=row0)
-    tab = splat_table(sp, full_h or img_h, img_w)
     if impl == "plain":
         buf = composite_plain_train(tab, pairs, starts, counts, bg, img_h,
                                     img_w, tile=tile, chunk=chunk, row0=row0)

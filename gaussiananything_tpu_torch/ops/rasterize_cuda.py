@@ -35,7 +35,8 @@ The wrappers take the plain versions (`rasterize.composite_plain`,
 `rasterize.composite_plain_backward`, `rasterize.composite_segments_plain`,
 `rasterize.composite_lists_plain`, `rasterize.stage_plain`) only for tensors
 on the CPU; for CUDA tensors they launch the kernels or raise. Each wrapper
-counts its launches in its `launches` attribute.
+counts its launches in its `launches` attribute and opens the span
+`ga.kernel.<id>` (`utils/profiling.py`) around each launch.
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ from typing import Dict
 import torch
 
 from gaussiananything_tpu_torch.ops import rasterize as rz
+from gaussiananything_tpu_torch.utils import profiling
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 SOURCES = {"fwd": os.path.join(_CSRC, "rasterize_v4.cu"),       # K1, K2a
@@ -206,25 +208,28 @@ def _check_frame(tab, pairs, starts, counts, bg, img_h, img_w, tile, chunk,
     return tiles_x, tiles_y
 
 
-# When a list, every launch appends (kernel name, start event, end event),
-# CUDA events around the launch on the current stream: a caller sums
-# `start.elapsed_time(end)` after a synchronise for the kernels' device time
-# inside a larger run.
+# When a list, every launch appends (kernel id, start event, end event),
+# CUDA events around the launch on the current stream. The accepted
+# benchmark's drivers read it; the program's own readers take the
+# `ga.kernel.<id>` spans of `utils.profiling.recording`.
 event_log = None
 
 
 @contextlib.contextmanager
-def _logged(kernel: str):
-    log = event_log
-    if log is None:
+def _launch(kernel: str, **frame):
+    """The span `ga.kernel.<kernel>` around one launch, with its frame as
+    attributes (and the launch's events in `event_log` when a list)."""
+    with profiling.span("ga.kernel." + kernel, **frame):
+        log = event_log
+        if log is None:
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         yield
-        return
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    yield
-    end.record()
-    log.append((kernel, start, end))
+        end.record()
+        log.append((kernel, start, end))
 
 
 def _raise_on(err: int, kernel: str):
@@ -255,7 +260,7 @@ def composite(tab: torch.Tensor, pairs: torch.Tensor, starts: torch.Tensor,
     out = torch.empty((rz.N_OUT, img_h, img_w), dtype=torch.float32,
                       device=tab.device)
     stream = torch.cuda.current_stream(tab.device).cuda_stream
-    with _logged("K1"):
+    with _launch("K1", img_h=img_h, img_w=img_w, row0=row0):
         _raise_on(_library("fwd").ga_composite_v4(
             tab.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
             counts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, chunk, row0,
@@ -296,7 +301,7 @@ def composite_entries(tab: torch.Tensor, pairs: torch.Tensor,
     marks = torch.empty((entries.shape[0], tile * tile // 32, rz.MARK_WORDS),
                         dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with _logged("K2a"):
+    with _launch("K2a", img_h=img_h, img_w=img_w, row0=row0):
         _raise_on(_library("fwd").ga_composite_v4_train(
             tab.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
             counts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, chunk, row0,
@@ -369,7 +374,7 @@ def composite_backward(tab: torch.Tensor, pairs: torch.Tensor,
     d_tab = torch.empty_like(tab)
     tiles = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with _logged("K2b"):
+    with _launch("K2b", img_h=img_h, img_w=img_w, row0=row0):
         _raise_on(_library("bwd").ga_composite_v4_bwd(
             tab.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
             counts.data_ptr(), bg.data_ptr(), tiles.data_ptr(),
@@ -456,7 +461,7 @@ def composite_segments(seg: torch.Tensor, starts: torch.Tensor,
     out = torch.empty((rz.N_OUT, img_h, img_w), dtype=torch.float32,
                       device=seg.device)
     stream = torch.cuda.current_stream(seg.device).cuda_stream
-    with _logged("K6"):
+    with _launch("K6", img_h=img_h, img_w=img_w, row0=row0):
         _raise_on(_library("seg").ga_composite_v4_seg(
             seg.data_ptr(), starts.data_ptr(), counts.data_ptr(),
             bg.data_ptr(), tiles_x, tiles_y, chunk, row0, out.data_ptr(),
@@ -518,7 +523,8 @@ def _composite_natural(wrapper, kernel, geom, feat, counts, tiles_x, tile,
     order = torch.empty(n_tiles, dtype=torch.int32, device=geom.device)
     stream = torch.cuda.current_stream(geom.device).cuda_stream
     lib = _library("v1")
-    with _logged(kernel):
+    with _launch(kernel, img_h=n_tiles // tiles_x * tile,
+                 img_w=tiles_x * tile, row0=row0):
         if group is None:
             err = lib.ga_composite_lists(
                 geom.data_ptr(), feat.data_ptr(), counts.data_ptr(),
@@ -645,7 +651,7 @@ def composite_lists_grouped(gmax: torch.Tensor, geom: torch.Tensor,
     out = torch.empty((n_tiles, P, rz.LIST_OUT_W), dtype=torch.float32,
                       device=geom.device)
     stream = torch.cuda.current_stream(geom.device).cuda_stream
-    with _logged("K4"):
+    with _launch("K4", tiles=n_tiles):
         _raise_on(lib.ga_composite_lists_grouped(
             gmax.data_ptr(), geom.data_ptr(), feat.data_ptr(), px.data_ptr(),
             py.data_ptr(), cnt.data_ptr(), n_tiles, group, cluster, P, M,
@@ -733,7 +739,7 @@ def stage(stage_id: int, gmax: torch.Tensor, geom: torch.Tensor,
     out = torch.empty(shapes[3], dtype=torch.float32, device=geom.device)
     stream = torch.cuda.current_stream(geom.device).cuda_stream
     name = f"B{2 if field_major else 1}.{stage_id}"
-    with _logged(name):
+    with _launch(name, tiles=n_tiles):
         _raise_on(lib.ga_stage(
             stage_id, int(field_major), gmax.data_ptr(), geom.data_ptr(),
             feat.data_ptr(), px.data_ptr(), py.data_ptr(), n_tiles, group, P,

@@ -30,6 +30,7 @@ from gaussiananything_tpu_torch.parallel.mesh import shard_batch
 from gaussiananything_tpu_torch.train.state import (TrainState,
                                                     TrainStateConfig,
                                                     global_norm)
+from gaussiananything_tpu_torch.utils import profiling
 
 XYZ_SCALE = 0.164   # `datasets/g_buffer_objaverse.py:3645`
 
@@ -217,7 +218,8 @@ def make_sampler(dit_model, conditioner_model, cfg: FMConfig,
         if cfg.stage == 2 and xyz is None:
             raise ValueError("stage-2 sampling needs the stage-1 xyz")
         B = cond_input.shape[0]
-        cond = conditioner_model(cond_input)
+        with profiling.span("ga.condition"):
+            cond = conditioner_model(cond_input)
         uncond = type(cond)(*(torch.zeros_like(a) for a in cond))
         xyz2 = None if xyz is None else torch.cat([xyz, xyz], dim=0)
 

@@ -38,7 +38,6 @@ group's means.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -54,6 +53,7 @@ from gaussiananything_tpu_torch.train import losses as L
 from gaussiananything_tpu_torch.train.state import (TrainState,
                                                     TrainStateConfig,
                                                     global_norm)
+from gaussiananything_tpu_torch.utils import profiling
 from gaussiananything_tpu_torch.utils.image import resize
 
 
@@ -87,26 +87,40 @@ class VAELossConfig:
 
 
 class StageTimer:
-    """Seconds per named stage of a step; each stage ends in a device
-    synchronise so the host clock sees the device's work."""
+    """Seconds per named stage of a step, from marks on the device's
+    stream (CUDA events; the host clock on the CPU), so no lap waits for
+    the device. `seconds` waits once, on its first read after the step.
+    While a `utils.profiling.recording` is on, each lap is also its span
+    `ga.train.<stage>`."""
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self.seconds: Dict[str, float] = {}
-        self._t = None
-
-    def _now(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
+        self._laps: List[Tuple[str, profiling.Mark, profiling.Mark]] = []
+        self._mark = None
+        self._seconds: Optional[Dict[str, float]] = None
 
     def start(self):
-        self._t = self._now()
+        self._mark = profiling.Mark(self.device)
 
     def lap(self, stage: str):
-        t = self._now()
-        self.seconds[stage] = self.seconds.get(stage, 0.0) + t - self._t
-        self._t = t
+        mark = profiling.Mark(self.device)
+        self._laps.append((stage, self._mark, mark))
+        rec = profiling.active()
+        if rec is not None:
+            rec.add("ga.train." + stage, self._mark, mark)
+        self._mark = mark
+        self._seconds = None
+
+    @property
+    def seconds(self) -> Dict[str, float]:
+        if self._seconds is None:
+            if self.device.type == "cuda" and self._laps:
+                self._laps[-1][2].event.synchronize()
+            self._seconds = {}
+            for stage, a, b in self._laps:
+                self._seconds[stage] = self._seconds.get(stage, 0.0) \
+                    + a.seconds_to(b)
+        return self._seconds
 
 
 def render_lods(lods: Sequence[torch.Tensor], cam_view: torch.Tensor,

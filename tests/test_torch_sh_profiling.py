@@ -1,6 +1,6 @@
 """The port's `render/sh.py`, `utils/profiling.py` and native PLY writer
 against the JAX package's: spherical harmonics of degrees 0-3 to 1e-6 on
-the same numpy inputs; the wall-time scopes and the trace on the CPU; the
+the same numpy inputs; the spans in the trace on the CPU; the
 binary PLY that `ga_write_ply` writes, byte for byte the JAX package's
 native writer's and the numpy writer's."""
 from __future__ import annotations
@@ -45,29 +45,21 @@ def test_sh_constants_and_rgb_round_trip():
         sh.eval_sh(4, torch.zeros(1, 3, 25), torch.zeros(1, 3))
 
 
-def test_timer_scopes():
-    timer = profiling.Timer()
-    for _ in range(3):
-        with timer.scope("mm", block_on=torch.ones(2)):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    with timer.scope("other"):
-        pass
-    assert timer.counts == {"mm": 3, "other": 1}
-    means = timer.means()
-    assert set(means) == {"mm", "other"}
-    assert means["mm"] == pytest.approx(timer.totals["mm"] / 3)
-    assert all(v >= 0 for v in means.values())
-
-
 def test_trace_records_annotations(tmp_path):
-    with profiling.trace(str(tmp_path)) as prof:
-        with profiling.annotate("band_render"):
+    """`trace` around a `recording`: the spans are ranges of the Chrome
+    trace; outside a recording they are not."""
+    with profiling.recording(), profiling.trace(str(tmp_path)) as prof:
+        with profiling.span("ga.render.view"):
             torch.ones(32, 32) @ torch.ones(32, 32)
     names = {e.key for e in prof.key_averages()}
-    assert "band_render" in names
+    assert "ga.render.view" in names
     with open(tmp_path / "trace.json") as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "band_render" for e in events)
+    assert any(e.get("name") == "ga.render.view" for e in events)
+    with profiling.trace(str(tmp_path / "off")) as prof:
+        with profiling.span("ga.render.view"):
+            torch.ones(32, 32) @ torch.ones(32, 32)
+    assert "ga.render.view" not in {e.key for e in prof.key_averages()}
 
 
 def _fields():
