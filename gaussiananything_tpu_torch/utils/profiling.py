@@ -34,6 +34,10 @@ The program's spans, where they are opened:
   ga.velocity              each guided evaluation (`cfg_velocity_fn`: the
                            CFG-batched network call, its concatenations
                            and the combine)
+  ga.dit.replay            each replay of a DiT forward's CUDA graph, and
+  ga.dit.capture           each capture (`models/dit._ForwardGraphs`; a
+                           capturing call replays too; `ga.velocity` less
+                           `ga.dit.replay` is the evaluations run eagerly)
   ga.render.view           each view of `render/renderer.render_multiview`
   ga.render.project        projection and splat table in
                            `ops/rasterize.rasterize_tiled`

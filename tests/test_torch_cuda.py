@@ -919,3 +919,212 @@ def test_k1_bands_join_to_the_whole_view(card):
                                full[:, row0 + ty * 16:row0 + ty * 16 + 16,
                                     xs]), (i, t)
     assert same >= 0.9 * tiles_x * tiles_x, same
+
+
+# ----------------------------------------------- the DiT's CUDA graphs
+
+
+def _graph_dit(card, stage: int, depth: int = 2):
+    """A release-width DiT (1024 wide, 16 heads) cut to `depth` blocks."""
+    from gaussiananything_tpu_torch.models.dit import PointDiT
+    torch.manual_seed(0)
+    with torch.device(card):
+        return PointDiT(in_channels=3 if stage == 1 else 10, width=1024,
+                        depth=depth, heads=16, cond_dim=1024,
+                        vector_dim=1024, use_xyz_pe=stage == 2).eval()
+
+
+def _graph_args(card, stage: int, seed: int, batch: int = 2):
+    """The cascade's CFG-batched inputs: x (B, 768, 3 or 10), t, 1,369
+    DINOv2 tokens, the pooled vector and, for stage 2, the xyz."""
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=card)
+    return (r(batch, 768, 3 if stage == 1 else 10),
+            torch.rand((batch,), generator=g, device=card),
+            r(batch, 1369, 1024), r(batch, 1024),
+            0.3 * r(batch, 768, 3) if stage == 2 else None)
+
+
+def _graph_call(m, args):
+    return m(*args[:4], xyz=args[4])
+
+
+def _graph_counts(rec):
+    names = [s.name for s in rec.spans()]
+    return names.count("ga.dit.capture"), names.count("ga.dit.replay")
+
+
+def _rel(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["highest", "default"])
+@pytest.mark.parametrize("stage", [1, 2])
+def test_dit_graph_matches_eager(card, stage, policy):
+    """Call 1 runs eagerly, call 2 captures and replays, calls 3-4 replay,
+    each on new inputs: within 1e-6 of the largest |velocity| of the eager
+    body on the same inputs, under either matmul policy (the same kernels
+    on the same data; printed: whether bit-equal)."""
+    from gaussiananything_tpu_torch.utils import precision, profiling
+    m = _graph_dit(card, stage)
+    precision.set_policy(policy)
+    try:
+        outs = []
+        with torch.no_grad(), profiling.recording(card) as rec:
+            for seed in range(4):
+                args = _graph_args(card, stage, seed)
+                outs.append((_graph_call(m, args), m._forward_body(*args)))
+        assert _graph_counts(rec) == (1, 3)
+    finally:
+        precision.set_policy("highest")
+    for i, (got, ref) in enumerate(outs):
+        print(f"stage {stage} {policy} call {i}: bit-equal "
+              f"{torch.equal(got, ref)}, relative {_rel(got, ref):.3e}")
+        assert got.dtype == torch.float32 and _rel(got, ref) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_dit_graph_pre_hook_sees_every_call(card):
+    """The benchmark's `Recorder` keeps each call's input from a forward
+    pre-hook: under replay the hook still fires once per evaluation, with
+    that evaluation's input."""
+    from gaussiananything_tpu_torch.utils import profiling
+    m = _graph_dit(card, 2)
+    seen, sent = [], []
+    m.register_forward_pre_hook(
+        lambda mod, args, kwargs: seen.append(args[0][:1].clone()),
+        with_kwargs=True)
+    with torch.no_grad(), profiling.recording(card) as rec:
+        for seed in range(5):
+            args = _graph_args(card, 2, seed)
+            sent.append(args[0][:1].clone())
+            _graph_call(m, args)
+    assert _graph_counts(rec) == (1, 4)
+    assert len(seen) == 5
+    assert all(torch.equal(a, b) for a, b in zip(seen, sent))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["functional_call", "bf16", "matmul_policy",
+                                  "batch", "grad"])
+def test_dit_graph_rekeys_when_a_replay_would_differ(card, case):
+    """After a key is captured, a change that a replay would get wrong
+    gives a new key: the first call after it runs eagerly, the second
+    captures anew, both equal the eager body under the change; where the
+    change is undone, the first graph replays again. With gradients on
+    the call stays eager and captures nothing."""
+    from gaussiananything_tpu_torch.utils import precision, profiling
+    m = _graph_dit(card, 2)
+    args = _graph_args(card, 2, 0)
+    with torch.no_grad():
+        base = m._forward_body(*args)
+        for _ in range(2):
+            _graph_call(m, args)
+
+    def call(a):
+        return _graph_call(m, a)
+
+    def ref(a):
+        return m._forward_body(*a)
+
+    new = args
+    if case == "functional_call":
+        params = {k: (1.01 * v).detach() for k, v in m.named_parameters()}
+
+        def call(a):                                      # noqa: F811
+            return torch.func.functional_call(m, params, a[:4],
+                                              {"xyz": a[4]})
+
+        def ref(a):                                       # noqa: F811
+            with torch.enable_grad():                     # stays eager
+                return call(a).detach()
+    elif case == "bf16":
+        m.to(torch.bfloat16)
+    elif case == "matmul_policy":
+        precision.set_policy("default")
+    elif case == "batch":
+        new = _graph_args(card, 2, 0, batch=3)
+    try:
+        if case == "grad":
+            with torch.enable_grad(), profiling.recording(card) as rec:
+                got = call(args)
+            assert got.requires_grad and _graph_counts(rec) == (0, 0)
+            assert len(m._graphs.entries) == 1
+            assert _rel(got.detach(), base) <= 1e-6
+            return
+        with torch.no_grad():
+            want = ref(new)
+            with profiling.recording(card) as rec:
+                got = [call(new) for _ in range(3)]
+            assert _graph_counts(rec) == (1, 2)
+            assert len(m._graphs.entries) == 2
+            for g in got:
+                assert _rel(g, want) <= 1e-6
+            if case != "batch":
+                assert _rel(want, base) > 1e-4
+            if case in ("functional_call", "matmul_policy"):
+                precision.set_policy("highest")
+                with profiling.recording(card) as rec:
+                    again = _graph_call(m, args)
+                assert _graph_counts(rec) == (0, 1)
+                assert _rel(again, base) <= 1e-6
+    finally:
+        precision.set_policy("highest")
+
+
+@pytest.mark.cuda
+def test_dit_graph_count_stays_within_its_limit(card):
+    """Keys that never come back capture nothing; keys that come back
+    twice each are captured, and the module keeps at most `LIMIT`."""
+    from gaussiananything_tpu_torch.utils import profiling
+    m = _graph_dit(card, 1, depth=1)
+    limit = m._graphs.LIMIT
+    with torch.no_grad(), profiling.recording(card) as rec:
+        for b in range(1, 2 * limit + 2):
+            _graph_call(m, _graph_args(card, 1, b, batch=b))
+            assert len(m._graphs.entries) <= limit
+        assert _graph_counts(rec) == (0, 0)
+        for b in range(2 * limit + 2, 3 * limit + 4):
+            a = _graph_args(card, 1, b, batch=b)
+            _graph_call(m, a)
+            _graph_call(m, a)
+            assert len(m._graphs.entries) <= limit
+    assert _graph_counts(rec) == (limit + 2, limit + 2)
+    assert all(e is not None for e in m._graphs.entries.values())
+
+
+@pytest.mark.cuda
+def test_dit_graph_under_the_profiler(card):
+    """A capture inside a `torch.profiler` run works (the profile phase
+    of `chip_smoke.py` captures there), and a replay's kernels are in the
+    trace, as many as an eager forward launches (the benchmark's
+    device-busy time and idle share read them): the replay adds only the
+    copies of its inputs and of its output."""
+    m = _graph_dit(card, 1, depth=1)
+    args = _graph_args(card, 1, 0)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def device_ops(fn):
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        out = fn()
+        torch.cuda.synchronize()
+        prof.stop()
+        return out, sum(
+            1 for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA
+            and e.duration_ns() > 0 and not e.is_user_annotation())
+
+    with torch.no_grad():
+        ref, n_eager = device_ops(lambda: m._forward_body(*args))
+        _graph_call(m, args)
+        got, _ = device_ops(lambda: _graph_call(m, args))     # capture
+        again, n_replay = device_ops(lambda: _graph_call(m, args))
+    print(f"device ops: eager forward {n_eager}, replay {n_replay}")
+    assert _rel(got, ref) <= 1e-6 and _rel(again, ref) <= 1e-6
+    assert n_eager <= n_replay <= n_eager + 8

@@ -23,6 +23,9 @@ both recorded. It prints one JSON line and writes it to `--out`:
   dit_busy_ms          median over the device-profiled request's
                        `ga.velocity` spans of the union of the device ops
                        inside each span's device interval
+  dit_graphs           per recorded request, its `ga.dit.replay` and
+                       `ga.dit.capture` counts and the share of its
+                       `ga.velocity` evaluations that replayed a CUDA graph
   idle_share_plain     1 - (device-busy inside the profiled request's
                        `ga.request` interval) / (median device seconds of
                        `ga.request` over the recorded requests), in %
@@ -167,6 +170,10 @@ def main(argv=None):
                          "ratio": spans_s / sampler_s,
                          "render_s": render_s, "project_bin_k1_s": parts_s})
     counts = dict(collections.Counter(sp.name for sp in runs[0][1]))
+    dit_graphs = [{"replay": len(d["ga.dit.replay"]),
+                   "capture": len(d["ga.dit.capture"]),
+                   "replay_share": len(d["ga.dit.replay"])
+                   / len(d["ga.velocity"])} for _, d in by_req]
     request_s = statistics.median(dev_s(d, profiling.REQUEST)
                                   for _, d in by_req)
 
@@ -214,6 +221,7 @@ def main(argv=None):
         "dit_eval_ms": med("ga.velocity"),
         "dit_eval_host_ms": med("ga.velocity", lambda sp: sp.host_s * 1e3),
         "dit_busy_ms": statistics.median(dit_busy),
+        "dit_graphs": dit_graphs,
         "request_device_s": request_s,
         "request_busy_s": busy_req / 1e9,
         "idle_share_plain": (1 - busy_req / 1e9 / request_s) * 100,
