@@ -18,6 +18,11 @@ Phases, in order; any failure exits non-zero:
    residue of their unflushed transmittance, K4 and K5 also against K3
    bit for bit; the gradient of
    `rasterize_tiled_v1_fused` against the plain route's;
+3b. attention: the fused attention kernel (`ops/attention.attention`)
+   against `attention_plain` under IEEE and under TF32 at every shape the
+   main path launches it at (ATTN_SHAPES), twice, bit-equal; its card ms
+   beside its bound, the plain version's ms and SDPA's (`library_ms`, a
+   yardstick the port never calls);
 4. small cascade: the sampling pipeline at small widths on the card
    against the same weights and noise on the CPU;
 5. cascade: two release-width image-to-3D requests through the port's
@@ -147,7 +152,20 @@ import tempfile
 import time
 
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores, dense
+H100_TF32_FLOPS = 495e12     # TF32 on the tensor cores, dense
 H100_HBM_BYTES_S = 3.35e12
+# the fused attention kernel's main-path shapes, (name, B, T, S, H, packed):
+# the DiT-Ls' CFG-batched self- and cross-attention, DINOv2 at 518², the VAE
+# decoder's global and in-plane blocks; `packed`: q, k, v are views into
+# one qkv projection, as the path hands them over
+ATTN_SHAPES = (("dit self", 2, 768, 768, 16, True),
+               ("dit cross", 2, 768, 1369, 16, False),
+               ("dinov2", 1, 1374, 1374, 16, True),
+               ("decoder", 1, 768, 768, 12, True),
+               ("decoder plane", 3, 256, 256, 12, True))
+# the kernel against `attention_plain` (its products under IEEE, and under
+# cuBLAS's TF32): the kernel rounds q, k, P and V to TF32 (2^-11)
+ATTN_REL = 4e-3
 # fp32 operations of one K1 (pixel, pair) step up to its keep test (plane
 # evaluation, divide, rho, window, exp, clamp, tests); kept pairs add ~33
 # more, so this count gives a least time
@@ -205,6 +223,33 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def time_graph(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Device milliseconds of one `fn()`: `reps` calls captured in one CUDA
+    graph, its replay timed by CUDA events, median over `rounds`. Unlike
+    `time_cuda` no host time is inside: what a kernel costs where the path
+    replays it (the DiT-Ls' graphs)."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
 def device_phase():
     import torch
     if not torch.cuda.is_available():
@@ -227,7 +272,7 @@ def build_phase():
     rasterize_cuda._library("fwd")
     dt = time.perf_counter() - t0
     names = {"fwd": "K1+K2a", "bwd": "K2b", "seg": "K6",
-             "v1": "K3+K4+K5+stages"}
+             "v1": "K3+K4+K5+stages", "attn": "attention"}
     print("[build] " + ", ".join(f"{names[k]} {path}" for k, path in
                                  rasterize_cuda.SOURCES.items())
           + f", in parallel: {dt:.2f}s", flush=True)
@@ -1407,6 +1452,67 @@ def stages_phase(dev):
                                    max(err, w_err), ms, plain_ms, n_bytes,
                                    n_ops))
     return records
+
+
+def attention_phase(dev):
+    """ATTN_SHAPES: the kernel within ATTN_REL of `attention_plain`'s
+    largest |output| under both policies and equal to its own second run;
+    kernel, plain (TF32, as the paths run it) and SDPA device times
+    (`time_graph`: each call back to back, as in the DiT graphs; warm L2),
+    and the bound: 4·B·H·T·S·64 TF32 operations or q, k, v and o read and
+    written once."""
+    import torch
+    import torch.nn.functional as F
+    from gaussiananything_tpu_torch.ops.attention import (attention,
+                                                          attention_plain)
+    shapes = {}
+    for name, B, T, S, H, packed in ATTN_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(T + S)
+        if packed:
+            q, k, v = torch.randn((B, T, 3, H, 64), generator=gen,
+                                  device=dev).unbind(2)
+        else:
+            q, k, v = (torch.randn((B, n, H, 64), generator=gen, device=dev)
+                       for n in (T, S, S))
+        bhtd = [t.transpose(1, 2) for t in (q, k, v)]
+        got = attention(q, k, v)
+        again = attention(q, k, v)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"attention {name}: two launches differ")
+        errs = {}
+        for policy in ("highest", "default"):
+            with matmul_policy(policy):
+                ref = attention_plain(*bhtd).transpose(1, 2)
+            errs[policy] = float((got - ref).abs().max()
+                                 / ref.abs().max())
+            if errs[policy] > ATTN_REL:
+                fail(f"attention {name}: {errs[policy]:.3e} of max|o| from "
+                     f"the plain version under {policy}")
+        ms = time_graph(lambda: attention(q, k, v))
+        with matmul_policy("default"):
+            plain_ms = time_graph(lambda: attention_plain(*bhtd))
+            library_ms = time_graph(
+                lambda: F.scaled_dot_product_attention(*bhtd))
+        ops = 4 * B * H * T * S * 64
+        n_bytes = 4 * B * H * 64 * (2 * T + 2 * S)
+        t_ops = ops / H100_TF32_FLOPS * 1e3
+        t_bytes = n_bytes / H100_HBM_BYTES_S * 1e3
+        shapes[name] = {
+            "B": B, "T": T, "S": S, "H": H, "ms": round(ms, 4),
+            "bound_ms": round(max(t_ops, t_bytes), 4),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "tflops": round(ops / ms / 1e9, 1),
+            "plain_ms": round(plain_ms, 4),
+            "library_ms": round(library_ms, 4),
+            "rel_err_ieee": errs["highest"], "rel_err_tf32": errs["default"]}
+        print(f"[attention] {name}: {json.dumps(shapes[name])}", flush=True)
+    return {"name": "attn", "route": "cuda",
+            "source": "gaussiananything_tpu_torch/csrc/attention.cu",
+            "replaces": "none: the JAX package leaves attention to XLA",
+            "max_abs_err": max(max(r["rel_err_ieee"], r["rel_err_tf32"])
+                               for r in shapes.values()),
+            "shapes": shapes}
 
 
 def _small_models(device):
@@ -4145,13 +4251,19 @@ def main():
     build_phase()
     walls = {}
 
+    from gaussiananything_tpu_torch.ops.attention import attention
+    attn_launches = {}
+
     def run(name, fn, *args, policy="default", **kw):
         """A phase under `policy`: "highest" (IEEE products) where the
         card is held against its plain versions or the CPU, the default
-        (TF32, the JAX package's `Precision.DEFAULT`) on the paths."""
+        (TF32, the JAX package's `Precision.DEFAULT`) on the paths. The
+        attention kernel's launches are counted by phase."""
         t0 = time.perf_counter()
+        before = attention.launches
         with matmul_policy(policy):
             out = fn(*args, **kw)
+        attn_launches[name] = attention.launches - before
         walls[name] = round(time.perf_counter() - t0, 1)
         print(f"[phase] {name}: {walls[name]} s", flush=True)
         return out
@@ -4165,6 +4277,7 @@ def main():
                run("K4", k4_phase, dev, **hi),
                run("K5", k5_phase, dev, **hi)]
     records += run("stages", stages_phase, dev, **hi)
+    attn_record = run("attention", attention_phase, dev, **hi)
     band_errs = run("bands", bands_phase, dev, **hi)
     for rec in records:
         if rec["name"] in band_errs:
@@ -4200,10 +4313,19 @@ def main():
         rec["launches"] = sum(p.get(rec["name"], 0) for p in paths.values())
         if rec["launches"] < 1:
             fail(f"{rec['name']} was not launched on a main path")
+    # the attention kernel's eager launches and captures outside its own
+    # check (a CUDA graph's replays launch it without a count)
+    attn_record["launches"] = sum(n for k, n in attn_launches.items()
+                                  if k != "attention")
+    if attn_record["launches"] < 1:
+        fail("attn was not launched on a main path")
+    records.append(attn_record)
     print(json.dumps({"kernels": records}), flush=True)
     print("kernels launched: " + ", ".join(
         f"{name} {json.dumps({k: v for k, v in p.items() if v})}"
-        for name, p in paths.items()), flush=True)
+        for name, p in paths.items()) + "; attn by phase "
+        + json.dumps({k: v for k, v in attn_launches.items() if v}),
+        flush=True)
     print(smi_line, flush=True)
     import torch
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,11 @@ the release checkpoints map onto them name for name:
     `ResnetBlock`). Convolutions run NCHW; the JAX package's NHWC kernels
     are transposed by `utils/param_io.from_jax_params`.
 
-Attention is plain PyTorch, the same math as the JAX package's XLA path
-(`layers.py:32-68`): matmul, fp32 softmax, matmul, computed in query blocks
-once the score matrix would exceed 4096² elements.
+Attention is the JAX package's XLA path (`layers.py:32-68`): matmul, fp32
+softmax, matmul. Its no-grad fp32 calls on the card under the TF32 policy
+go to one fused kernel (`ops/attention.py`); every other call is plain
+PyTorch, computed in query blocks once the score matrix would exceed 4096²
+elements.
 
 `dtype` is the compute dtype, the JAX modules' `dtype`: mixed precision
 as `config.VAEModelConfig.compute_dtype` defines it. The parameters are
@@ -44,6 +46,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from gaussiananything_tpu_torch.ops import attention as attention_ops
+
 _SCORES_BLOCK_THRESHOLD = 4096 * 4096
 _QUERY_BLOCK = 2048
 
@@ -58,22 +62,20 @@ def exact_gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
-def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q (B,H,T,D), k/v (B,H,S,D) → (B,H,T,D); fp32 scores and softmax;
-    `bias` (broadcast to (B,H,T,S)) is added to the scaled scores."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
-        * (1.0 / math.sqrt(q.shape[-1]))
-    if bias is not None:
-        s = s + bias
-    p = torch.softmax(s, dim=-1)
-    return torch.matmul(p.to(v.dtype), v)
+# q (B,H,T,D), k/v (B,H,S,D) → (B,H,T,D): the plain version
+_attend = attention_ops.attention_plain
 
 
 def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Exact softmax attention, q (B,T,H,D), k/v (B,S,H,D) → (B,T,H,D);
     `bias` is an additive score mask (1, 1, T, S), as a causal mask.
+
+    A no-grad fp32 call on the card under the TF32 policy, of head dim 64
+    and at least 64 queries and keys, with no bias, is one launch of the
+    fused kernel (`ops/attention.attention`; the rule is
+    `ops/attention.plain_reasons`). Every other call takes the plain
+    version below: training, bf16, the "ieee" policy, a mask, small groups.
 
     Above 4096² scores per (batch, head) the queries run in blocks of 2048,
     which bounds the score memory and changes no value; under autograd
@@ -82,6 +84,8 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     joint-view attention of the 512² encoder would keep 8 GB of
     probabilities per batch element.
     """
+    if not attention_ops.plain_reasons(q, k, v, bias):
+        return attention_ops.attention(q, k, v)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     T, S = q.shape[2], k.shape[2]
     if bias is not None:

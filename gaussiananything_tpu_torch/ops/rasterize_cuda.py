@@ -29,7 +29,8 @@
 The design notes on what bounds each kernel are in the CUDA sources. Each
 source is compiled with `nvcc` for `sm_90a` into a shared library with a
 plain C interface at first use (into `csrc/build/`, which git ignores) and
-loaded with ctypes; the sources build in parallel.
+loaded with ctypes; the sources build in parallel, the attention kernel's
+(`csrc/attention.cu`, wrapped by `ops/attention.attention`) with them.
 
 The wrappers take the plain versions (`rasterize.composite_plain`,
 `rasterize.composite_plain_backward`, `rasterize.composite_segments_plain`,
@@ -59,12 +60,17 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 SOURCES = {"fwd": os.path.join(_CSRC, "rasterize_v4.cu"),       # K1, K2a
            "bwd": os.path.join(_CSRC, "rasterize_v4_bwd.cu"),   # K2b
            "seg": os.path.join(_CSRC, "rasterize_v4_seg.cu"),   # K6
-           "v1": os.path.join(_CSRC, "rasterize_v1.cu")}  # K3-K5, stages
+           "v1": os.path.join(_CSRC, "rasterize_v1.cu"),  # K3-K5, stages
+           "attn": os.path.join(_CSRC, "attention.cu")}   # ops/attention
 HEADERS = [os.path.join(_CSRC, "composite_v4.cuh")]
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# The compositors' knife edges (alpha >= 1/255, T <= 1e-4) flip on the last
+# ulp, so their multiplies and adds are rounded apart, as the plain versions
+# round them. The attention kernel has no such edge.
+SOURCE_FLAGS = {"fwd": ["-fmad=false"], "bwd": ["-fmad=false"],
+                "seg": ["-fmad=false"], "v1": ["-fmad=false"], "attn": []}
 # rows a kernel stages per chunk
 MAX_CHUNK = {"fwd": 256, "bwd": 128, "seg": 256, "v1": 256}
 
@@ -95,8 +101,10 @@ def build() -> Dict[str, str]:
         with open(header, "rb") as f:
             shared += f.read()
     for name, source in SOURCES.items():
+        flags = [*NVCC_FLAGS, *SOURCE_FLAGS[name]]
         with open(source, "rb") as f:
-            digest = hashlib.sha256(f.read() + shared).hexdigest()[:16]
+            digest = hashlib.sha256(f.read() + shared + " ".join(
+                SOURCE_FLAGS[name]).encode()).hexdigest()[:16]
         stem = os.path.splitext(os.path.basename(source))[0]
         paths[name] = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
         if os.path.exists(paths[name]):
@@ -105,7 +113,7 @@ def build() -> Dict[str, str]:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+            proc = subprocess.Popen([_nvcc(), *flags, "-o", tmp, source],
                                     stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
         except OSError:     # nvcc did not start: leave nothing behind
@@ -164,7 +172,11 @@ def _library(name: str) -> ctypes.CDLL:
                        v1.ga_composite_lists_grouped, v1.ga_stage,
                        v1.ga_grouped_clusters, v1.ga_stage_clusters):
                 fn.restype = i
-            _libs.update(fwd=fwd, bwd=bwd, seg=seg, v1=v1)
+            attn = ctypes.CDLL(paths["attn"])
+            attn.ga_attention.argtypes = \
+                [ptr] * 4 + [i] * 4 + [ctypes.c_longlong] * 9 + [ptr]
+            attn.ga_attention.restype = i
+            _libs.update(fwd=fwd, bwd=bwd, seg=seg, v1=v1, attn=attn)
     return _libs[name]
 
 

@@ -635,8 +635,12 @@ def _use(rc, csrc):
             raise ValueError(f"{csrc}: its v4 entry points take no row0; "
                              "measure it with the wrappers of its own "
                              "checkout")
-    rc.SOURCES = {k: os.path.join(csrc, os.path.basename(v))
-                  for k, v in rc.SOURCES.items()}
+    copied = {k: os.path.join(csrc, os.path.basename(v))
+              for k, v in rc.SOURCES.items()}
+    # a checkout from before the attention kernel has no `attention.cu`:
+    # the library builds from this checkout's beside the copies
+    rc.SOURCES = {k: p if os.path.exists(p) else rc.SOURCES[k]
+                  for k, p in copied.items()}
     rc.HEADERS = [os.path.join(csrc, os.path.basename(h))
                   for h in rc.HEADERS]
     rc.BUILD_DIR = os.path.join(csrc, "build")

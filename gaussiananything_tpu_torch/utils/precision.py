@@ -40,10 +40,15 @@ saved inputs), so it needs no gradient formula of its own; these products
 are small (4 × 4 poses, per-pixel rays, resize matrices, the plain
 compositors' tile sums), and the recompute costs one more of them.
 
-The hand-written kernels are fp32 FMA code and call no cuBLAS; their
+The compositing kernels are fp32 FMA code and call no cuBLAS; their
 wrappers (`ops/rasterize_cuda.py`) and the projection, binning and packing
 of `ops/rasterize.py` issue no product through cuBLAS (the projection is
 componentwise fma chains, as the JAX package's `ops/rasterize.py:100-104`).
+The attention kernel (`csrc/attention.cu`, `ops/attention.attention`) is a
+DEFAULT site of its own: its two products run in TF32 on the tensor cores
+whatever the flag says, so `models/layers.dot_attention` hands it a call
+only where the flag reads "tf32"; under the "ieee" policy every attention
+runs `ops/attention.attention_plain`, whose cuBLAS products are IEEE.
 
 Site map: each product of the port, its JAX counterpart, its precision.
 
@@ -57,7 +62,8 @@ Site map: each product of the port, its JAX counterpart, its precision.
 | `data/postprocess.py:65` inverse | `data/postprocess.py:83`, `:101` `jnp.linalg.inv` (IEEE) | HIGHEST |
 | `utils/image.py:64`, `:67` (`resize`: DINOv2 pos-embed, conditioner, trainer, extraction) | `jax.image.resize` (default HIGHEST) | HIGHEST |
 | `data/postprocess.py:65` (`fixed @ inv(c2w)`, torch on the dataset's device: the card when training there), `data/synthetic.py:58` (numpy, host), `data/objaverse_raw.py:404` (numpy, host) | `data/postprocess.py:83`, `:101`; `data/synthetic.py:59`; `data/objaverse_raw.py:401`: plain `@`, DEFAULT | DEFAULT, as JAX |
-| `models/layers.py` `Linear` (`:147`), `Conv2d`, `SameConv2d`, `_attend` (`:65`, `:70`); `models/openclip_text.py:61`, `:140`; every `nn.Conv2d` in `models/` and `train/losses.py` (`:195`, VGG-LPIPS, PatchGAN) | flax `Dense`/`Conv`, `models/layers.py:47-52`, `train/losses.py:212` | DEFAULT |
+| `models/layers.py` `Linear` (`:151`), `Conv2d`, `SameConv2d`; `ops/attention.py` `attention_plain` (`:51`, `:56`, `models/layers._attend`); `models/openclip_text.py:61`, `:140`; every `nn.Conv2d` in `models/` and `train/losses.py` (`:195`, VGG-LPIPS, PatchGAN) | flax `Dense`/`Conv`, `models/layers.py:47-52`, `train/losses.py:212` | DEFAULT |
+| `ops/attention.py` `attention` (`csrc/attention.cu`: Q·Kᵀ and P·V, TF32 `mma.sync`, fp32 scores and softmax), taken by `models/layers.dot_attention` only under "tf32"; the "ieee" policy routes to `attention_plain` | `models/layers.py:47-52` | DEFAULT |
 | `diffusion/sampling.py:89` (dopri5's stage combination) | `jax.experimental.ode`'s `jnp.dot` | DEFAULT |
 
 `tests/test_torch_precision.py` proves the map on the CPU with a TF32

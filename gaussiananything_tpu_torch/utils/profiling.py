@@ -43,7 +43,9 @@ The program's spans, where they are opened:
                            `ops/rasterize.rasterize_tiled`
   ga.render.bin            its binning (`build_tile_pairs`)
   ga.kernel.<id>           each launch of a hand-written kernel
-                           (`ops/rasterize_cuda`), with its frame
+                           (`ops/rasterize_cuda`, `ops/attention`: attn),
+                           with its frame; a launch captured into a CUDA
+                           graph opens its span at the capture only
   ga.train.<stage>         each lap of `train/vae_trainer.StageTimer`
 """
 from __future__ import annotations
@@ -113,12 +115,15 @@ def active() -> Optional["Recorder"]:
 
 class Mark:
     """One point in time: host ns on `time.perf_counter_ns`'s clock, and
-    on a CUDA device an event recorded on the current stream."""
+    on a CUDA device an event recorded on the current stream, unless that
+    stream is being captured into a CUDA graph (nothing runs on the device
+    then, and an event recorded into a capture has no time)."""
     __slots__ = ("host_ns", "event")
 
     def __init__(self, device: torch.device):
         self.event = None
-        if device.type == "cuda":
+        if device.type == "cuda" and \
+                not torch.cuda.is_current_stream_capturing():
             self.event = torch.cuda.Event(enable_timing=True)
             self.event.record(torch.cuda.current_stream(device))
         self.host_ns = time.perf_counter_ns()
@@ -134,7 +139,8 @@ class Mark:
 class Span:
     """One recorded span. Host times are in ns on the profiler's clock;
     `device_start_ns` and `device_end_ns` are on the same clock once
-    `Recorder.spans()` has resolved them (None on the CPU)."""
+    `Recorder.spans()` has resolved them (None on the CPU, and for a span
+    opened while its stream was being captured into a CUDA graph)."""
     __slots__ = ("name", "attrs", "id", "parent", "request", "host_start_ns",
                  "host_end_ns", "device_start_ns", "device_end_ns", "_rec",
                  "_start", "_end", "_range")
@@ -226,7 +232,8 @@ class Recorder:
         if self.anchor is not None:
             torch.cuda.synchronize(self.device)
             for s in self._spans:
-                if s.device_start_ns is None and s._end is not None:
+                if s.device_start_ns is None and s._end is not None \
+                        and s._start.event is not None:
                     s.device_start_ns = self.anchor_ns + round(
                         self.anchor.event.elapsed_time(s._start.event) * 1e6)
                     s.device_end_ns = s.device_start_ns + round(

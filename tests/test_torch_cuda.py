@@ -1128,3 +1128,196 @@ def test_dit_graph_under_the_profiler(card):
     print(f"device ops: eager forward {n_eager}, replay {n_replay}")
     assert _rel(got, ref) <= 1e-6 and _rel(again, ref) <= 1e-6
     assert n_eager <= n_replay <= n_eager + 8
+
+
+# ---------------------------------------------- the fused attention kernel
+
+# (queries, keys): the DiT-Ls' self- and cross-attention, DINOv2's
+ATTN_SHAPES = [(768, 768), (768, 1369), (1374, 1374)]
+
+
+def _attn_inputs(card, T, S, seed, B=2, H=16):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return tuple(torch.randn((B, n, H, 64), generator=g, device=card)
+                 for n in (T, S, S))
+
+
+def _attn_plain(q, k, v):
+    """`attention_plain` in the kernel's (B, tokens, H, 64) layout."""
+    from gaussiananything_tpu_torch.ops.attention import attention_plain
+    return attention_plain(*(t.transpose(1, 2) for t in (q, k, v))
+                           ).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["highest", "default"])
+@pytest.mark.parametrize("T,S", ATTN_SHAPES)
+def test_attention_kernel_matches_plain(card, T, S, policy):
+    """The kernel against `attention_plain` on the same card and inputs
+    (B 2, H 16, unit normals), under the IEEE policy (the plain products
+    in IEEE fp32) and under TF32 (the plain products in cuBLAS's TF32).
+    The kernel rounds q, k, P and V to TF32 (unit roundoff 2^-11), so each
+    output moves by a few 2^-11 of the largest |output| against IEEE; under
+    TF32 both sides round, in other places (P before or after its
+    normalisation, sums in another order): held to 4e-3 of the largest
+    |output| either way, with the mean error under 2e-4 of it."""
+    from gaussiananything_tpu_torch.ops import attention as attn
+    from gaussiananything_tpu_torch.utils import precision
+    q, k, v = _attn_inputs(card, T, S, seed=T + S)
+    precision.set_policy(policy)
+    try:
+        ref = _attn_plain(q, k, v)
+    finally:
+        precision.set_policy("highest")
+    before = attn.attention.launches
+    got = attn.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attn.attention.launches == before + 1
+    assert got.shape == q.shape and got.is_contiguous()
+    peak = float(ref.abs().max())
+    err = (got - ref).abs()
+    print(f"attention {T}x{S} against plain ({policy}): max "
+          f"{float(err.max()) / peak:.3e}, mean "
+          f"{float(err.mean()) / peak:.3e} of max|o| {peak:.4f}")
+    assert float(err.max()) <= 4e-3 * peak
+    assert float(err.mean()) <= 2e-4 * peak
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S", [(768, 1369), (100, 70)])
+def test_attention_kernel_is_the_same_run_to_run(card, T, S):
+    """No atomics: two launches on the same inputs give the same bits;
+    q, k, v read as views of one packed projection (the self-attention's
+    layout) give the bits of the same values held contiguous."""
+    from gaussiananything_tpu_torch.ops.attention import attention
+    q, k, v = _attn_inputs(card, T, S, seed=1)
+    a = attention(q, k, v)
+    b = attention(q, k, v)
+    assert torch.equal(a, b)
+    if T == S:
+        return
+    qkv = torch.stack(_attn_inputs(card, S, S, seed=2), dim=2)
+    packed = attention(*qkv.unbind(2))
+    assert torch.equal(packed, attention(
+        *(t.contiguous() for t in qkv.unbind(2))))
+
+
+@pytest.mark.cuda
+def test_attention_kernel_replays_in_a_cuda_graph(card):
+    """Captured into a CUDA graph and replayed on new inputs copied into
+    the captured ones, the kernel gives the eager launch's bits; the
+    launch is counted and its span opened once, at the capture, with no
+    device times (nothing ran then)."""
+    from gaussiananything_tpu_torch.ops.attention import attention
+    from gaussiananything_tpu_torch.utils import profiling
+    ins = _attn_inputs(card, 768, 1369, seed=3)
+    attention(*ins)                                    # build, warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = attention.launches
+    with profiling.recording(card) as rec:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = attention(*ins)
+        for seed in (4, 5):
+            new = _attn_inputs(card, 768, 1369, seed=seed)
+            for dst, src in zip(ins, new):
+                dst.copy_(src)
+            graph.replay()
+            assert torch.equal(out, attention(*new))
+    spans = [s for s in rec.spans() if s.name == "ga.kernel.attn"]
+    assert attention.launches == before + 3
+    assert len(spans) == 3
+    assert spans[0].device_start_ns is None
+    assert all(s.device_s > 0 for s in spans[1:])
+
+
+@pytest.mark.cuda
+def test_attention_wrapper_refuses_bad_inputs(card):
+    from gaussiananything_tpu_torch.ops.attention import attention
+    q, k, v = _attn_inputs(card, 128, 128, seed=6, B=1, H=2)
+    bad = {
+        "head dim": (torch.zeros((1, 128, 2, 32), device=card),) * 3,
+        "dtype": tuple(t.to(torch.bfloat16) for t in (q, k, v)),
+        "device": tuple(t.cpu() for t in (q, k, v)),
+        "mixed devices": (q, k.cpu(), v),
+        "layout": (torch.cat([q, q], -1)[..., ::2], k, v),
+        "frame": (q, k[:, :100], v),
+    }
+    for name, args in bad.items():
+        with pytest.raises(ValueError):
+            attention(*args)
+
+
+@pytest.mark.cuda
+def test_dot_attention_routes_on_the_card(card):
+    """Under TF32 a no-grad fp32 call of head dim 64 launches the kernel;
+    under the IEEE policy, with grad, in bf16, with a bias or with a small
+    group it does not, and gives `attention_plain`'s bits."""
+    from gaussiananything_tpu_torch.models import layers
+    from gaussiananything_tpu_torch.ops import attention as attn
+    from gaussiananything_tpu_torch.utils import precision
+    q, k, v = _attn_inputs(card, 256, 200, seed=7, B=2, H=4)
+    cases = {
+        "ieee": lambda: layers.dot_attention(q, k, v),
+        "grad": lambda: layers.dot_attention(q.requires_grad_(), k, v),
+        "bf16": lambda: layers.dot_attention(*(t.to(torch.bfloat16)
+                                               for t in (q, k, v))),
+        "bias": lambda: layers.dot_attention(
+            q, k, v, torch.zeros((1, 1, 256, 200), device=card)),
+        "group": lambda: layers.dot_attention(q[:, :9], k[:, :9], v[:, :9]),
+    }
+    for name, call in cases.items():
+        precision.set_policy("highest" if name == "ieee" else "default")
+        try:
+            before = attn.attention.launches
+            with torch.enable_grad():
+                got = call()
+            assert attn.attention.launches == before, name
+        finally:
+            precision.set_policy("highest")
+            q.requires_grad_(False)
+        assert got.dtype == (torch.bfloat16 if name == "bf16"
+                             else torch.float32)
+        if name == "ieee":
+            assert torch.equal(got, _attn_plain(q, k, v))
+    precision.set_policy("default")
+    try:
+        with torch.no_grad():
+            before = attn.attention.launches
+            got = layers.dot_attention(q, k, v)
+            assert attn.attention.launches == before + 1
+    finally:
+        precision.set_policy("highest")
+    assert torch.equal(got, attn.attention(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [1, 2])
+def test_release_dit_forward_through_the_kernel(card, stage, monkeypatch):
+    """A release-width DiT-L (24 blocks of 1024, 16 heads; 768 tokens, 1,369
+    context tokens, CFG batch 2) under TF32 with its 48 attentions through
+    the kernel: within the image cell's `velocity` limit (8e-3 of the
+    largest |velocity|) of the plain path under IEEE, as the cell's
+    reference computes, and of the plain path under TF32."""
+    from gaussiananything_tpu_torch.ops import attention as attn
+    from gaussiananything_tpu_torch.utils import precision
+    m = _graph_dit(card, stage, depth=24)
+    args = _graph_args(card, stage, seed=8)
+    refs = {}
+    with torch.no_grad():
+        for policy in ("highest", "default"):
+            precision.set_policy(policy)
+            with monkeypatch.context() as mp:
+                mp.setattr(attn, "plain_reasons", lambda *a: ["plain"])
+                refs[policy] = m._forward_body(*args)
+        precision.set_policy("default")
+        try:
+            before = attn.attention.launches
+            got = m._forward_body(*args)
+            assert attn.attention.launches == before + 48
+        finally:
+            precision.set_policy("highest")
+    for policy, ref in refs.items():
+        print(f"stage {stage} DiT-L through the kernel against the plain "
+              f"path ({policy}): {_rel(got, ref):.3e}")
+        assert _rel(got, ref) <= 8e-3
