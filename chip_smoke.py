@@ -23,6 +23,11 @@ Phases, in order; any failure exits non-zero:
    main path launches it at (ATTN_SHAPES), twice, bit-equal; its card ms
    beside its bound, the plain version's ms and SDPA's (`library_ms`, a
    yardstick the port never calls);
+3c. rownorm: the row-norm kernel (`ops/rownorm.rownorm`, `rownorm_pair`)
+   against `rownorm_plain` at every shape the main path launches it at
+   (ROWNORM_SHAPES), twice, bit-equal; its card ms beside its bound in
+   bytes, the plain version's ms and `F.rms_norm`'s on the same rows
+   (`library_ms`, a yardstick the port never calls);
 4. small cascade: the sampling pipeline at small widths on the card
    against the same weights and noise on the CPU;
 5. cascade: two release-width image-to-3D requests through the port's
@@ -166,6 +171,25 @@ ATTN_SHAPES = (("dit self", 2, 768, 768, 16, True),
 # the kernel against `attention_plain` (its products under IEEE, and under
 # cuBLAS's TF32): the kernel rounds q, k, P and V to TF32 (2^-11)
 ATTN_REL = 4e-3
+# the row-norm kernel's main-path calls, (name, mode, shapes): a DiT-L
+# block's fused residual + norm + modulate, its norm alone and its last
+# gated residual at (2, 768, 1024); the q/k pairs (B, T, H, 64, packed) of
+# the DiT-Ls' self- and cross-attention, the VAE decoder's and the last
+# upsampler's
+ROWNORM_SHAPES = (("dit fused", "gated+norm+modulate", (2, 768, 1024)),
+                  ("dit norm", "norm", (2, 768, 1024)),
+                  ("dit residual", "gated", (2, 768, 1024)),
+                  ("dit qk self", "qk", ((2, 768, 16, True),
+                                         (2, 768, 16, True))),
+                  ("dit qk cross", "qk", ((2, 768, 16, False),
+                                          (2, 1369, 16, False))),
+                  ("decoder qk", "qk", ((1, 768, 12, True),
+                                        (1, 768, 12, True))),
+                  ("upsampler x3 qk", "qk", ((24576, 4, 12, True),
+                                             (24576, 4, 12, True))))
+# the kernel's h against `rownorm_plain`'s: the sum of squares in another
+# order, a few 2^-24 of the largest |h|
+ROWNORM_REL = 4e-6
 # fp32 operations of one K1 (pixel, pair) step up to its keep test (plane
 # evaluation, divide, rho, window, exp, clamp, tests); kept pairs add ~33
 # more, so this count gives a least time
@@ -272,7 +296,8 @@ def build_phase():
     rasterize_cuda._library("fwd")
     dt = time.perf_counter() - t0
     names = {"fwd": "K1+K2a", "bwd": "K2b", "seg": "K6",
-             "v1": "K3+K4+K5+stages", "attn": "attention"}
+             "v1": "K3+K4+K5+stages", "attn": "attention",
+             "rownorm": "rownorm"}
     print("[build] " + ", ".join(f"{names[k]} {path}" for k, path in
                                  rasterize_cuda.SOURCES.items())
           + f", in parallel: {dt:.2f}s", flush=True)
@@ -1512,6 +1537,97 @@ def attention_phase(dev):
             "replaces": "none: the JAX package leaves attention to XLA",
             "max_abs_err": max(max(r["rel_err_ieee"], r["rel_err_tf32"])
                                for r in shapes.values()),
+            "shapes": shapes}
+
+
+def _rownorm_case(dev, mode, shapes, seed):
+    """(kernel call, plain call, yardstick call, bytes moved)."""
+    import torch
+    import torch.nn.functional as F
+    from gaussiananything_tpu_torch.ops import rownorm as rn
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*s):
+        return torch.randn(s, generator=gen, device=dev)
+    if mode == "qk":
+        (bq, tq, hq, packed), (bk, tk, hk, _) = shapes
+        if packed:
+            q, k, _ = r(bq, tq, 3, hq, 64).unbind(2)
+        else:
+            q, k = r(bq, tq, hq, 64), r(bk, tk, hk, 64)
+        wq, wk = 1 + 0.1 * r(64), 1 + 0.1 * r(64)
+        return (lambda: rn.rownorm_pair(q, wq, 1e-5, k, wk, 1e-5),
+                lambda: (rn.rownorm_plain(q, weight=wq)[1],
+                         rn.rownorm_plain(k, weight=wk)[1]),
+                lambda: (F.rms_norm(q, (64,), wq, 1e-5),
+                         F.rms_norm(k, (64,), wk, 1e-5)),
+                2 * 4 * (q.numel() + k.numel()))
+    B, N, D = shapes
+    mod = 0.5 * r(B, 6, D)
+    a = dict(x=r(B, N, D), y=r(B, N, D), gate=mod[:, 2],
+             weight=1 + 0.1 * r(D), shift=mod[:, 0], scale=mod[:, 1])
+    keys = {"gated+norm+modulate": ("y", "gate", "weight", "shift",
+                                    "scale"),
+            "norm": ("weight",), "gated": ("y", "gate")}[mode]
+    kw = {k: a[k] for k in keys}
+    rows = a["x"].numel()
+    # x (and y) read, x' (with a residual) and h (with a weight) written
+    n_bytes = 4 * rows * (1 + ("y" in kw) + ("y" in kw)
+                          + ("weight" in kw))
+    x_res = rn.rownorm_plain(a["x"], a["y"], a["gate"])[0]
+    return (lambda: rn.rownorm(a["x"], **kw),
+            lambda: rn.rownorm_plain(a["x"], **kw),
+            (lambda: F.rms_norm(x_res, (D,), a["weight"], 1e-5))
+            if "weight" in kw else None,
+            n_bytes)
+
+
+def rownorm_phase(dev):
+    """ROWNORM_SHAPES: the kernel within ROWNORM_REL of `rownorm_plain`'s
+    largest |h| (x' bit-equal) and equal to its own second run; kernel,
+    plain and `F.rms_norm` device times (`time_graph`: back to back, as
+    in the DiT graphs; warm L2), and the bound: the rows read and written
+    once at 3.35 TB/s. `F.rms_norm` normalises the same rows (after the
+    residual, without the modulation): a yardstick, never called by the
+    port."""
+    import torch
+    shapes = {}
+    for i, (name, mode, dims) in enumerate(ROWNORM_SHAPES):
+        call, plain_call, lib_call, n_bytes = _rownorm_case(dev, mode, dims,
+                                                            seed=100 + i)
+        got, again, ref = call(), call(), plain_call()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)
+                   if a is not None):
+            fail(f"rownorm {name}: two launches differ")
+        if mode == "qk":
+            pairs = list(zip(got, ref))
+        else:
+            if not torch.equal(got[0], ref[0]):
+                fail(f"rownorm {name}: x' differs from the plain version's")
+            pairs = [(got[1], ref[1])] if ref[1] is not None else []
+        err = max((float((g - r).abs().max() / r.abs().max())
+                   for g, r in pairs), default=0.0)
+        if err > ROWNORM_REL:
+            fail(f"rownorm {name}: {err:.3e} of max|h| from the plain "
+                 "version")
+        ms = time_graph(call)
+        plain_ms = time_graph(plain_call)
+        library_ms = time_graph(lib_call) if lib_call else None
+        bound_ms = n_bytes / H100_HBM_BYTES_S * 1e3
+        shapes[name] = {
+            "mode": mode, "shapes": dims, "ms": round(ms, 4),
+            "bound_ms": round(bound_ms, 4), "bound_by": "bytes",
+            "bytes": n_bytes, "gb_s": round(n_bytes / ms / 1e6, 1),
+            "plain_ms": round(plain_ms, 4),
+            "library_ms": None if library_ms is None
+            else round(library_ms, 4),
+            "rel_err": err}
+        print(f"[rownorm] {name}: {json.dumps(shapes[name])}", flush=True)
+    return {"name": "rownorm", "route": "cuda",
+            "source": "gaussiananything_tpu_torch/csrc/rownorm.cu",
+            "replaces": "none: the JAX package leaves the norms to XLA",
+            "max_abs_err": max(r["rel_err"] for r in shapes.values()),
             "shapes": shapes}
 
 
@@ -4252,18 +4368,20 @@ def main():
     walls = {}
 
     from gaussiananything_tpu_torch.ops.attention import attention
-    attn_launches = {}
+    from gaussiananything_tpu_torch.ops.rownorm import rownorm
+    attn_launches, rownorm_launches = {}, {}
 
     def run(name, fn, *args, policy="default", **kw):
         """A phase under `policy`: "highest" (IEEE products) where the
         card is held against its plain versions or the CPU, the default
         (TF32, the JAX package's `Precision.DEFAULT`) on the paths. The
-        attention kernel's launches are counted by phase."""
+        attention and row-norm kernels' launches are counted by phase."""
         t0 = time.perf_counter()
-        before = attention.launches
+        before = attention.launches, rownorm.launches
         with matmul_policy(policy):
             out = fn(*args, **kw)
-        attn_launches[name] = attention.launches - before
+        attn_launches[name] = attention.launches - before[0]
+        rownorm_launches[name] = rownorm.launches - before[1]
         walls[name] = round(time.perf_counter() - t0, 1)
         print(f"[phase] {name}: {walls[name]} s", flush=True)
         return out
@@ -4278,6 +4396,7 @@ def main():
                run("K5", k5_phase, dev, **hi)]
     records += run("stages", stages_phase, dev, **hi)
     attn_record = run("attention", attention_phase, dev, **hi)
+    rownorm_record = run("rownorm", rownorm_phase, dev, **hi)
     band_errs = run("bands", bands_phase, dev, **hi)
     for rec in records:
         if rec["name"] in band_errs:
@@ -4320,11 +4439,18 @@ def main():
     if attn_record["launches"] < 1:
         fail("attn was not launched on a main path")
     records.append(attn_record)
+    rownorm_record["launches"] = sum(n for k, n in rownorm_launches.items()
+                                     if k != "rownorm")
+    if rownorm_record["launches"] < 1:
+        fail("rownorm was not launched on a main path")
+    records.append(rownorm_record)
     print(json.dumps({"kernels": records}), flush=True)
     print("kernels launched: " + ", ".join(
         f"{name} {json.dumps({k: v for k, v in p.items() if v})}"
         for name, p in paths.items()) + "; attn by phase "
-        + json.dumps({k: v for k, v in attn_launches.items() if v}),
+        + json.dumps({k: v for k, v in attn_launches.items() if v})
+        + "; rownorm by phase "
+        + json.dumps({k: v for k, v in rownorm_launches.items() if v}),
         flush=True)
     print(smi_line, flush=True)
     import torch

@@ -58,7 +58,7 @@ from gaussiananything_tpu_torch.models.layers import (Attention,
                                                       TimestepEmbedder,
                                                       XYZPosEmbed,
                                                       approx_gelu, exact_gelu,
-                                                      modulate)
+                                                      modulate, norm_rows)
 from gaussiananything_tpu_torch.utils import profiling
 
 
@@ -101,24 +101,30 @@ class ClayDiTBlock(nn.Module):
             self.attention_y_norm = RMSNorm(ctx_dim) if release_parity \
                 else None
 
-    def _cross(self, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
-        if self.variant == "clay":
-            return self.cross_attn_dino(self.prenorm_ca_dino(x), ctx)
-        if self.attention_y_norm is not None:
-            ctx = self.attention_y_norm(ctx)
-        return self.cross_attn(self.prenorm_ca_text(x), ctx)
-
     def forward(self, x: torch.Tensor, cond_tokens: torch.Tensor,
                 ada: torch.Tensor) -> torch.Tensor:
-        """x (B,N,D); cond_tokens (B,L,C); ada (B,6,D) shared adaLN."""
+        """x (B,N,D); cond_tokens (B,L,C); ada (B,6,D) shared adaLN.
+
+        Each residual is added in the same pass as the norm that reads it,
+        with its modulation (`layers.norm_rows`: one launch of the row-norm
+        kernel where it takes the call, the same expressions in PyTorch
+        where not): x' = x + ca(...), h = modulate(norm1(x'), ...); x'' =
+        x' + g_a·attn(h), h = modulate(norm2(x''), ...); x'' + g_m·mlp(h)."""
         mod = ada + self.scale_shift_table[None]
-        sh_a, sc_a, g_a, sh_m, sc_m, g_m = (mod[:, i, None] for i in range(6))
+        sh_a, sc_a, g_a, sh_m, sc_m, g_m = mod.unbind(1)
         if self.variant == "clay":
-            x = x + self._cross(x, cond_tokens)
-        x = x + g_a * self.attn(modulate(self.norm1(x), sh_a, sc_a))
-        if self.variant == "text":
-            x = x + self._cross(x, cond_tokens)
-        return x + g_m * self.mlp(modulate(self.norm2(x), sh_m, sc_m))
+            ca = self.cross_attn_dino(self.prenorm_ca_dino(x), cond_tokens)
+            x, h = norm_rows(x, self.norm1, ca, shift=sh_a, scale=sc_a)
+            x, h = norm_rows(x, self.norm2, self.attn(h), g_a, sh_m, sc_m)
+        else:
+            ctx = cond_tokens
+            if self.attention_y_norm is not None:
+                ctx = self.attention_y_norm(ctx)
+            _, h = norm_rows(x, self.norm1, shift=sh_a, scale=sc_a)
+            x, h = norm_rows(x, self.prenorm_ca_text, self.attn(h), g_a)
+            x, h = norm_rows(x, self.norm2, self.cross_attn(h, ctx),
+                             shift=sh_m, scale=sc_m)
+        return norm_rows(x, None, self.mlp(h), g_m)[0]
 
 
 class FinalLayer(nn.Module):

@@ -19,7 +19,10 @@ Attention is the JAX package's XLA path (`layers.py:32-68`): matmul, fp32
 softmax, matmul. Its no-grad fp32 calls on the card under the TF32 policy
 go to one fused kernel (`ops/attention.py`); every other call is plain
 PyTorch, computed in query blocks once the score matrix would exceed 4096²
-elements.
+elements. In the same way a no-grad fp32 `RMSNorm` on the card, the q and k
+norms of an attention, and the DiT blocks' residual + norm + modulation
+(`norm_rows`) are one launch of the row-norm kernel (`ops/rownorm.py`);
+every other call computes the same expressions in PyTorch.
 
 `dtype` is the compute dtype, the JAX modules' `dtype`: mixed precision
 as `config.VAEModelConfig.compute_dtype` defines it. The parameters are
@@ -47,6 +50,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from gaussiananything_tpu_torch.ops import attention as attention_ops
+from gaussiananything_tpu_torch.ops import rownorm as rownorm_ops
 
 _SCORES_BLOCK_THRESHOLD = 4096 * 4096
 _QUERY_BLOCK = 2048
@@ -108,9 +112,43 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2)
 
 
+def norm_rows(x: torch.Tensor, norm: Optional["RMSNorm"] = None,
+              y: Optional[torch.Tensor] = None,
+              gate: Optional[torch.Tensor] = None,
+              shift: Optional[torch.Tensor] = None,
+              scale: Optional[torch.Tensor] = None):
+    """(x', h): x' = x + gate·y (or x + y, or x), h = modulate(norm(x'),
+    shift, scale) (or norm(x'), or None without a norm); gate, shift and
+    scale per batch, (B, D). A call that `ops/rownorm.plain_reasons`
+    passes is one launch of the row-norm kernel; every other call computes
+    these expressions in PyTorch (`rownorm_plain`), each norm on a CUDA
+    tensor counted in `rownorm_ops.plain` by its reasons."""
+    w = None if norm is None else norm.weight
+    eps = 1e-5 if norm is None else norm.eps
+    why = rownorm_ops.plain_reasons(x, y, gate, w, shift, scale)
+    if not why:
+        return rownorm_ops.rownorm(x, y, gate, w, eps, shift, scale)
+    if norm is not None and x.device.type == "cuda":
+        rownorm_ops.plain["+".join(why)] += 1
+    return rownorm_ops.rownorm_plain(x, y, gate, w, eps, shift, scale)
+
+
+def qk_norms(q: torch.Tensor, k: torch.Tensor, q_norm: "RMSNorm",
+             k_norm: "RMSNorm"):
+    """(q_norm(q), k_norm(k)) over the heads' last dim: one launch for both
+    where the kernel takes each (`rownorm_pair`), else each on its own."""
+    if q.shape[-1] == k.shape[-1] and q.device == k.device \
+            and not rownorm_ops.plain_reasons(q, weight=q_norm.weight) \
+            and not rownorm_ops.plain_reasons(k, weight=k_norm.weight):
+        return rownorm_ops.rownorm_pair(q, q_norm.weight, q_norm.eps,
+                                        k, k_norm.weight, k_norm.eps)
+    return q_norm(q), k_norm(k)
+
+
 class RMSNorm(nn.Module):
     """x · rsqrt(mean(x²) + eps) · weight (`dit/norm.py:12`, eps 1e-5);
-    fp32 whatever the dtype of x and of the weight."""
+    fp32 whatever the dtype of x and of the weight. A no-grad fp32 call on
+    the card is one launch of the row-norm kernel (`norm_rows`)."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -118,9 +156,7 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        ms = (x * x).mean(-1, keepdim=True)
-        return x * torch.rsqrt(ms + self.eps) * self.weight.float()
+        return norm_rows(x, self)[1]
 
 
 class LayerNorm(nn.LayerNorm):
@@ -187,7 +223,8 @@ class Attention(nn.Module):
         q, k, v = qkv.unbind(2)
         if self.q_norm is not None:
             # the normed q, k go back to the compute dtype (JAX `Attention`)
-            q, k = self.q_norm(q).to(v.dtype), self.k_norm(k).to(v.dtype)
+            q, k = qk_norms(q, k, self.q_norm, self.k_norm)
+            q, k = q.to(v.dtype), k.to(v.dtype)
         o = dot_attention(q, k, v).reshape(B, T, D)
         return self.proj(o)
 
@@ -220,7 +257,8 @@ class CrossAttention(nn.Module):
         k = split(self.to_k(context))
         v = split(self.to_v(context))
         if self.q_norm is not None:
-            q, k = self.q_norm(q).to(v.dtype), self.k_norm(k).to(v.dtype)
+            q, k = qk_norms(q, k, self.q_norm, self.k_norm)
+            q, k = q.to(v.dtype), k.to(v.dtype)
         o = dot_attention(q, k, v)
         return self.to_out(o.reshape(o.shape[:-2] + (-1,)))
 

@@ -30,7 +30,8 @@ The design notes on what bounds each kernel are in the CUDA sources. Each
 source is compiled with `nvcc` for `sm_90a` into a shared library with a
 plain C interface at first use (into `csrc/build/`, which git ignores) and
 loaded with ctypes; the sources build in parallel, the attention kernel's
-(`csrc/attention.cu`, wrapped by `ops/attention.attention`) with them.
+(`csrc/attention.cu`, wrapped by `ops/attention.attention`) and the row-norm
+kernel's (`csrc/rownorm.cu`, wrapped by `ops/rownorm.rownorm`) with them.
 
 The wrappers take the plain versions (`rasterize.composite_plain`,
 `rasterize.composite_plain_backward`, `rasterize.composite_segments_plain`,
@@ -61,16 +62,19 @@ SOURCES = {"fwd": os.path.join(_CSRC, "rasterize_v4.cu"),       # K1, K2a
            "bwd": os.path.join(_CSRC, "rasterize_v4_bwd.cu"),   # K2b
            "seg": os.path.join(_CSRC, "rasterize_v4_seg.cu"),   # K6
            "v1": os.path.join(_CSRC, "rasterize_v1.cu"),  # K3-K5, stages
-           "attn": os.path.join(_CSRC, "attention.cu")}   # ops/attention
+           "attn": os.path.join(_CSRC, "attention.cu"),   # ops/attention
+           "rownorm": os.path.join(_CSRC, "rownorm.cu")}  # ops/rownorm
 HEADERS = [os.path.join(_CSRC, "composite_v4.cuh")]
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # The compositors' knife edges (alpha >= 1/255, T <= 1e-4) flip on the last
 # ulp, so their multiplies and adds are rounded apart, as the plain versions
-# round them. The attention kernel has no such edge.
+# round them. The attention kernel has no such edge; the row-norm kernel
+# rounds its outputs apart with intrinsics.
 SOURCE_FLAGS = {"fwd": ["-fmad=false"], "bwd": ["-fmad=false"],
-                "seg": ["-fmad=false"], "v1": ["-fmad=false"], "attn": []}
+                "seg": ["-fmad=false"], "v1": ["-fmad=false"], "attn": [],
+                "rownorm": []}
 # rows a kernel stages per chunk
 MAX_CHUNK = {"fwd": 256, "bwd": 128, "seg": 256, "v1": 256}
 
@@ -176,7 +180,11 @@ def _library(name: str) -> ctypes.CDLL:
             attn.ga_attention.argtypes = \
                 [ptr] * 4 + [i] * 4 + [ctypes.c_longlong] * 9 + [ptr]
             attn.ga_attention.restype = i
-            _libs.update(fwd=fwd, bwd=bwd, seg=seg, v1=v1, attn=attn)
+            rownorm = ctypes.CDLL(paths["rownorm"])
+            rownorm.ga_rownorm.argtypes = [ptr, i, i, ptr]
+            rownorm.ga_rownorm.restype = i
+            _libs.update(fwd=fwd, bwd=bwd, seg=seg, v1=v1, attn=attn,
+                         rownorm=rownorm)
     return _libs[name]
 
 

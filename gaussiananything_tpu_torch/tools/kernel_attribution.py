@@ -637,8 +637,9 @@ def _use(rc, csrc):
                              "checkout")
     copied = {k: os.path.join(csrc, os.path.basename(v))
               for k, v in rc.SOURCES.items()}
-    # a checkout from before the attention kernel has no `attention.cu`:
-    # the library builds from this checkout's beside the copies
+    # a checkout from before the attention or row-norm kernel has no
+    # `attention.cu` or `rownorm.cu`: the library builds from this
+    # checkout's beside the copies
     rc.SOURCES = {k: p if os.path.exists(p) else rc.SOURCES[k]
                   for k, p in copied.items()}
     rc.HEADERS = [os.path.join(csrc, os.path.basename(h))

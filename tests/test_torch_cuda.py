@@ -1321,3 +1321,267 @@ def test_release_dit_forward_through_the_kernel(card, stage, monkeypatch):
         print(f"stage {stage} DiT-L through the kernel against the plain "
               f"path ({policy}): {_rel(got, ref):.3e}")
         assert _rel(got, ref) <= 8e-3
+
+
+# ------------------------------------------------- the row-norm kernel
+
+# (B, N, D) of the DiT-Ls' residual stream: the CFG-batched 768 tokens
+ROWS_SHAPE = (2, 768, 1024)
+# each mode: which of y, gate, weight and shift/scale a call gives
+ROWNORM_MODES = {
+    "norm": ("weight",),
+    "norm+modulate": ("weight", "shift", "scale"),
+    "residual+norm+modulate": ("y", "weight", "shift", "scale"),
+    "gated+norm+modulate": ("y", "gate", "weight", "shift", "scale"),
+    "gated+norm": ("y", "gate", "weight"),
+    "gated": ("y", "gate"),
+}
+# (name, B, T, H, packed): q/k heads of 64 as the paths hand them over: the
+# DiT-Ls' self (views of the packed qkv) and cross (to_k over the 1,369
+# DINOv2 tokens), the VAE decoder's global and in-plane blocks, the three
+# upsamplers' (f + 1)-token groups
+QK_SHAPES = (("dit self", 2, 768, 16, True), ("dit cross k", 2, 1369, 16,
+                                              False),
+             ("decoder", 1, 768, 12, True), ("decoder plane", 3, 256, 12,
+                                              True),
+             ("upsampler x8", 768, 9, 12, True),
+             ("upsampler x4", 6144, 5, 12, True),
+             ("upsampler x3", 24576, 4, 12, True))
+# the kernel's h against the plain version's: only the sum of squares is
+# summed in another order (and rsqrtf's last bits): a few 2^-24 of the
+# largest |h|
+ROWNORM_REL = 4e-6
+
+
+def _rows_inputs(card, seed, shape=ROWS_SHAPE):
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def r(*s):
+        return torch.randn(s, generator=g, device=card)
+    B, _, D = shape
+    mod = 0.5 * r(B, 6, D)
+    return dict(x=r(*shape), y=r(*shape), gate=mod[:, 2],
+                weight=1 + 0.1 * r(D), shift=mod[:, 0], scale=mod[:, 1])
+
+
+def _rows_rel(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(ROWNORM_MODES))
+def test_rownorm_kernel_matches_plain(card, mode):
+    """At the DiT-Ls' (2, 768, 1024), with the adaLN vectors as rows of a
+    (B, 6, D) table: x' bit-equal to the plain version's (the same two
+    roundings), h within ROWNORM_REL of its largest |h|; one launch."""
+    from gaussiananything_tpu_torch.ops import rownorm as rn
+    a = _rows_inputs(card, seed=11)
+    kw = {k: a[k] for k in ROWNORM_MODES[mode]}
+    ref_x, ref_h = rn.rownorm_plain(a["x"], **kw)
+    before = rn.rownorm.launches
+    got_x, got_h = rn.rownorm(a["x"], **kw)
+    torch.cuda.synchronize()
+    assert rn.rownorm.launches == before + 1
+    assert torch.equal(got_x, ref_x)
+    if "y" not in kw:
+        assert got_x is a["x"]
+    if "weight" not in kw:
+        assert got_h is None
+        return
+    assert got_h.is_contiguous() and got_h.shape == a["x"].shape
+    print(f"rownorm {mode}: h {_rows_rel(got_h, ref_h):.3e} of max|h|, "
+          f"bit-equal {torch.equal(got_h, ref_h)}")
+    assert _rows_rel(got_h, ref_h) <= ROWNORM_REL
+
+
+@pytest.mark.cuda
+def test_rownorm_kernel_reads_vectors_at_any_offset(card):
+    """A weight and adaLN vectors that are views at odd offsets into one
+    buffer (as seeded parameters are) are read a float at a time: the
+    same bits as the same values held 16-byte aligned."""
+    from gaussiananything_tpu_torch.ops import rownorm as rn
+    a = _rows_inputs(card, seed=21)
+    D = ROWS_SHAPE[-1]
+    flat = torch.empty(1 + D + 2 * 6 * D + 3, device=card)
+    w = flat[1:1 + D]
+    w.copy_(a["weight"])
+    mod = flat[1 + D:1 + D + 2 * 6 * D].view(2, 6, D)
+    mod[:, 0].copy_(a["shift"])
+    mod[:, 1].copy_(a["scale"])
+    mod[:, 2].copy_(a["gate"])
+    assert not rn._aligned(w) and not rn._aligned(mod[:, 0])
+    odd = dict(a, weight=w, shift=mod[:, 0], scale=mod[:, 1], gate=mod[:, 2])
+    assert rn.plain_reasons(**{k: v for k, v in odd.items()}) == []
+    got, ref = rn.rownorm(**odd), rn.rownorm(**a)
+    assert all(torch.equal(p, q) for p, q in zip(got, ref))
+    q, k, wq, wk = _qk_inputs(card, 1, 768, 12, True, seed=22)
+    wq_odd = flat[1:65]
+    wq_odd.copy_(wq)
+    assert all(torch.equal(p, r) for p, r in zip(
+        rn.rownorm_pair(q, wq_odd, 1e-5, k, wk, 1e-5),
+        rn.rownorm_pair(q, wq, 1e-5, k, wk, 1e-5)))
+
+
+def _qk_inputs(card, B, T, H, packed, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    if packed:
+        q, k, _ = torch.randn((B, T, 3, H, 64), generator=g,
+                              device=card).unbind(2)
+    else:
+        q = torch.randn((B, 768, H, 64), generator=g, device=card)
+        k = torch.randn((B, T, H, 64), generator=g, device=card)
+    w = 1 + 0.1 * torch.randn((2, 64), generator=g, device=card)
+    return q, k, w[0], w[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,T,H,packed", QK_SHAPES)
+def test_rownorm_pair_matches_plain(card, name, B, T, H, packed):
+    """q and k normalised in one launch, read through their strides (the
+    packed qkv's views), each with its own weight and eps: within
+    ROWNORM_REL of the plain version, written contiguous."""
+    from gaussiananything_tpu_torch.ops import rownorm as rn
+    q, k, wq, wk = _qk_inputs(card, B, T, H, packed, seed=T + H)
+    before = (rn.rownorm.launches, rn.rownorm.norms)
+    hq, hk = rn.rownorm_pair(q, wq, 1e-5, k, wk, 1e-6)
+    torch.cuda.synchronize()
+    assert (rn.rownorm.launches, rn.rownorm.norms) == \
+        (before[0] + 1, before[1] + 2)
+    for got, t, w, eps in ((hq, q, wq, 1e-5), (hk, k, wk, 1e-6)):
+        ref = rn.rownorm_plain(t, weight=w, eps=eps)[1]
+        assert got.is_contiguous() and got.shape == t.shape
+        print(f"rownorm pair {name}: {_rows_rel(got, ref):.3e} of max|h|")
+        assert _rows_rel(got, ref) <= ROWNORM_REL
+
+
+@pytest.mark.cuda
+def test_rownorm_kernel_is_the_same_run_to_run(card):
+    """No atomics and a fixed order of the sums: two launches on the same
+    inputs give the same bits, in the fused mode and the q/k pair."""
+    from gaussiananything_tpu_torch.ops import rownorm as rn
+    a = _rows_inputs(card, seed=12)
+    first = rn.rownorm(**a)
+    again = rn.rownorm(**a)
+    assert all(torch.equal(p, q) for p, q in zip(first, again))
+    q, k, wq, wk = _qk_inputs(card, 2, 768, 16, True, seed=13)
+    assert all(torch.equal(p, r) for p, r in zip(
+        rn.rownorm_pair(q, wq, 1e-5, k, wk, 1e-5),
+        rn.rownorm_pair(q, wq, 1e-5, k, wk, 1e-5)))
+
+
+@pytest.mark.cuda
+def test_rownorm_kernel_replays_in_a_cuda_graph(card):
+    """Captured into a CUDA graph and replayed on new inputs copied into
+    the captured ones, the kernel gives the eager launch's bits; the
+    launch is counted and its span opened once, at the capture, with no
+    device times (nothing ran then)."""
+    from gaussiananything_tpu_torch.ops import rownorm as rn
+    from gaussiananything_tpu_torch.utils import profiling
+    a = _rows_inputs(card, seed=14)
+    rn.rownorm(**a)                                    # build, warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = rn.rownorm.launches
+    with profiling.recording(card) as rec:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = rn.rownorm(**a)
+        for seed in (15, 16):
+            new = _rows_inputs(card, seed=seed)
+            for key in ("x", "y", "weight"):
+                a[key].copy_(new[key])
+            graph.replay()
+            eager = rn.rownorm(**a)
+            assert all(torch.equal(p, q) for p, q in zip(out, eager))
+    spans = [s for s in rec.spans() if s.name == "ga.kernel.rownorm"]
+    assert rn.rownorm.launches == before + 3
+    assert len(spans) == 3
+    assert spans[0].device_start_ns is None
+    assert all(s.device_s > 0 for s in spans[1:])
+
+
+@pytest.mark.cuda
+def test_rownorm_wrapper_refuses_bad_inputs(card):
+    from gaussiananything_tpu_torch.ops import rownorm as rn
+    a = _rows_inputs(card, seed=17, shape=(1, 64, 128))
+    bad = {
+        "dtype": dict(a, x=a["x"].to(torch.bfloat16)),
+        "device": dict(a, y=a["y"].cpu()),
+        "layout": dict(a, y=torch.cat([a["y"], a["y"]], -1)[..., ::2]),
+        "unaligned": dict(a, x=torch.randn(64 * 128 + 4, device=card)[
+            1:1 + 64 * 128].reshape(1, 64, 128)),
+        "shape": dict(a, y=a["y"][:, :10]),
+        "gate without y": dict(a, y=None),
+    }
+    for name, kw in bad.items():
+        with pytest.raises(ValueError):
+            rn.rownorm(**kw)
+    with torch.enable_grad(), pytest.raises(ValueError, match="forward"):
+        rn.rownorm(a["x"], weight=a["weight"].requires_grad_())
+
+
+@pytest.mark.cuda
+def test_norms_route_on_the_card(card):
+    """A no-grad fp32 `RMSNorm` call launches the kernel and a q/k-normed
+    `Attention` one pair launch; with grad on, or in bf16, the call keeps
+    the plain version's bits and counts its reason in `rownorm.plain`."""
+    from gaussiananything_tpu_torch.models import layers
+    from gaussiananything_tpu_torch.ops import rownorm as rn
+    torch.manual_seed(18)
+    norm = layers.RMSNorm(1024).to(card)
+    x = torch.randn(ROWS_SHAPE, device=card)
+    with torch.no_grad():
+        before = (rn.rownorm.launches, dict(rn.plain))
+        got = norm(x)
+        assert rn.rownorm.launches == before[0] + 1
+        assert rn.plain == before[1]
+        ref = rn.rownorm_plain(x, weight=norm.weight)[1]
+        assert _rows_rel(got, ref) <= ROWNORM_REL
+        attn = layers.Attention(768, 12, qk_norm=True).to(card)
+        n = rn.rownorm.launches
+        attn(torch.randn((1, 768, 768), device=card))
+        assert rn.rownorm.launches == n + 1
+    for case in ("grad", "bf16"):
+        n, counted = rn.rownorm.launches, rn.plain[
+            "grad" if case == "grad" else "dtype"]
+        xin = x.to(torch.bfloat16) if case == "bf16" else x
+        with torch.set_grad_enabled(case == "grad"):
+            got = norm(xin)
+        assert rn.rownorm.launches == n
+        assert rn.plain["grad" if case == "grad" else "dtype"] == counted + 1
+        assert torch.equal(got.detach(),
+                           rn.rownorm_plain(xin, weight=norm.weight)[1]
+                           .detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [1, 2])
+def test_release_dit_forward_through_the_rownorm_kernel(card, stage,
+                                                        monkeypatch):
+    """A release-width DiT-L (24 blocks of 1024, 16 heads; 768 tokens,
+    1,369 context tokens, CFG batch 2) under TF32, its norms, modulations
+    and residuals in 24 × 6 launches of the row-norm kernel and none kept
+    plain: within the image cell's `velocity` limit (8e-3 of the largest
+    |velocity|) of the plain expressions under IEEE and under TF32."""
+    from gaussiananything_tpu_torch.ops import rownorm as rn
+    from gaussiananything_tpu_torch.utils import precision
+    m = _graph_dit(card, stage, depth=24)
+    args = _graph_args(card, stage, seed=19)
+    refs = {}
+    with torch.no_grad():
+        for policy in ("highest", "default"):
+            precision.set_policy(policy)
+            with monkeypatch.context() as mp:
+                mp.setattr(rn, "plain_reasons", lambda *a, **kw: ["plain"])
+                refs[policy] = m._forward_body(*args)
+        precision.set_policy("default")
+        try:
+            before = (rn.rownorm.launches, sum(rn.plain.values()))
+            got = m._forward_body(*args)
+            assert rn.rownorm.launches == before[0] + 24 * 6
+            assert sum(rn.plain.values()) == before[1]
+        finally:
+            precision.set_policy("highest")
+    for policy, ref in refs.items():
+        print(f"stage {stage} DiT-L through the row-norm kernel against the "
+              f"plain expressions ({policy}): {_rel(got, ref):.3e}")
+        assert _rel(got, ref) <= 8e-3

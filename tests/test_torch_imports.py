@@ -147,7 +147,7 @@ def test_training_kernels_raise_on_cuda_tensors_without_a_build(monkeypatch,
     from gaussiananything_tpu_torch.ops import rasterize as rz
     from gaussiananything_tpu_torch.ops import rasterize_cuda
     assert set(rasterize_cuda.SOURCES) == {"fwd", "bwd", "seg", "v1",
-                                           "attn"}
+                                           "attn", "rownorm"}
     for path in (*rasterize_cuda.SOURCES.values(), *rasterize_cuda.HEADERS):
         assert os.path.exists(path)
     tab = torch.zeros((4, rz.TABLE_W), device="meta")

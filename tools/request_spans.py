@@ -32,6 +32,17 @@ both recorded. It prints one JSON line and writes it to `--out`:
   launches_request     device ops inside that interval
   project_ms, bin_ms,  median device ms of `ga.render.project`,
   k1_ms                `ga.render.bin` and `ga.kernel.K1`
+  rownorm              the row-norm kernel (`ops/rownorm`): per recorded
+                       request its `ga.kernel.rownorm` spans (eager
+                       launches; a DiT graph's replays open none); in the
+                       device-profiled request its kernels inside
+                       `ga.request` and inside the `ga.velocity` spans,
+                       beside the mean reductions there (one a plain
+                       norm); and the norms on the card that took the
+                       kernel or stayed plain (`rownorm.plain`, by
+                       reason), inside the DiT forwards (their eager and
+                       capturing calls, over the warm-up and the recorded
+                       requests) and elsewhere
   accounts             per recorded request: `ga.condition` + `ga.step`
                        device seconds against the `timings` stage-1 +
                        stage-2 seconds; 8 views' projection, binning and
@@ -73,6 +84,45 @@ def _inside(ops, lo, hi):
     return [o for o in ops if o[0] >= lo and o[1] <= hi]
 
 
+class _NormCounts:
+    """The row-norm kernel's norms (`rownorm.norms`) and the CUDA norms
+    kept plain (`rownorm.plain`), split by whether a DiT forward was
+    running: forward pre- and post-hooks on the DiTs move the counts made
+    inside to `dit`. A CUDA-graph replay runs no Python and adds none."""
+
+    def __init__(self, dits):
+        from gaussiananything_tpu_torch.ops import rownorm
+        self.rn = rownorm
+        self.parts = {"dit": self._zero(), "other": self._zero()}
+        self.mark = self._now()
+        for m in dits:
+            m.register_forward_pre_hook(lambda *a: self._move("other"))
+            m.register_forward_hook(lambda *a: self._move("dit"))
+
+    @staticmethod
+    def _zero():
+        return {"kernel": 0, "plain": collections.Counter()}
+
+    def _now(self):
+        return self.rn.rownorm.norms, collections.Counter(self.rn.plain)
+
+    def _move(self, part):
+        norms, plain = self._now()
+        self.parts[part]["kernel"] += norms - self.mark[0]
+        self.parts[part]["plain"].update(plain - self.mark[1])
+        self.mark = norms, plain
+
+    def read(self):
+        self._move("other")
+        out = {}
+        for part, c in self.parts.items():
+            n_plain = sum(c["plain"].values())
+            total = c["kernel"] + n_plain
+            out[part] = {"kernel": c["kernel"], "plain": dict(c["plain"]),
+                         "plain_share": n_plain / total if total else None}
+        return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, required=True)
@@ -104,6 +154,7 @@ def main(argv=None):
     images = inputs.object_images(16, cfg["conditioner"]["img_size"],
                                   inputs.generator(args.seed, 1, dev), dev)
     models = drv.build(cfg, args.seed, dev)
+    norm_counts = _NormCounts([models.dit1, models.dit2])
 
     def one(i):
         g = inputs.generator(args.seed, 100 + i, dev)
@@ -190,6 +241,12 @@ def main(argv=None):
         args.requests, lambda: core.device_profile(dev)[0])
     dev_ops, _ = core.device_intervals(prof_d)
     req = next(sp for sp in spans_d if sp.name == profiling.REQUEST)
+    velocity = [(sp.device_start_ns, sp.device_end_ns) for sp in spans_d
+                if sp.name == "ga.velocity"]
+
+    def n_ops(key, lo_hi):
+        return sum(1 for lo, hi in lo_hi for o in _inside(dev_ops, lo, hi)
+                   if key in o[2])
     busy_all = _union_ns(dev_ops, 0, 2 ** 63)
     busy_req = _union_ns(dev_ops, req.device_start_ns, req.device_end_ns)
     dit_busy = [_union_ns(dev_ops, sp.device_start_ns, sp.device_end_ns)
@@ -238,6 +295,15 @@ def main(argv=None):
                                      "ga.render")},
         "timings_s": {k: statistics.median(t[k] for t, _ in runs)
                       for k in runs[0][0]},
+        "rownorm": {
+            "spans_request": statistics.median(
+                len(d["ga.kernel.rownorm"]) for _, d in by_req),
+            "device_launches_request": n_ops(
+                "rownorm", [(req.device_start_ns, req.device_end_ns)]),
+            "device_launches_dit": n_ops("rownorm", velocity),
+            "mean_reductions_dit": n_ops("MeanOps", velocity),
+            "norms": norm_counts.read(),
+        },
         "accounts": accounts,
         "clock": {
             "busy_share_inside_request": busy_req / busy_all,
