@@ -291,17 +291,17 @@ def device_phase():
 
 
 def build_phase():
-    from gaussiananything_tpu_torch.ops import rasterize_cuda
+    from gaussiananything_tpu_torch.ops import kernel_lib
     t0 = time.perf_counter()
-    rasterize_cuda._library("fwd")
+    kernel_lib.build()
     dt = time.perf_counter() - t0
     names = {"fwd": "K1+K2a", "bwd": "K2b", "seg": "K6",
              "v1": "K3+K4+K5+stages", "attn": "attention",
              "rownorm": "rownorm"}
-    print("[build] " + ", ".join(f"{names[k]} {path}" for k, path in
-                                 rasterize_cuda.SOURCES.items())
+    print("[build] " + ", ".join(f"{names[k]} {path}" for k, (path, _) in
+                                 kernel_lib.SOURCES.items())
           + f", in parallel: {dt:.2f}s", flush=True)
-    for line in rasterize_cuda.build_log.splitlines():
+    for line in kernel_lib.build_log.splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill",
                                    "smem")):
             print(f"[build]   {line.strip()}", flush=True)

@@ -137,9 +137,8 @@ def qk_norms(q: torch.Tensor, k: torch.Tensor, q_norm: "RMSNorm",
              k_norm: "RMSNorm"):
     """(q_norm(q), k_norm(k)) over the heads' last dim: one launch for both
     where the kernel takes each (`rownorm_pair`), else each on its own."""
-    if q.shape[-1] == k.shape[-1] and q.device == k.device \
-            and not rownorm_ops.plain_reasons(q, weight=q_norm.weight) \
-            and not rownorm_ops.plain_reasons(k, weight=k_norm.weight):
+    if not rownorm_ops.plain_reasons(q, weight=q_norm.weight, k=k,
+                                     k_weight=k_norm.weight):
         return rownorm_ops.rownorm_pair(q, q_norm.weight, q_norm.eps,
                                         k, k_norm.weight, k_norm.eps)
     return q_norm(q), k_norm(k)

@@ -16,14 +16,13 @@ one to.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 from typing import Optional, Tuple
 
 import numpy as np
+
+from gaussiananything_tpu_torch.ops import kernel_lib
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(ROOT, "native", "surface_nets.cc")
@@ -53,41 +52,24 @@ def _cpu_model() -> str:
 
 
 def _build() -> str:
-    """Compile the source into BUILD_DIR under a name keyed by the source,
-    the flags and the host CPU (-march=native); a temporary name, then an
-    atomic rename, so concurrent processes never load a half-written
-    file."""
+    """The library in BUILD_DIR, keyed by the source, the flags and the
+    host CPU (-march=native), built through `kernel_lib.compile_keyed`."""
     global build_log
     with open(SOURCE, "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(CXX_FLAGS).encode()
-                             + _cpu_model().encode()).hexdigest()[:16]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    target = os.path.join(BUILD_DIR, f"libganative_{key}.so")
-    if os.path.exists(target):
-        return target
-    fd, tmp = tempfile.mkstemp(prefix="libganative_", suffix=".so",
-                               dir=BUILD_DIR)
-    os.close(fd)
+        key = f.read() + " ".join(CXX_FLAGS).encode() + _cpu_model().encode()
     # $CXX as the Makefile takes it, then the g++ on PATH: a $CXX without
     # OpenMP's spec files cannot build it
-    failures, ran = [], False
-    for cxx in dict.fromkeys([os.environ.get("CXX", "g++"), "g++"]):
-        cmd = [cxx, *CXX_FLAGS, "-o", tmp, SOURCE]
-        try:
-            res = subprocess.run(cmd, capture_output=True, text=True,
-                                 timeout=300)
-        except OSError as e:                  # no such compiler
-            failures.append(f"{' '.join(cmd)}\n{e}")
-            continue
-        ran = True
-        build_log = f"{' '.join(cmd)}\n{res.stdout}{res.stderr}"
-        if res.returncode == 0:
-            os.replace(tmp, target)
-            return target
-        failures.append(build_log)
-    os.remove(tmp)
-    raise (RuntimeError if ran else NativeUnavailable)(
-        f"building {SOURCE} failed:\n" + "\n".join(failures))
+    compilers = [[cxx, *CXX_FLAGS]
+                 for cxx in dict.fromkeys([os.environ.get("CXX", "g++"),
+                                           "g++"])]
+    try:
+        path, log = kernel_lib.compile_keyed(SOURCE, key, BUILD_DIR,
+                                             "ganative", compilers)
+    except FileNotFoundError as e:
+        raise NativeUnavailable(str(e)) from e
+    if log:
+        build_log = log
+    return path
 
 
 def library() -> ctypes.CDLL:

@@ -10,7 +10,9 @@
     that keeps the scores on chip; its products are the plain version's
     under the TF32 policy.
   * `plain_reasons(q, k, v, bias)`: why `models/layers.dot_attention`
-    keeps the plain version for a call, empty where it takes the kernel.
+    keeps the plain version for a call, empty where it takes the kernel:
+    what the kernel cannot take (`_refusals`, whose messages `attention`
+    raises) and what the route leaves plain by choice.
 
 The kernel replaces no TPU kernel: the JAX package leaves attention to
 XLA. It was added because the plain version writes each score matrix to
@@ -26,22 +28,26 @@ The design notes are in the source.
 `ga.kernel.attn` around each (`utils/profiling.py`); a launch recorded into
 a CUDA graph (`models/dit._ForwardGraphs`) counts and opens its span once,
 at the capture, and its replays are counted by `ga.dit.replay`. The
-library is built with the rasterizer's sources (`ops/rasterize_cuda.build`).
+library is built and loaded by `ops/kernel_lib`.
 """
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
-from gaussiananything_tpu_torch.ops import rasterize_cuda
+from gaussiananything_tpu_torch.ops import kernel_lib
 from gaussiananything_tpu_torch.utils import profiling
 
 HEAD_DIM = 64
 # below a tile of 64 queries or keys the kernel's tiles are mostly padding:
 # the upsamplers' 4-9-token groups stay plain
 MIN_TOKENS = 64
+
+_SIGNATURES = {"ga_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+               + [ctypes.c_longlong] * 9 + [ctypes.c_void_p]}
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -56,50 +62,60 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p.to(v.dtype), v)
 
 
-def _aligned(t: torch.Tensor) -> bool:
-    """Rows of the head dim contiguous, every other stride a whole number
-    of 16-byte chunks, the base 16-byte aligned: what the kernel's 16-byte
-    copies read."""
-    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s % 4 == 0 or n == 1
-                    for s, n in zip(t.stride()[:-1], t.shape[:-1])))
-
-
 def _same_frame(q, k, v) -> bool:
     return (q.dim() == k.dim() == v.dim() == 4 and k.shape == v.shape
             and q.shape[0] == k.shape[0] and q.shape[2] == k.shape[2])
 
 
-def plain_reasons(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  bias: Optional[torch.Tensor] = None) -> List[str]:
-    """Why a call of `layers.dot_attention` (q (B,T,H,D), k/v (B,S,H,D))
-    keeps the plain version; [] where the kernel takes it. The kernel
-    takes a call whose q, k and v are on one card, none requiring grad
-    while grad is on, with no bias, fp32, under the TF32 matmul policy
-    (`utils/precision.py`: the "ieee" policy keeps the plain version's
-    IEEE products), of head dim 64, at least 64 queries and 64 keys, one
-    batch and head count, laid out as `_aligned` says."""
+def _refusals(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+              ) -> List[Tuple[str, str]]:
+    """What the kernel cannot take in a call, as (reason, message) pairs;
+    [] where it takes the call. It takes q (B,T,H,64) and k/v (B,S,H,64)
+    on one card, none requiring grad while grad is on, fp32, laid out as
+    `kernel_lib.aligned16` says, none empty."""
     ts = (q, k, v)
+    shapes = f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
     why = []
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
-        why.append("device")
+        why.append(("device", "q, k and v must be CUDA tensors on one "
+                    f"card, got {q.device}, {k.device}, {v.device}"))
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        why.append("grad")
+        why.append(("grad", "the kernel is forward only: call it with grad "
+                    "off or on tensors that require none"))
+    if any(t.dtype != torch.float32 for t in ts):
+        why.append(("dtype", "q, k and v must be float32, got "
+                    f"{q.dtype}, {k.dtype}, {v.dtype}"))
+    if any(t.shape[-1] != HEAD_DIM for t in ts):
+        why.append(("head_dim", f"q, k and v must be (B, tokens, H, "
+                    f"{HEAD_DIM}), got {shapes}"))
+    if not _same_frame(q, k, v):
+        why.append(("shape", "q, k and v are not 4-dim or disagree on "
+                    f"batch, heads or keys: {shapes}"))
+    elif q.numel() == 0 or k.numel() == 0:
+        why.append(("empty", f"empty attention: {shapes}"))
+    if not all(kernel_lib.aligned16(t) for t in ts):
+        why.append(("layout", "q, k and v must have unit stride along the "
+                    "head dim, strides in multiples of 4 and a 16-byte "
+                    f"aligned base, got strides {q.stride()}, {k.stride()}, "
+                    f"{v.stride()}"))
+    return why
+
+
+def plain_reasons(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None) -> List[str]:
+    """Why a call of `layers.dot_attention` (q (B,T,H,D), k/v (B,S,H,D))
+    keeps the plain version; [] where the kernel takes it. Besides what the
+    kernel cannot take (`_refusals`), the route keeps a call with a bias,
+    one under the "ieee" matmul policy (`utils/precision.py`: the plain
+    version's IEEE products) and one of fewer than 64 queries or keys."""
+    why = [reason for reason, _ in _refusals(q, k, v)]
     if bias is not None:
         why.append("bias")
-    if any(t.dtype != torch.float32 for t in ts):
-        why.append("dtype")
     if torch.backends.cuda.matmul.fp32_precision != "tf32":
         why.append("policy")
-    if any(t.shape[-1] != HEAD_DIM for t in ts):
-        why.append("head_dim")
-    if not _same_frame(q, k, v):
-        why.append("shape")
-    elif q.shape[1] < MIN_TOKENS or k.shape[1] < MIN_TOKENS:
+    if _same_frame(q, k, v) and min(q.shape[1], k.shape[1]) < MIN_TOKENS:
         why.append("tokens")
-    if not all(_aligned(t) for t in ts):
-        why.append("layout")
     return why
 
 
@@ -110,39 +126,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     counted in `attention.launches`. Forward only: raises ValueError on a
     call that autograd would differentiate, as on anything else the kernel
     does not take; RuntimeError if the launch fails."""
-    named = (("q", q), ("k", k), ("v", v))
-    for name, t in named:
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
-            raise ValueError(f"{name} must be (B, tokens, H, {HEAD_DIM}), "
-                             f"got {tuple(t.shape)}")
-    if not _same_frame(q, k, v):
-        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} disagree on batch, heads or keys")
-    if torch.is_grad_enabled() and any(t.requires_grad for _, t in named):
-        raise ValueError("the kernel is forward only: call it with grad off "
-                         "or on tensors that require none")
-    for name, t in named:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if not _aligned(t):
-            raise ValueError(f"{name} must have unit stride along the head "
-                             "dim, strides in multiples of 4 and a 16-byte "
-                             f"aligned base, got strides {t.stride()}")
+    kernel_lib.refuse(_refusals(q, k, v))
     B, T, H, _ = q.shape
     S = k.shape[1]
-    if min(B, T, S, H) < 1:
-        raise ValueError(f"empty attention: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}")
     out = torch.empty((B, T, H, HEAD_DIM), dtype=torch.float32,
                       device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with profiling.span("ga.kernel.attn", batch=B, heads=H, queries=T,
                         keys=S):
-        rasterize_cuda._raise_on(rasterize_cuda._library("attn").ga_attention(
+        kernel_lib.check(kernel_lib.library("attn", _SIGNATURES).ga_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, T, S, H, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             stream), "attention")

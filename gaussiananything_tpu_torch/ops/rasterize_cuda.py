@@ -26,12 +26,9 @@
     `tools/pallas_bisect.py:25` and `tools/pallas_bisect2.py:30`, each
     group one cluster (`stage_clusters`). Source `csrc/rasterize_v1.cu`.
 
-The design notes on what bounds each kernel are in the CUDA sources. Each
-source is compiled with `nvcc` for `sm_90a` into a shared library with a
-plain C interface at first use (into `csrc/build/`, which git ignores) and
-loaded with ctypes; the sources build in parallel, the attention kernel's
-(`csrc/attention.cu`, wrapped by `ops/attention.attention`) and the row-norm
-kernel's (`csrc/rownorm.cu`, wrapped by `ops/rownorm.rownorm`) with them.
+The design notes on what bounds each kernel are in the CUDA sources.
+`ops/kernel_lib` builds and loads them at first use; this module declares
+their C entry points (`_SIGNATURES`).
 
 The wrappers take the plain versions (`rasterize.composite_plain`,
 `rasterize.composite_plain_backward`, `rasterize.composite_segments_plain`,
@@ -44,148 +41,38 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from typing import Dict
 
 import torch
 
+from gaussiananything_tpu_torch.ops import kernel_lib
 from gaussiananything_tpu_torch.ops import rasterize as rz
 from gaussiananything_tpu_torch.utils import profiling
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-SOURCES = {"fwd": os.path.join(_CSRC, "rasterize_v4.cu"),       # K1, K2a
-           "bwd": os.path.join(_CSRC, "rasterize_v4_bwd.cu"),   # K2b
-           "seg": os.path.join(_CSRC, "rasterize_v4_seg.cu"),   # K6
-           "v1": os.path.join(_CSRC, "rasterize_v1.cu"),  # K3-K5, stages
-           "attn": os.path.join(_CSRC, "attention.cu"),   # ops/attention
-           "rownorm": os.path.join(_CSRC, "rownorm.cu")}  # ops/rownorm
-HEADERS = [os.path.join(_CSRC, "composite_v4.cuh")]
-BUILD_DIR = os.path.join(_CSRC, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# The compositors' knife edges (alpha >= 1/255, T <= 1e-4) flip on the last
-# ulp, so their multiplies and adds are rounded apart, as the plain versions
-# round them. The attention kernel has no such edge; the row-norm kernel
-# rounds its outputs apart with intrinsics.
-SOURCE_FLAGS = {"fwd": ["-fmad=false"], "bwd": ["-fmad=false"],
-                "seg": ["-fmad=false"], "v1": ["-fmad=false"], "attn": [],
-                "rownorm": []}
 # rows a kernel stages per chunk
 MAX_CHUNK = {"fwd": 256, "bwd": 128, "seg": 256, "v1": 256}
 
-_lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
-build_log = ""          # nvcc's output of this process's builds (ptxas -v)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# each library's entry points and their argument types (`kernel_lib.SOURCES`
+# names the sources: "fwd" K1 and K2a, "bwd" K2b, "seg" K6, "v1" K3-K5 and
+# the stages)
+_SIGNATURES = {
+    "fwd": {"ga_composite_v4": [_P] * 5 + [_I] * 4 + [_P] * 2,
+            "ga_composite_v4_train": [_P] * 5 + [_I] * 4 + [_P] * 7,
+            "ga_tile_order": [_P] * 2 + [_I] * 2 + [_P] * 3},
+    "bwd": {"ga_composite_v4_bwd":
+            [_P] * 11 + [_I] * 4 + [_P] * 3 + [_I] + [_P] * 2},
+    "seg": {"ga_composite_v4_seg": [_P] * 4 + [_I] * 4 + [_P] * 2},
+    "v1": {"ga_composite_lists": [_P] * 4 + [_I] * 7 + [_P] * 2,
+           "ga_composite_lists_unrolled": [_P] * 4 + [_I] * 7 + [_P] * 2,
+           "ga_composite_lists_grouped": [_P] * 6 + [_I] * 6 + [_P] * 2,
+           "ga_stage": [_I] * 2 + [_P] * 5 + [_I] * 5 + [_P] * 2,
+           "ga_grouped_clusters": [_I] * 3,
+           "ga_stage_clusters": [_I] * 5}}
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the kernels are built from "
-                           f"{_CSRC} with the CUDA toolkit")
-    return path
-
-
-def build() -> Dict[str, str]:
-    """Compile every source of `SOURCES` that has no library yet, all at
-    once (one `nvcc` process each); returns {name: library path}. A file
-    name carries the hash of its source, the headers and the flags, and a
-    library is written under a
-    temporary name and renamed, so concurrent builds never load a
-    half-written file."""
-    global build_log
-    paths, running = {}, []
-    shared = " ".join(NVCC_FLAGS).encode()
-    for header in HEADERS:
-        with open(header, "rb") as f:
-            shared += f.read()
-    for name, source in SOURCES.items():
-        flags = [*NVCC_FLAGS, *SOURCE_FLAGS[name]]
-        with open(source, "rb") as f:
-            digest = hashlib.sha256(f.read() + shared + " ".join(
-                SOURCE_FLAGS[name]).encode()).hexdigest()[:16]
-        stem = os.path.splitext(os.path.basename(source))[0]
-        paths[name] = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
-        if os.path.exists(paths[name]):
-            continue
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.Popen([_nvcc(), *flags, "-o", tmp, source],
-                                    stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-        except OSError:     # nvcc did not start: leave nothing behind
-            os.remove(tmp)
-            for _, _, other_tmp, other in running:
-                other.kill()
-                other.communicate()
-                os.remove(other_tmp)
-            raise
-        running.append((name, source, tmp, proc))
-    failed = []
-    for name, source, tmp, proc in running:
-        log = proc.communicate()[0]
-        build_log += log
-        if proc.returncode == 0:
-            os.replace(tmp, paths[name])
-        else:
-            os.remove(tmp)
-            failed.append(f"nvcc failed for {source}:\n{log}")
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return paths
-
-
-def _library(name: str) -> ctypes.CDLL:
-    with _lock:
-        if not _libs:
-            ptr, i = ctypes.c_void_p, ctypes.c_int
-            paths = build()
-            fwd = ctypes.CDLL(paths["fwd"])
-            fwd.ga_composite_v4.argtypes = [ptr] * 5 + [i] * 4 + [ptr] * 2
-            fwd.ga_composite_v4.restype = i
-            fwd.ga_composite_v4_train.argtypes = \
-                [ptr] * 5 + [i] * 4 + [ptr] * 7
-            fwd.ga_composite_v4_train.restype = i
-            fwd.ga_tile_order.argtypes = [ptr] * 2 + [i] * 2 + [ptr] * 3
-            fwd.ga_tile_order.restype = i
-            bwd = ctypes.CDLL(paths["bwd"])
-            bwd.ga_composite_v4_bwd.argtypes = \
-                [ptr] * 11 + [i] * 4 + [ptr] * 3 + [i] + [ptr] * 2
-            bwd.ga_composite_v4_bwd.restype = i
-            seg = ctypes.CDLL(paths["seg"])
-            seg.ga_composite_v4_seg.argtypes = \
-                [ptr] * 4 + [i] * 4 + [ptr] * 2
-            v1 = ctypes.CDLL(paths["v1"])
-            v1.ga_composite_lists.argtypes = [ptr] * 4 + [i] * 7 + [ptr] * 2
-            v1.ga_composite_lists_unrolled.argtypes = \
-                [ptr] * 4 + [i] * 7 + [ptr] * 2
-            v1.ga_composite_lists_grouped.argtypes = \
-                [ptr] * 6 + [i] * 6 + [ptr] * 2
-            v1.ga_stage.argtypes = [i] * 2 + [ptr] * 5 + [i] * 5 + [ptr] * 2
-            v1.ga_grouped_clusters.argtypes = [i] * 3
-            v1.ga_stage_clusters.argtypes = [i] * 5
-            for fn in (seg.ga_composite_v4_seg, v1.ga_composite_lists,
-                       v1.ga_composite_lists_unrolled,
-                       v1.ga_composite_lists_grouped, v1.ga_stage,
-                       v1.ga_grouped_clusters, v1.ga_stage_clusters):
-                fn.restype = i
-            attn = ctypes.CDLL(paths["attn"])
-            attn.ga_attention.argtypes = \
-                [ptr] * 4 + [i] * 4 + [ctypes.c_longlong] * 9 + [ptr]
-            attn.ga_attention.restype = i
-            rownorm = ctypes.CDLL(paths["rownorm"])
-            rownorm.ga_rownorm.argtypes = [ptr, i, i, ptr]
-            rownorm.ga_rownorm.restype = i
-            _libs.update(fwd=fwd, bwd=bwd, seg=seg, v1=v1, attn=attn,
-                         rownorm=rownorm)
-    return _libs[name]
+def library(name: str) -> ctypes.CDLL:
+    """The rasterizer's library `name` ("fwd", "bwd", "seg" or "v1")."""
+    return kernel_lib.library(name, _SIGNATURES[name])
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape=None):
@@ -252,11 +139,6 @@ def _launch(kernel: str, **frame):
         log.append((kernel, start, end))
 
 
-def _raise_on(err: int, kernel: str):
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
-
-
 def composite(tab: torch.Tensor, pairs: torch.Tensor, starts: torch.Tensor,
               counts: torch.Tensor, bg: torch.Tensor, img_h: int, img_w: int,
               tile: int = 16, chunk: int = 256, row0: int = 0
@@ -281,7 +163,7 @@ def composite(tab: torch.Tensor, pairs: torch.Tensor, starts: torch.Tensor,
                       device=tab.device)
     stream = torch.cuda.current_stream(tab.device).cuda_stream
     with _launch("K1", img_h=img_h, img_w=img_w, row0=row0):
-        _raise_on(_library("fwd").ga_composite_v4(
+        kernel_lib.check(library("fwd").ga_composite_v4(
             tab.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
             counts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, chunk, row0,
             out.data_ptr(), stream), "K1")
@@ -322,7 +204,7 @@ def composite_entries(tab: torch.Tensor, pairs: torch.Tensor,
                         dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with _launch("K2a", img_h=img_h, img_w=img_w, row0=row0):
-        _raise_on(_library("fwd").ga_composite_v4_train(
+        kernel_lib.check(library("fwd").ga_composite_v4_train(
             tab.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
             counts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, chunk, row0,
             out.data_ptr(), order.data_ptr(), chunk_off.data_ptr(),
@@ -395,7 +277,7 @@ def composite_backward(tab: torch.Tensor, pairs: torch.Tensor,
     tiles = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with _launch("K2b", img_h=img_h, img_w=img_w, row0=row0):
-        _raise_on(_library("bwd").ga_composite_v4_bwd(
+        kernel_lib.check(library("bwd").ga_composite_v4_bwd(
             tab.data_ptr(), pairs.data_ptr(), starts.data_ptr(),
             counts.data_ptr(), bg.data_ptr(), tiles.data_ptr(),
             chunk_off.data_ptr(), entries.data_ptr(), n_exec.data_ptr(),
@@ -482,7 +364,7 @@ def composite_segments(seg: torch.Tensor, starts: torch.Tensor,
                       device=seg.device)
     stream = torch.cuda.current_stream(seg.device).cuda_stream
     with _launch("K6", img_h=img_h, img_w=img_w, row0=row0):
-        _raise_on(_library("seg").ga_composite_v4_seg(
+        kernel_lib.check(library("seg").ga_composite_v4_seg(
             seg.data_ptr(), starts.data_ptr(), counts.data_ptr(),
             bg.data_ptr(), tiles_x, tiles_y, chunk, row0, out.data_ptr(),
             stream), "K6")
@@ -542,7 +424,7 @@ def _composite_natural(wrapper, kernel, geom, feat, counts, tiles_x, tile,
     # the tiles by descending count, which the launch writes
     order = torch.empty(n_tiles, dtype=torch.int32, device=geom.device)
     stream = torch.cuda.current_stream(geom.device).cuda_stream
-    lib = _library("v1")
+    lib = library("v1")
     with _launch(kernel, img_h=n_tiles // tiles_x * tile,
                  img_w=tiles_x * tile, row0=row0):
         if group is None:
@@ -555,7 +437,7 @@ def _composite_natural(wrapper, kernel, geom, feat, counts, tiles_x, tile,
                 geom.data_ptr(), feat.data_ptr(), counts.data_ptr(),
                 order.data_ptr(), n_tiles, M, tiles_x, tile, chunk, group,
                 row0, out.data_ptr(), stream)
-        _raise_on(err, kernel)
+        kernel_lib.check(err, kernel)
     wrapper.launches += 1
     return out
 
@@ -616,12 +498,12 @@ def cluster_limit(P: int, chunk: int) -> int:
     """The largest cluster of K4 blocks of P threads at `chunk`, up to
     CLUSTER_MAX, of which the card holds at least one at a time
     (`cudaOccupancyMaxActiveClusters`); raises where it holds none."""
-    lib = _library("v1")
+    lib = library("v1")
     key = (id(lib), P, chunk)
     if key not in _cluster_limits:
         for size in range(CLUSTER_MAX, 0, -1):
             n = lib.ga_grouped_clusters(size, P, chunk)
-            _raise_on(max(-n, 0), "K4")
+            kernel_lib.check(max(-n, 0), "K4")
             if n > 0:
                 _cluster_limits[key] = size
                 break
@@ -666,13 +548,13 @@ def composite_lists_grouped(gmax: torch.Tensor, geom: torch.Tensor,
     _check(px, "px", torch.float32, (n_tiles, P))
     _check(py, "py", torch.float32, (n_tiles, P))
     _check(cnt, "cnt", torch.float32, (n_tiles, 1))
-    lib = _library("v1")
+    lib = library("v1")
     cluster = cluster_size(group, cluster_limit(P, chunk))
     out = torch.empty((n_tiles, P, rz.LIST_OUT_W), dtype=torch.float32,
                       device=geom.device)
     stream = torch.cuda.current_stream(geom.device).cuda_stream
     with _launch("K4", tiles=n_tiles):
-        _raise_on(lib.ga_composite_lists_grouped(
+        kernel_lib.check(lib.ga_composite_lists_grouped(
             gmax.data_ptr(), geom.data_ptr(), feat.data_ptr(), px.data_ptr(),
             py.data_ptr(), cnt.data_ptr(), n_tiles, group, cluster, P, M,
             chunk, out.data_ptr(), stream), "K4")
@@ -692,11 +574,11 @@ def stage_clusters(stage_id: int, field_major: bool, group: int, P: int,
     at `chunk`) the card holds at once (`cudaOccupancyMaxActiveClusters`):
     0 where it schedules no such cluster, above CLUSTER_MAX blocks among
     them."""
-    lib = _library("v1")
+    lib = library("v1")
     key = (id(lib), stage_id, bool(field_major), group, P, chunk)
     if key not in _stage_cluster_counts:
         n = lib.ga_stage_clusters(stage_id, int(field_major), group, P, chunk)
-        _raise_on(max(-n, 0), "stage")
+        kernel_lib.check(max(-n, 0), "stage")
         _stage_cluster_counts[key] = n
     return _stage_cluster_counts[key]
 
@@ -755,12 +637,12 @@ def stage(stage_id: int, gmax: torch.Tensor, geom: torch.Tensor,
                          f"of {P} threads at chunk {chunk}: a group of the "
                          f"stage kernels runs as one cluster (at most "
                          f"{CLUSTER_MAX} blocks)")
-    lib = _library("v1")
+    lib = library("v1")
     out = torch.empty(shapes[3], dtype=torch.float32, device=geom.device)
     stream = torch.cuda.current_stream(geom.device).cuda_stream
     name = f"B{2 if field_major else 1}.{stage_id}"
     with _launch(name, tiles=n_tiles):
-        _raise_on(lib.ga_stage(
+        kernel_lib.check(lib.ga_stage(
             stage_id, int(field_major), gmax.data_ptr(), geom.data_ptr(),
             feat.data_ptr(), px.data_ptr(), py.data_ptr(), n_tiles, group, P,
             M, chunk, out.data_ptr(), stream), name)

@@ -17,9 +17,10 @@ scale of shape (B, D) indexed by each row's batch (the first dim):
     tensors of one width with their own weights in one launch: the q and
     the k heads of an attention.
   * `plain_reasons(...)`: why a call keeps the plain version, empty where
-    the kernel takes it. `models/layers.norm_rows` and `layers.qk_norms`
-    route by it, and count in `plain`, by reason, each norm on a CUDA
-    tensor that stays plain.
+    the kernel takes it: the reasons of `_refusals`, the one statement of
+    what the kernel takes, whose messages the wrappers raise.
+    `models/layers.norm_rows` and `layers.qk_norms` route by it, and count
+    in `plain`, by reason, each norm on a CUDA tensor that stays plain.
 
 The kernel replaces no TPU kernel: the JAX package leaves these expressions
 to XLA. It was added because in PyTorch each operation is a launch of its
@@ -32,22 +33,25 @@ moves 25 MB, 7.5 µs at 3.35 TB/s. The design notes are in the source.
 the norms they computed in `rownorm.norms`, and open the span
 `ga.kernel.rownorm` around each launch (`utils/profiling.py`); a launch
 recorded into a CUDA graph (`models/dit._ForwardGraphs`) counts and opens its
-span once, at the capture. The library is built with the rasterizer's
-sources (`ops/rasterize_cuda.build`).
+span once, at the capture. The library is built and loaded by
+`ops/kernel_lib`.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from gaussiananything_tpu_torch.ops import rasterize_cuda
+from gaussiananything_tpu_torch.ops import kernel_lib
 from gaussiananything_tpu_torch.utils import profiling
 
 # the widest row the kernel holds in registers (eight 16-byte loads a lane)
 MAX_WIDTH = 1024
+
+_SIGNATURES = {"ga_rownorm": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p]}
 
 # norms on a CUDA tensor that kept the plain version, by their reasons
 # joined with "+" (`layers.norm_rows`, `layers.qk_norms`)
@@ -78,25 +82,12 @@ def rownorm_plain(x: torch.Tensor, y: Opt = None, gate: Opt = None,
     return x, h
 
 
-def _aligned(t: torch.Tensor) -> bool:
-    """Unit stride along the row, every other stride a whole number of
-    16-byte chunks, the base 16-byte aligned: what the kernel's 16-byte
-    loads read."""
-    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s % 4 == 0 or n == 1
-                    for s, n in zip(t.stride()[:-1], t.shape[:-1])))
-
-
-def _laid_out(rows, vectors) -> bool:
-    """The rows (x, y) `_aligned`; the weight and the per-batch vectors
-    of unit stride along D, at any offset (the kernel reads them a float
-    at a time unless all are `_aligned`)."""
-    return (all(_aligned(t) for t in rows if t is not None)
+def _laid_out(rows: Sequence[Opt], vectors: Sequence[Opt]) -> bool:
+    """The rows `kernel_lib.aligned16`; the weights and the per-batch
+    vectors of unit stride along D, at any offset (the kernel reads them a
+    float at a time unless all are aligned)."""
+    return (all(kernel_lib.aligned16(t) for t in rows if t is not None)
             and all(t.stride(-1) == 1 for t in vectors if t is not None))
-
-
-def _width_ok(D: int) -> bool:
-    return D % 4 == 0 and 4 <= D <= MAX_WIDTH
 
 
 def _shapes_ok(x, y, gate, weight, shift, scale) -> bool:
@@ -116,30 +107,69 @@ def _shapes_ok(x, y, gate, weight, shift, scale) -> bool:
                for v in (gate, shift, scale))
 
 
-def plain_reasons(x: torch.Tensor, y: Opt = None, gate: Opt = None,
-                  weight: Opt = None, shift: Opt = None,
-                  scale: Opt = None) -> List[str]:
-    """Why a call keeps the plain version; [] where the kernel takes it.
-    The kernel takes a call whose tensors are on one card, none requiring
-    grad while grad is on, fp32, of a width D that is a multiple of 4 and
-    at most MAX_WIDTH, x of 2 to 4 dims with y of its shape and the
-    per-batch vectors (B, D), laid out as `_laid_out` says. No product is
-    involved, so the matmul policy is not read."""
-    ts = [t for t in (x, y, gate, weight, shift, scale) if t is not None]
+def _refusals(x: torch.Tensor, y: Opt = None, gate: Opt = None,
+              weight: Opt = None, shift: Opt = None, scale: Opt = None,
+              k: Opt = None, k_weight: Opt = None) -> List[Tuple[str, str]]:
+    """What the kernel cannot take in a launch, as (reason, message) pairs;
+    [] where it takes the launch. It takes tensors on one card, none
+    requiring grad while grad is on, fp32, of a width D that is a multiple
+    of 4 and at most MAX_WIDTH, shaped as `_shapes_ok` says, laid out as
+    `_laid_out` says, not empty, with y, a weight or both to compute. `k`
+    and `k_weight` are the second job of a pair (`rownorm_pair`): a norm
+    alone, of x's width."""
+    named = [(n, t) for n, t in (("x", x), ("y", y), ("gate", gate),
+                                 ("weight", weight), ("shift", shift),
+                                 ("scale", scale), ("k", k),
+                                 ("k_weight", k_weight)) if t is not None]
+    ts = [t for _, t in named]
+    D = x.shape[-1]
+
+    def listed(what):       # each tensor's `what`, for a message
+        return ", ".join(f"{n} {what(t)}" for n, t in named)
+
     why = []
     if x.device.type != "cuda" or any(t.device != x.device for t in ts):
-        why.append("device")
+        why.append(("device", "the tensors must be CUDA tensors on one card, "
+                    "got " + listed(lambda t: f"on {t.device}")))
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        why.append("grad")
+        why.append(("grad", "the kernel is forward only: call it with grad "
+                    "off or on tensors that require none"))
     if any(t.dtype != torch.float32 for t in ts):
-        why.append("dtype")
-    if not _width_ok(x.shape[-1]):
-        why.append("width")
-    if not _shapes_ok(x, y, gate, weight, shift, scale):
-        why.append("shape")
-    if not _laid_out((x, y), (gate, weight, shift, scale)):
-        why.append("layout")
+        why.append(("dtype", "the tensors must be float32, got "
+                    + listed(lambda t: t.dtype)))
+    if D % 4 or not 4 <= D <= MAX_WIDTH:
+        why.append(("width", f"rows must be a multiple of 4 wide, 4 to "
+                    f"{MAX_WIDTH}, got {D}"))
+    if k is not None and k.shape[-1] != D:
+        why.append(("widths", f"q and k differ in width: {tuple(x.shape)}, "
+                    f"{tuple(k.shape)}"))
+    if not _shapes_ok(x, y, gate, weight, shift, scale) or (
+            k is not None and not _shapes_ok(k, None, None, k_weight, None,
+                                             None)):
+        why.append(("shape", "x takes y of its shape, a gate only with y, "
+                    "shift and scale together and only with a weight, each "
+                    "(B, D) of a 3- or 4-dim x, a weight (D,); got "
+                    + listed(lambda t: tuple(t.shape))))
+    if not _laid_out((x, y, k), (gate, weight, shift, scale, k_weight)):
+        why.append(("layout", "rows need unit stride, strides in multiples "
+                    "of 4 and a 16-byte aligned base, weights and vectors "
+                    "unit stride; got " + listed(lambda t: t.stride())))
+    if x.numel() == 0 or (k is not None and k.numel() == 0):
+        why.append(("empty", "no rows: " + listed(lambda t: tuple(t.shape))))
+    if y is None and weight is None:
+        why.append(("nothing", "nothing to compute: give y, a weight or "
+                    "both"))
     return why
+
+
+def plain_reasons(x: torch.Tensor, y: Opt = None, gate: Opt = None,
+                  weight: Opt = None, shift: Opt = None, scale: Opt = None,
+                  k: Opt = None, k_weight: Opt = None) -> List[str]:
+    """Why a call keeps the plain version; [] where the kernel takes it:
+    the reasons of `_refusals`. No product is involved, so the matmul
+    policy is not read."""
+    return [reason for reason, _ in _refusals(x, y, gate, weight, shift,
+                                              scale, k, k_weight)]
 
 
 class _Job(ctypes.Structure):
@@ -172,43 +202,7 @@ def _ptr(t: Opt) -> Optional[int]:
 
 
 def _job(x, y, gate, weight, eps, shift, scale):
-    """Checks one job as the kernel takes it; returns the job, x', h."""
-    if y is None and weight is None:
-        raise ValueError("nothing to compute: give y, a weight or both")
-    D = x.shape[-1]
-    if not _width_ok(D):
-        raise ValueError(f"rows must be a multiple of 4 wide, 4 to "
-                         f"{MAX_WIDTH}, got {D}")
-    if not _shapes_ok(x, y, gate, weight, shift, scale):
-        shapes = {n: tuple(t.shape) for n, t in (
-            ("y", y), ("gate", gate), ("weight", weight), ("shift", shift),
-            ("scale", scale)) if t is not None}
-        raise ValueError(
-            f"x {tuple(x.shape)} takes y of its shape, a gate only with y, "
-            "shift and scale together and only with a weight, each (B, D) "
-            f"of a 3- or 4-dim x, a weight ({D},); got {shapes}")
-    if x.numel() == 0:
-        raise ValueError(f"no rows: x {tuple(x.shape)}")
-    named = [(n, t) for n, t in (("x", x), ("y", y), ("gate", gate),
-                                 ("weight", weight), ("shift", shift),
-                                 ("scale", scale)) if t is not None]
-    for name, t in named:
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-    if torch.is_grad_enabled() and any(t.requires_grad for _, t in named):
-        raise ValueError("the kernel is forward only: call it with grad off "
-                         "or on tensors that require none")
-    if not _laid_out((x, y), (gate, weight, shift, scale)):
-        strides = {n: t.stride() for n, t in named}
-        raise ValueError("x and y must have unit stride along the row, "
-                         "strides in multiples of 4 and a 16-byte aligned "
-                         "base, the weight and per-batch vectors unit stride "
-                         f"along the row; got strides {strides}")
-    for name, t in named:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    """One job of a launch that `_refusals` takes; returns the job, x', h."""
     (B, N, H), (xb, xn, xh) = _frame(x)
     ys = _frame(y)[1] if y is not None else (0, 0, 0)
     xo = torch.empty(x.shape, dtype=torch.float32, device=x.device) \
@@ -221,18 +215,18 @@ def _job(x, y, gate, weight, eps, shift, scale):
                _ptr(shift), 0 if shift is None else shift.stride(0),
                _ptr(scale), 0 if scale is None else scale.stride(0),
                _ptr(xo), _ptr(ho), B, N, H, float(eps),
-               all(_aligned(t) for t in (gate, weight, shift, scale)
-                   if t is not None))
+               all(kernel_lib.aligned16(t)
+                   for t in (gate, weight, shift, scale) if t is not None))
     return job, (x if xo is None else xo), ho
 
 
 def _launch(jobs, D: int, device: torch.device, norms: int, **frame):
-    lib = rasterize_cuda._library("rownorm")
+    lib = kernel_lib.library("rownorm", _SIGNATURES)
     arr = (_Job * len(jobs))(*jobs)
     stream = torch.cuda.current_stream(device).cuda_stream
     with profiling.span("ga.kernel.rownorm", width=D, **frame):
         err = lib.ga_rownorm(ctypes.addressof(arr), len(jobs), D, stream)
-        rasterize_cuda._raise_on(err, "rownorm")
+        kernel_lib.check(err, "rownorm")
     rownorm.launches += 1
     rownorm.norms += norms
 
@@ -245,6 +239,7 @@ def rownorm(x: torch.Tensor, y: Opt = None, gate: Opt = None,
     weight is): one launch of the kernel. Forward only: raises ValueError
     on a call that autograd would differentiate, as on anything else the
     kernel does not take; RuntimeError if the launch fails."""
+    kernel_lib.refuse(_refusals(x, y, gate, weight, shift, scale))
     job, xo, ho = _job(x, y, gate, weight, eps, shift, scale)
     mode = ("residual" if y is not None else "") + \
         ("+norm" if weight is not None else "") + \
@@ -260,11 +255,7 @@ def rownorm_pair(q: torch.Tensor, q_weight: torch.Tensor, q_eps: float,
     """The norms of q and of k, each with its own weight and eps, in one
     launch: (h_q, h_k), new and contiguous. q and k have one width; each is
     taken as `rownorm(t, weight=w, eps=eps)` takes it."""
-    if q.shape[-1] != k.shape[-1]:
-        raise ValueError(f"q and k differ in width: {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}")
-    if k.device != q.device:
-        raise ValueError(f"k is on {k.device}, q on {q.device}")
+    kernel_lib.refuse(_refusals(q, weight=q_weight, k=k, k_weight=k_weight))
     jq, _, hq = _job(q, None, None, q_weight, q_eps, None, None)
     jk, _, hk = _job(k, None, None, k_weight, k_eps, None, None)
     _launch([jq, jk], q.shape[-1], q.device, 2,

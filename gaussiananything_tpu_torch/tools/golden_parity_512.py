@@ -221,8 +221,8 @@ def run_parity(res: int = RES, n_splats: int = N_SPLATS,
     # a check against the oracle: every product in IEEE fp32
     dev = resolve_device(device, matmul_precision="highest")
     if dev.type == "cuda":
-        from gaussiananything_tpu_torch.ops import rasterize_cuda
-        rasterize_cuda.build()          # no view's seconds include nvcc
+        from gaussiananything_tpu_torch.ops import kernel_lib
+        kernel_lib.build()              # no view's seconds include nvcc
     g = make_object(0, n=n_splats, kind="sphere", device=dev)
     poses = cameras.generate_input_camera(RADIUS, [tuple(v) for v in views])
     bg = torch.ones(3, device=dev)

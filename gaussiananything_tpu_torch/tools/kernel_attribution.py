@@ -9,9 +9,11 @@ their sources.
 
 `--root` names the checkout whose kernels are measured (default: this
 one); another checkout's package, e.g. an earlier commit unpacked with
-`git archive`, measures that commit's kernels through its own wrappers.
-Each copy is built from that checkout's `csrc/` into a temporary directory
-and thrown away; the committed sources carry no instrumentation.
+`git archive`, measures that commit's kernels through its own wrappers and
+its own `ops/kernel_lib` (a checkout from before that module is measured
+with its own copy of this tool). Each copy is built from that checkout's
+`csrc/` into a temporary directory and thrown away; the committed sources
+carry no instrumentation.
 
 Two kinds of copy:
 
@@ -63,7 +65,6 @@ Needs the card and nvcc.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
 import inspect
 import json
@@ -612,47 +613,11 @@ def _runners(rc, frames, forward=False):
     return out
 
 
-@contextlib.contextmanager
-def _copies(rc):
-    """A temporary directory for a measurement's copies; the wrappers build
-    from their own sources again after it."""
-    saved = (rc.SOURCES, rc.HEADERS, rc.BUILD_DIR)
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            yield tmp
-    finally:
-        rc.SOURCES, rc.HEADERS, rc.BUILD_DIR = saved
-        rc._libs.clear()
-
-
-def _use(rc, csrc):
-    """Point the wrappers' build at the sources in `csrc`. The wrappers
-    pass the v4 entry points a `row0`; sources from before it are
-    refused, since a call with one argument too many corrupts their
-    pointers."""
-    with open(os.path.join(csrc, "rasterize_v4.cu")) as f:
-        if "int chunk, int row0, void* out" not in f.read():
-            raise ValueError(f"{csrc}: its v4 entry points take no row0; "
-                             "measure it with the wrappers of its own "
-                             "checkout")
-    copied = {k: os.path.join(csrc, os.path.basename(v))
-              for k, v in rc.SOURCES.items()}
-    # a checkout from before the attention or row-norm kernel has no
-    # `attention.cu` or `rownorm.cu`: the library builds from this
-    # checkout's beside the copies
-    rc.SOURCES = {k: p if os.path.exists(p) else rc.SOURCES[k]
-                  for k, p in copied.items()}
-    rc.HEADERS = [os.path.join(csrc, os.path.basename(h))
-                  for h in rc.HEADERS]
-    rc.BUILD_DIR = os.path.join(csrc, "build")
-    rc._libs.clear()
-
-
 def _stamps(rc, lib_name, fn, iters=5):
     """Phase cycles per call summed over blocks, and the block timeline."""
     import numpy as np
     import torch
-    lib = rc._library(lib_name)
+    lib = rc.library(lib_name)
     lib.ga_stamps.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     fn()
     torch.cuda.synchronize()
@@ -687,8 +652,9 @@ def _stamps(rc, lib_name, fn, iters=5):
 
 def measure(root: str, case_names, reps: int, log, out=None):
     import torch
+    from gaussiananything_tpu_torch.ops import kernel_lib
     from gaussiananything_tpu_torch.ops import rasterize_cuda as rc
-    csrc = os.path.dirname(rc.SOURCES["fwd"])
+    csrc = os.path.dirname(kernel_lib.SOURCES["fwd"][0])
     design = design_of(csrc)
     dev = torch.device("cuda")
     frames = {c: _frame(dev, *CASES[c]) for c in case_names}
@@ -696,45 +662,50 @@ def measure(root: str, case_names, reps: int, log, out=None):
     phases = PHASES[design]
     recs = {(k, c): {"root": root, "design": design, "kernel": k, "case": c}
             for k in ("K2a", "K2b", "K1", "K6") for c in case_names}
-    with _copies(rc) as tmp:
-        _use(rc, patched_csrc(csrc, os.path.join(tmp, "whole"), {}))
+    with tempfile.TemporaryDirectory() as tmp:
         for k, cases in _runners(rc, frames, forward=True).items():
             for c, fn in cases.items():
                 recs[(k, c)]["ms"] = _median_ms(fn, reps)
                 if k in ("K1", "K6"):
                     recs[(k, c)]["chunk"] = FWD_CHUNK
                     log(json.dumps(recs[(k, c)]))
-        for line in rc.build_log.splitlines():
+        for line in kernel_lib.build_log.splitlines():
             if any(w in line for w in ("Compiling entry", "registers",
                                        "spill")):
                 log(f"ptxas: {line.strip()}")
         for kernel, copies in DESIGNS[design].items():
             for i, (copy, patches) in enumerate(copies.items()):
-                _use(rc, patched_csrc(csrc, os.path.join(tmp, f"{kernel}{i}"),
-                                      patches))
-                for case, fn in _runners(rc, frames)[kernel].items():
-                    rec = recs[(kernel, case)]
-                    if copy != "stamps":
-                        rec[f"{copy} ms"] = _median_ms(fn, reps)
-                        continue
-                    acc, timeline = _stamps(rc, libs[kernel], fn)
-                    names = phases[kernel]
-                    block = sum(acc[i] for i in names if i < 4)
-                    rec["block_cycle_shares"] = {
-                        names[i]: acc[i] / block for i in names if i < 4}
-                    warp = {names[i]: acc[i] for i in names if i >= 4}
-                    if warp:
-                        total = sum(v for n, v in warp.items() if "pass" in n)
-                        rec["warp_cycle_shares"] = {
-                            n: v / total for n, v in warp.items()}
-                    rec["timeline"] = timeline
-                    rec["stamped ms"] = _median_ms(fn, reps)
+                with kernel_lib.sources_from(patched_csrc(
+                        csrc, os.path.join(tmp, f"{kernel}{i}"), patches),
+                        (libs[kernel],)):
+                    for case, fn in _runners(rc, frames)[kernel].items():
+                        _phases(rc, fn, rec=recs[(kernel, case)], copy=copy,
+                                lib=libs[kernel], names=phases[kernel],
+                                reps=reps)
             for case in case_names:
                 log(json.dumps(recs[(kernel, case)]))
                 if out:
                     with open(out, "a") as f:
                         f.write(json.dumps(recs[(kernel, case)]) + "\n")
     return list(recs.values())
+
+
+def _phases(rc, fn, rec, copy, lib, names, reps):
+    """A training kernel's copy read into `rec`: a cut copy's time, or the
+    stamped copy's phase shares, timeline and time."""
+    if copy != "stamps":
+        rec[f"{copy} ms"] = _median_ms(fn, reps)
+        return
+    acc, timeline = _stamps(rc, lib, fn)
+    block = sum(acc[i] for i in names if i < 4)
+    rec["block_cycle_shares"] = {
+        names[i]: acc[i] / block for i in names if i < 4}
+    warp = {names[i]: acc[i] for i in names if i >= 4}
+    if warp:
+        total = sum(v for n, v in warp.items() if "pass" in n)
+        rec["warp_cycle_shares"] = {n: v / total for n, v in warp.items()}
+    rec["timeline"] = timeline
+    rec["stamped ms"] = _median_ms(fn, reps)
 
 
 def _list_frame(dev, n, res, tile, mpt, chunk, group4, group5):
@@ -832,8 +803,9 @@ def measure_lists(root: str, case_names, reps: int, log, out=None,
     from its stamped copy. `save` writes K3's and the stages' outputs to a
     file; `against` compares this run's with such a file."""
     import torch
+    from gaussiananything_tpu_torch.ops import kernel_lib
     from gaussiananything_tpu_torch.ops import rasterize_cuda as rc
-    csrc = os.path.dirname(rc.SOURCES["fwd"])
+    csrc = os.path.dirname(kernel_lib.SOURCES["v1"][0])
     design = design_of(csrc, LIST_DESIGNS)
     dev = torch.device("cuda")
     frames = {c: (_stage_frame(dev) if c in STAGE_CASES
@@ -843,8 +815,7 @@ def measure_lists(root: str, case_names, reps: int, log, out=None,
             for k in names for c in case_names
             if (c in STAGE_CASES) == k.startswith("B")}
     outputs = {}
-    with _copies(rc) as tmp:
-        _use(rc, patched_csrc(csrc, os.path.join(tmp, "whole"), {}))
+    with tempfile.TemporaryDirectory() as tmp:
         runners = _list_runners(rc, frames)
         for c in case_names:
             if c in STAGE_CASES:
@@ -873,7 +844,7 @@ def measure_lists(root: str, case_names, reps: int, log, out=None,
         if against:
             _compare(recs, outputs, against)
         keep = False
-        for line in rc.build_log.splitlines():
+        for line in kernel_lib.build_log.splitlines():
             if "Compiling entry" in line:
                 keep = any(w in line for w in ("composite_lists",
                                                "tile_order", "stage_kernel"))
@@ -883,18 +854,19 @@ def measure_lists(root: str, case_names, reps: int, log, out=None,
         for source_kernel, copies in LIST_DESIGNS[design].items():
             done = []
             for i, (copy, patches) in enumerate(copies.items()):
-                _use(rc, patched_csrc(
-                    csrc, os.path.join(tmp, f"{source_kernel}{i}"), patches))
-                runners = _list_runners(rc, frames)
-                for kernel in STAMPED_KERNELS[source_kernel]:
-                    for case, fn in runners[kernel].items():
-                        rec = recs[(kernel, case)]
-                        if copy == "stamps":
-                            _stamped(rc, fn, frames[case], kernel, case, rec,
-                                     reps)
-                            done.append(rec)
-                        else:
-                            rec[f"{copy} ms"] = _median_ms(fn, reps)
+                with kernel_lib.sources_from(patched_csrc(
+                        csrc, os.path.join(tmp, f"{source_kernel}{i}"),
+                        patches), ("v1",)):
+                    runners = _list_runners(rc, frames)
+                    for kernel in STAMPED_KERNELS[source_kernel]:
+                        for case, fn in runners[kernel].items():
+                            rec = recs[(kernel, case)]
+                            if copy == "stamps":
+                                _stamped(rc, fn, frames[case], kernel, case,
+                                         rec, reps)
+                                done.append(rec)
+                            else:
+                                rec[f"{copy} ms"] = _median_ms(fn, reps)
             for rec in done:
                 log(json.dumps(rec))
                 if out:
@@ -912,7 +884,7 @@ def _stamped(rc, fn, f, kernel, case, rec, reps):
         rec["block_cycle_shares"] = {
             name: acc[i] / block for i, name in LIST_PHASES.items()}
     rec["stamped ms"] = _median_ms(fn, reps)
-    lib = rc._library("v1")
+    lib = rc.library("v1")
     lib.ga_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
     blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
     group = f["group"] if case in STAGE_CASES else \

@@ -36,7 +36,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gaussiananything_tpu_torch.ops import rasterize_cuda
+from gaussiananything_tpu_torch.ops import kernel_lib, rasterize_cuda
 from gaussiananything_tpu_torch.utils.device import resolve_device
 
 # the JAX tools' constants (`tools/pallas_bisect.py:9-11`)
@@ -153,8 +153,8 @@ def main(argv: Optional[Sequence[str]] = None,
                                            a.chunk, a.chunks, a.groups)
     if dev.type == "cuda":
         t0 = time.perf_counter()
-        rasterize_cuda._library("v1")
-        log(f"build of {rasterize_cuda.SOURCES['v1']} (all stages, with the "
+        rasterize_cuda.library("v1")
+        log(f"build of {kernel_lib.SOURCES['v1'][0]} (all stages, with the "
             f"other sources in parallel): {time.perf_counter() - t0:7.2f} s")
     digests = {}
     for layout in (("row", "field") if a.layout == "both" else (a.layout,)):

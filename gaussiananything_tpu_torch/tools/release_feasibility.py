@@ -84,8 +84,8 @@ def feasibility(views: int = 4, steps: int = 5, bf16: bool = False,
                            TrainStateConfig(lr=1e-4, warmup_steps=10))
     state = TrainState.create(model)
     if dev.type == "cuda":
-        from gaussiananything_tpu_torch.ops import rasterize_cuda
-        rasterize_cuda.build()          # no step's seconds include nvcc
+        from gaussiananything_tpu_torch.ops import kernel_lib
+        kernel_lib.build()              # no step's seconds include nvcc
         torch.cuda.reset_peak_memory_stats(dev)
 
     def run(i):

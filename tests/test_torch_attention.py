@@ -9,7 +9,9 @@ own tensors, untransposed and uncopied.
 """
 from __future__ import annotations
 
+import inspect
 import math
+import re
 from typing import Optional
 
 import numpy as np
@@ -19,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from gaussiananything_tpu_torch.models import layers
 from gaussiananything_tpu_torch.ops import attention as attention_ops
+from gaussiananything_tpu_torch.ops import kernel_lib
 from gaussiananything_tpu_torch.utils import precision
 
 
@@ -202,8 +205,8 @@ def test_packed_projection_views_meet_the_layout_rule():
     kernel's 16-byte copies read, so the rule does not refuse them."""
     for B, T, H in ((2, 768, 16), (1, 1374, 16), (3, 65, 12)):
         qkv = torch.empty(B, T, 3 * H * 64).reshape(B, T, 3, H, 64)
-        assert all(attention_ops._aligned(t) for t in qkv.unbind(2))
-    assert not attention_ops._aligned(torch.empty(2, 80, 2, 65)[..., 1:])
+        assert all(kernel_lib.aligned16(t) for t in qkv.unbind(2))
+    assert not kernel_lib.aligned16(torch.empty(2, 80, 2, 65)[..., 1:])
 
 
 @pytest.mark.parametrize("bad,match", [
@@ -223,4 +226,42 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad, match):
     before = attention_ops.attention.launches
     with pytest.raises(ValueError, match=match):
         attention_ops.attention(q, k, k)
+    assert attention_ops.attention.launches == before
+
+
+# every reason of the kernel's rule (`attention._refusals`)
+REFUSALS = ["device", "grad", "dtype", "head_dim", "shape", "empty",
+            "layout"]
+
+
+@pytest.mark.parametrize("reason", REFUSALS)
+def test_route_and_wrapper_refuse_by_one_rule(reason, tf32_policy,
+                                              monkeypatch):
+    """A call with one reason of the rule (and "device", as every call on
+    the CPU has) is kept plain by the route under that reason, and the
+    wrapper raises ValueError with that reason's message, before any build
+    or launch: the route and the refusal cannot drift apart."""
+    pattern = r'why\.append\(\("(\w+)"'
+    assert re.findall(pattern, inspect.getsource(
+        attention_ops._refusals)) == REFUSALS
+    q, k, v = _qkv(7, D=32 if reason == "head_dim" else 64)
+    if reason == "empty":
+        q, k, v = q[:0], k[:0], v[:0]
+    elif reason == "grad":
+        q.requires_grad_(True)
+    elif reason == "dtype":
+        v = v.double()
+    elif reason == "shape":
+        k, v = k[:1], v[:1]
+    elif reason == "layout":
+        q = torch.cat([q, q], -1)[..., ::2]
+    why = attention_ops._refusals(q, k, v)
+    assert [r for r, _ in why] == sorted({"device", reason},
+                                         key=REFUSALS.index)
+    assert attention_ops.plain_reasons(q, k, v) == [r for r, _ in why]
+    monkeypatch.setattr(kernel_lib, "build", lambda: pytest.fail("built"))
+    before = attention_ops.attention.launches
+    with pytest.raises(ValueError) as err:
+        attention_ops.attention(q, k, v)
+    assert dict(why)[reason] in str(err.value)
     assert attention_ops.attention.launches == before

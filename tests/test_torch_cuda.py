@@ -10,6 +10,7 @@ from __future__ import annotations
 import pytest
 import torch
 
+from gaussiananything_tpu_torch.ops import kernel_lib
 from gaussiananything_tpu_torch.ops import rasterize as rz
 from gaussiananything_tpu_torch.ops import rasterize_cuda
 
@@ -216,7 +217,7 @@ def test_k2_tile_order_is_heaviest_first(card, n_tiles):
     counts = torch.randint(0, 40, (n_tiles,), generator=gen).mul(37).int()
     n_exec = torch.randint(0, 12, (n_tiles,), generator=gen).int()
     counts, n_exec = counts.to(card), n_exec.to(card)
-    lib = rasterize_cuda._library("fwd")
+    lib = rasterize_cuda.library("fwd")
     stream = torch.cuda.current_stream(card).cuda_stream
     order = torch.empty(n_tiles, dtype=torch.int32, device=card)
     off = torch.empty(n_tiles + 1, dtype=torch.int32, device=card)
@@ -522,7 +523,7 @@ def test_k4_runs_each_group_of_16_as_one_cluster(card):
     launches K4 at, so a group of up to 16 is one cluster."""
     for P, chunk in ((256, 256), (64, 128), (256, 64), (256, 128)):
         assert rasterize_cuda.cluster_limit(P, chunk) == 16
-        assert rasterize_cuda._library("v1").ga_grouped_clusters(
+        assert rasterize_cuda.library("v1").ga_grouped_clusters(
             16, P, chunk) > 0
 
 
@@ -534,7 +535,7 @@ def test_k5_takes_the_tiles_heaviest_first(card, tile):
     gives it; the output in natural order all the same."""
     geom, feat, counts, px, py = _lists(card, 6144, 256, tile, 512)
     n_tiles, M = counts.shape[0], geom.shape[1]
-    lib = rasterize_cuda._library("v1")
+    lib = rasterize_cuda.library("v1")
     order = torch.full((n_tiles,), -1, dtype=torch.int32, device=card)
     out = torch.empty((n_tiles, tile * tile, rz.LIST_OUT_W), device=card)
     stream = torch.cuda.current_stream(card).cuda_stream
@@ -575,7 +576,7 @@ def test_k4_k5_wrappers_refuse_bad_inputs(card):
         rasterize_cuda.composite_lists_grouped(*args2, 4, 512)
     with pytest.raises(ValueError, match="not a multiple of the group 3"):
         rasterize_cuda.composite_lists_grouped(*args, 3, 64)
-    lib = rasterize_cuda._library("v1")
+    lib = rasterize_cuda.library("v1")
     out = torch.empty((16, 256, rz.LIST_OUT_W), device=card)
     gmax, g, f, x, y, cnt = args
     stream = torch.cuda.current_stream(card).cuda_stream
@@ -594,7 +595,7 @@ def test_k4_k5_wrappers_refuse_bad_inputs(card):
         2048, 4, 16, 512, 4, 0, out.data_ptr(), stream) != 0
     before = rasterize_cuda.composite_lists_grouped.launches
     with pytest.raises(RuntimeError, match="K4 launch failed"):
-        rasterize_cuda._raise_on(lib.ga_composite_lists_grouped(
+        kernel_lib.check(lib.ga_composite_lists_grouped(
             gmax.data_ptr(), g.data_ptr(), f.data_ptr(), x.data_ptr(),
             y.data_ptr(), cnt.data_ptr(), 16, 4, 17, 256, 256, 64,
             out.data_ptr(), stream), "K4")
@@ -686,7 +687,7 @@ def test_stage_wrapper_refuses_a_group_or_chunk_it_cannot_run(card):
     with pytest.raises(ValueError, match="multiple of 4"):
         rasterize_cuda.stage(2, gmax30, *field30, ks.G, 30, field_major=True)
     assert rasterize_cuda.stage.launches == before
-    lib = rasterize_cuda._library("v1")
+    lib = rasterize_cuda.library("v1")
     stream = torch.cuda.current_stream(card).cuda_stream
     out = torch.empty((64, ks.P, 16), device=card)
     ptrs = [x.data_ptr() for x in (gmax, *row)]
@@ -707,7 +708,7 @@ def test_k3_takes_the_tiles_heaviest_first_and_repeats(card, with_aux):
     n_tiles, M = counts.shape[0], geom.shape[1]
     heaviest = torch.sort(counts, descending=True, stable=True).indices
     assert not torch.equal(heaviest, torch.arange(n_tiles, device=card))
-    lib = rasterize_cuda._library("v1")
+    lib = rasterize_cuda.library("v1")
     order = torch.full((n_tiles,), -1, dtype=torch.int32, device=card)
     out = torch.empty((n_tiles, 256, rz.LIST_OUT_W), device=card)
     stream = torch.cuda.current_stream(card).cuda_stream
@@ -1409,7 +1410,8 @@ def test_rownorm_kernel_reads_vectors_at_any_offset(card):
     mod[:, 0].copy_(a["shift"])
     mod[:, 1].copy_(a["scale"])
     mod[:, 2].copy_(a["gate"])
-    assert not rn._aligned(w) and not rn._aligned(mod[:, 0])
+    assert not kernel_lib.aligned16(w)
+    assert not kernel_lib.aligned16(mod[:, 0])
     odd = dict(a, weight=w, shift=mod[:, 0], scale=mod[:, 1], gate=mod[:, 2])
     assert rn.plain_reasons(**{k: v for k, v in odd.items()}) == []
     got, ref = rn.rownorm(**odd), rn.rownorm(**a)

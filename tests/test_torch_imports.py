@@ -6,6 +6,7 @@ from __future__ import annotations
 import ast
 import inspect
 import os
+import shutil
 
 import pytest
 import torch
@@ -144,12 +145,18 @@ def test_training_kernels_raise_on_cuda_tensors_without_a_build(monkeypatch,
     """On a CUDA tensor the wrappers launch their kernel or raise: a build
     that fails is an error, never the plain version, and leaves no file
     behind. (A `meta` tensor stands in for a device that is not the CPU.)"""
+    from gaussiananything_tpu_torch.ops import kernel_lib
     from gaussiananything_tpu_torch.ops import rasterize as rz
     from gaussiananything_tpu_torch.ops import rasterize_cuda
-    assert set(rasterize_cuda.SOURCES) == {"fwd", "bwd", "seg", "v1",
-                                           "attn", "rownorm"}
-    for path in (*rasterize_cuda.SOURCES.values(), *rasterize_cuda.HEADERS):
+    # the compositors round their multiplies and adds apart
+    assert {name: flags for name, (_, flags) in kernel_lib.SOURCES.items()} \
+        == {"fwd": ["-fmad=false"], "bwd": ["-fmad=false"],
+            "seg": ["-fmad=false"], "v1": ["-fmad=false"], "attn": [],
+            "rownorm": []}
+    for path, _ in kernel_lib.SOURCES.values():
         assert os.path.exists(path)
+    for header in kernel_lib.HEADERS:
+        assert os.path.exists(os.path.join(kernel_lib.CSRC, header))
     tab = torch.zeros((4, rz.TABLE_W), device="meta")
     idx = torch.zeros(4, dtype=torch.int32, device="meta")
     bg = torch.ones(3, device="meta")
@@ -173,15 +180,17 @@ def test_training_kernels_raise_on_cuda_tensors_without_a_build(monkeypatch,
                                          64)):
         with pytest.raises((ValueError, RuntimeError)):
             call()
-    build_dir = tmp_path / "build"
-    monkeypatch.setattr(rasterize_cuda, "_nvcc",
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernel_lib.CSRC, csrc,
+                    ignore=shutil.ignore_patterns("build"))
+    monkeypatch.setattr(kernel_lib, "_nvcc",
                         lambda: str(tmp_path / "no-nvcc-here"))
-    monkeypatch.setattr(rasterize_cuda, "BUILD_DIR", str(build_dir))
-    monkeypatch.setattr(rasterize_cuda, "_libs", {})
-    with pytest.raises(FileNotFoundError):
-        rasterize_cuda._library("v1")
-    assert not rasterize_cuda._libs
-    assert list(build_dir.iterdir()) == []
+    monkeypatch.setattr(kernel_lib, "_libs", {})
+    with kernel_lib.sources_from(str(csrc), kernel_lib.SOURCES):
+        with pytest.raises(FileNotFoundError):
+            rasterize_cuda.library("v1")
+    assert not kernel_lib._libs
+    assert list((csrc / "build").iterdir()) == []
 
 
 def test_tools_default_to_cuda_and_refuse_without_it(monkeypatch):

@@ -13,7 +13,7 @@ import os
 import pytest
 import torch
 
-from gaussiananything_tpu_torch.ops import rasterize_cuda
+from gaussiananything_tpu_torch.ops import kernel_lib, rasterize_cuda
 from gaussiananything_tpu_torch.tools import (bench, kernel_stages,
                                               rasterizer_timing)
 
@@ -112,7 +112,7 @@ def test_attribution_copies_fit_the_sources(tmp_path):
     once); the stamped copies carry the instrumentation, the committed
     sources none."""
     from gaussiananything_tpu_torch.tools import kernel_attribution as ka
-    csrc = os.path.dirname(rasterize_cuda.SOURCES["fwd"])
+    csrc = kernel_lib.CSRC
     design = ka.design_of(csrc)
     assert design == "marked"
     for kernel, copies in ka.DESIGNS[design].items():
@@ -124,7 +124,8 @@ def test_attribution_copies_fit_the_sources(tmp_path):
                 with open(os.path.join(out, name)) as f:
                     text = f.read()
                 assert ("ga_stamps" in text) == (copy == "stamps"), name
-    for path in (*rasterize_cuda.SOURCES.values(), *rasterize_cuda.HEADERS):
+    for path in ([p for p, _ in kernel_lib.SOURCES.values()]
+                 + [os.path.join(csrc, h) for h in kernel_lib.HEADERS]):
         with open(path) as f:
             assert "ga_stamps" not in f.read()
 
@@ -136,7 +137,7 @@ def test_attribution_list_copies_fit_the_sources(tmp_path):
     carries one start and one end stamp and the occupancy query, each cut
     copy none."""
     from gaussiananything_tpu_torch.tools import kernel_attribution as ka
-    csrc = os.path.dirname(rasterize_cuda.SOURCES["v1"])
+    csrc = kernel_lib.CSRC
     assert ka.design_of(csrc, ka.LIST_DESIGNS) == "paired"
     old = ka.LIST_DESIGNS["cluster"]
     with pytest.raises(ValueError, match="no design"):
@@ -157,17 +158,19 @@ def test_attribution_list_copies_fit_the_sources(tmp_path):
             assert text.count("ga_stamps") == stamped
 
 
-def test_attribution_copies_leave_the_wrappers_sources():
-    """After a measurement's copies the wrappers build from their own
-    sources again, so one run can take the training and the list cases in
-    turn (the second once read the first's deleted copy)."""
+def test_attribution_copies_leave_the_wrappers_sources(tmp_path):
+    """Inside a copy's block only the libraries it names build from the
+    copy; after it the wrappers build from their own sources again, so one
+    run can take the training and the list cases in turn (the second once
+    read the first's deleted copy)."""
     from gaussiananything_tpu_torch.tools import kernel_attribution as ka
-    before = (dict(rasterize_cuda.SOURCES), list(rasterize_cuda.HEADERS),
-              rasterize_cuda.BUILD_DIR)
-    csrc = os.path.dirname(rasterize_cuda.SOURCES["v1"])
-    with ka._copies(rasterize_cuda) as tmp:
-        ka._use(rasterize_cuda, ka.patched_csrc(csrc, tmp, {}))
-        assert rasterize_cuda.SOURCES != before[0]
-    assert (rasterize_cuda.SOURCES, rasterize_cuda.HEADERS,
-            rasterize_cuda.BUILD_DIR) == before
+    before = dict(kernel_lib.SOURCES)
+    csrc = kernel_lib.CSRC
+    copy = ka.patched_csrc(csrc, str(tmp_path), {})
+    with kernel_lib.sources_from(copy, ("v1",)):
+        assert kernel_lib.SOURCES["v1"][0] == os.path.join(
+            copy, "rasterize_v1.cu")
+        assert {n: e for n, e in kernel_lib.SOURCES.items() if n != "v1"} \
+            == {n: e for n, e in before.items() if n != "v1"}
+    assert kernel_lib.SOURCES == before
     assert ka.design_of(csrc, ka.LIST_DESIGNS) == "paired"

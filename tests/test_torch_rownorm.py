@@ -11,6 +11,8 @@ and the DiT blocks give the bits they gave before.
 from __future__ import annotations
 
 import ctypes
+import inspect
+import re
 
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ import torch
 
 from gaussiananything_tpu_torch.models import layers
 from gaussiananything_tpu_torch.models.dit import ClayDiTBlock
+from gaussiananything_tpu_torch.ops import kernel_lib
 from gaussiananything_tpu_torch.ops import rownorm as rn
 
 
@@ -198,7 +201,7 @@ def test_packed_projection_views_meet_the_layout_rule():
     w, vec = flat[1:65], flat[65:].reshape(2, 67)[:, :64]
     assert rn.plain_reasons(x[..., :64].contiguous(), weight=w, shift=vec,
                             scale=vec) == ["device"]
-    assert not rn._aligned(w) and not rn._aligned(vec)
+    assert not kernel_lib.aligned16(w) and not kernel_lib.aligned16(vec)
 
 
 @pytest.fixture
@@ -389,6 +392,51 @@ def test_pair_wrapper_refuses_two_widths():
     k = torch.empty(2, 8, 4, 32, device="meta")
     with pytest.raises(ValueError, match="differ in width"):
         rn.rownorm_pair(q, torch.ones(64), 1e-5, k, torch.ones(32), 1e-5)
+
+
+# every reason of the kernel's rule (`rownorm._refusals`), and the case of
+# `_reason_call` that has it
+REFUSALS = {"device": "taken", "grad": "grad_x", "dtype": "bf16_y",
+            "width": "width_not_4", "widths": None, "shape": "y_shape",
+            "layout": "strided_row", "empty": "taken", "nothing": "taken"}
+
+
+@pytest.mark.parametrize("reason", list(REFUSALS))
+def test_route_and_wrappers_refuse_by_one_rule(reason, monkeypatch):
+    """A call with one reason of the rule (and "device", as every call on
+    the CPU has) is kept plain by the route under that reason, and the
+    wrapper (`rownorm_pair` for two widths) raises ValueError with that
+    reason's message, before any build or launch: the route and the
+    refusal cannot drift apart."""
+    pattern = r'why\.append\(\("(\w+)"'
+    assert re.findall(pattern, inspect.getsource(rn._refusals)) \
+        == list(REFUSALS)
+    if reason == "widths":
+        q, k = torch.randn(2, 8, 4, 64), torch.randn(2, 8, 4, 32)
+        kw = dict(x=q, weight=torch.ones(64), k=k, k_weight=torch.ones(32))
+
+        def call():
+            rn.rownorm_pair(q, kw["weight"], 1e-5, k, kw["k_weight"], 1e-5)
+    else:
+        x, y, gate, w, shift, scale = _reason_call(REFUSALS[reason])
+        if reason == "empty":
+            x, y = x[:, :0], y[:, :0]
+        elif reason == "nothing":
+            y = gate = w = shift = scale = None
+        kw = dict(x=x, y=y, gate=gate, weight=w, shift=shift, scale=scale)
+
+        def call():
+            rn.rownorm(**kw)
+    why = rn._refusals(**kw)
+    assert [r for r, _ in why] == sorted({"device", reason},
+                                         key=list(REFUSALS).index)
+    assert rn.plain_reasons(**kw) == [r for r, _ in why]
+    monkeypatch.setattr(kernel_lib, "build", lambda: pytest.fail("built"))
+    before = (rn.rownorm.launches, rn.rownorm.norms)
+    with pytest.raises(ValueError) as err:
+        call()
+    assert dict(why)[reason] in str(err.value)
+    assert (rn.rownorm.launches, rn.rownorm.norms) == before
 
 
 def test_job_layout_and_frames():

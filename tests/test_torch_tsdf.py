@@ -24,6 +24,7 @@ from gaussiananything_tpu.data.synthetic import make_object as jmake_object
 from gaussiananything_tpu.render import tsdf as jtsdf
 from gaussiananything_tpu_torch import native_bindings
 from gaussiananything_tpu_torch.data.synthetic import make_object
+from gaussiananything_tpu_torch.ops import kernel_lib
 from gaussiananything_tpu_torch.render import tsdf
 from gaussiananything_tpu_torch.render.ply_io import read_ply
 
@@ -97,11 +98,23 @@ def test_surface_nets_python_native_jax():
     assert empty[0].shape == (0, 3) and empty[2] is None
 
 
-def test_native_build_is_the_ports_own():
+def test_native_build_is_the_ports_own(monkeypatch):
     """Built from the repository's source into the port's git-ignored
-    directory, not into native/."""
+    directory, not into native/, by the kernels' keyed build step
+    (`kernel_lib.compile_keyed`)."""
+    calls = []
+
+    def keyed(source, key, build_dir, stem, commands):
+        calls.append((source, build_dir, stem))
+        return compile_keyed(source, key, build_dir, stem, commands)
+
+    compile_keyed = kernel_lib.compile_keyed
+    monkeypatch.setattr(kernel_lib, "compile_keyed", keyed)
     path = native_bindings._build()
     assert os.path.dirname(path) == native_bindings.BUILD_DIR
+    assert os.path.basename(path).startswith("libganative_")
+    assert calls == [(native_bindings.SOURCE, native_bindings.BUILD_DIR,
+                      "ganative")]
     assert native_bindings.SOURCE.endswith(
         os.path.join("native", "surface_nets.cc"))
 
