@@ -43,8 +43,6 @@ third of it. The module call stays, so its hooks fire on every call.
 """
 from __future__ import annotations
 
-import collections
-import threading
 from typing import Optional
 
 import torch
@@ -59,7 +57,7 @@ from gaussiananything_tpu_torch.models.layers import (Attention,
                                                       XYZPosEmbed,
                                                       approx_gelu, exact_gelu,
                                                       modulate, norm_rows)
-from gaussiananything_tpu_torch.utils import profiling
+from gaussiananything_tpu_torch.utils.graphs import GraphCache
 
 
 class ClayDiTBlock(nn.Module):
@@ -157,35 +155,20 @@ class FinalLayer(nn.Module):
         return self.linear(modulate(self.norm_final(x), shift, scale))
 
 
-class _ForwardGraphs:
-    """CUDA graphs of one module's no-grad forward, by key.
-
-    A graph holds the addresses of the tensors it was captured on and the
-    kernels chosen then, so the key is everything that fixes them: the
-    inputs' shapes and dtypes, the device and current stream, the fp32
-    matmul policy (`utils/precision.py`; cuBLAS picks TF32 or IEEE at
-    capture), inference mode, and the address of every parameter and
-    buffer (`functional_call` swaps them, a cast reallocates them; an
-    in-place update keeps them and a replay reads the new values).
-
-    The first call with a key runs eagerly (it creates cuBLAS handles and
-    workspaces), the second captures on a side stream and replays, every
-    later one copies its inputs into the graph's own and replays; each
-    replay returns a clone of the graph's output. At most `LIMIT` keys
-    are kept, the least recently used evicted, so a key that never comes
-    back costs no capture. Each graph has its own memory pool: graphs
-    share nothing, so two streams may replay two of them at once."""
-    LIMIT = 4
+class _ForwardGraphs(GraphCache):
+    """CUDA graphs of one module's no-grad forward (`utils/graphs`), keyed
+    also by the address of every parameter and buffer (`functional_call`
+    swaps them, a cast reallocates them; an in-place update keeps them and
+    a replay reads the new values) and by the fp32 matmul policy
+    (`utils/precision.py`; cuBLAS picks TF32 or IEEE at capture). Each
+    replay returns a clone of the graph's output."""
 
     def __init__(self):
-        self.lock = threading.Lock()
+        super().__init__("ga.dit")
         self.tensors = None       # (dict, name) of each parameter and
         #                           buffer, read at the first call
-        self.entries = collections.OrderedDict()   # key -> None (seen once)
-        #                                            or (graph, ins, out)
 
     def __reduce__(self):
-        # copies and pickles of the module start with no graph
         return type(self), ()
 
     def key(self, module: nn.Module, args) -> tuple:
@@ -204,32 +187,8 @@ class _ForwardGraphs:
 
     def __call__(self, module: nn.Module, body, args) -> torch.Tensor:
         with self.lock:
-            key = self.key(module, args)
-            if key not in self.entries:
-                out = body(*args)
-                self.entries[key] = None
-                if len(self.entries) > self.LIMIT:
-                    self.entries.popitem(last=False)
-                return out
-            self.entries.move_to_end(key)
-            entry = self.entries[key]
-            if entry is None:
-                with profiling.span("ga.dit.capture"):
-                    ins = tuple(None if a is None else a.clone()
-                                for a in args)
-                    graph = torch.cuda.CUDAGraph()
-                    with torch.cuda.graph(graph,
-                                          capture_error_mode="thread_local"):
-                        out = body(*ins)
-                self.entries[key] = (graph, ins, out)
-            else:
-                graph, ins, out = entry
-                for dst, src in zip(ins, args):
-                    if dst is not None:
-                        dst.copy_(src)
-            with profiling.span("ga.dit.replay"):
-                graph.replay()
-                return out.clone()
+            return self.run(self.key(module, args), body, args,
+                            clone=True)[0]
 
 
 class PointDiT(nn.Module):

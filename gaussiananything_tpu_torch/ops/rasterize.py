@@ -37,6 +37,7 @@ import torch
 
 from gaussiananything_tpu_torch.ops.gaussians import unpack_gaussians
 from gaussiananything_tpu_torch.utils import profiling
+from gaussiananything_tpu_torch.utils.graphs import GraphCache
 from gaussiananything_tpu_torch.utils.precision import highest_bmm
 from gaussiananything_tpu_torch.utils.quaternions import normalize
 
@@ -960,6 +961,56 @@ def split_outputs(buf: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {k: buf[a:b] for k, a, b in OUT_CHANNELS}
 
 
+def _frame(gaussians: torch.Tensor, cam_view: torch.Tensor,
+           cam_view_proj: torch.Tensor, img_h: int, img_w: int, tile: int,
+           max_per_tile: int, full_h: int, row0: int
+           ) -> Tuple[torch.Tensor, ...]:
+    """One view's splat table and binning: (tab, pairs, starts, counts).
+    Every shape is fixed by N and the frame, and nothing is read back to
+    the host, so a CUDA graph of it holds for every call with its key."""
+    with profiling.span("ga.render.project"):
+        sp = preprocess_splats(gaussians, cam_view, cam_view_proj,
+                               full_h or img_h, img_w)
+        tab = splat_table(sp, full_h or img_h, img_w)
+    with profiling.span("ga.render.bin"), torch.no_grad():
+        pairs, starts, counts = build_tile_pairs(sp, img_h, img_w, tile,
+                                                 max_per_tile, row0=row0)
+    return tab, pairs, starts, counts
+
+
+# `_frame`'s CUDA graphs, one per key (`frame_key`), shared by every caller
+FRAME_GRAPHS = GraphCache("ga.render")
+
+
+def frame_graph_engages(gaussians: torch.Tensor, cam_view: torch.Tensor,
+                        cam_view_proj: torch.Tensor, impl: str) -> bool:
+    """Whether `rasterize_tiled` replays its `_frame` as a CUDA graph: for
+    impl "cuda" on CUDA tensors, where no stream capture is underway and
+    no gradient will be asked of the splat table (grad mode on and an
+    input requiring one)."""
+    inputs = (gaussians, cam_view, cam_view_proj)
+    if impl != "cuda" or any(t.device.type != "cuda" for t in inputs):
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return False
+    return not torch.cuda.is_current_stream_capturing()
+
+
+def frame_key(gaussians: torch.Tensor, cam_view: torch.Tensor,
+              cam_view_proj: torch.Tensor, frame: Tuple[int, ...]) -> tuple:
+    """What a capture of `_frame` fixes: the device and current stream,
+    the fp32 matmul policy, inference mode, the inputs' shapes and dtypes
+    and the frame (img_h, img_w, tile, max_per_tile, full_h, row0)."""
+    dev = gaussians.device
+    return (dev, torch.cuda.current_stream(dev).stream_id
+            if dev.type == "cuda" else None,
+            torch.backends.cuda.matmul.fp32_precision,
+            torch.is_inference_mode_enabled(),
+            tuple((t.shape, t.dtype)
+                  for t in (gaussians, cam_view, cam_view_proj)),
+            frame)
+
+
 def rasterize_tiled(gaussians: torch.Tensor, cam_view: torch.Tensor,
                     cam_view_proj: torch.Tensor, bg: torch.Tensor,
                     img_h: int, img_w: int, tile: int = 16,
@@ -983,20 +1034,31 @@ def rasterize_tiled(gaussians: torch.Tensor, cam_view: torch.Tensor,
         forward-only `rasterize_cuda.composite`: K1 for CUDA tensors,
         `composite_plain` for CPU tensors. Projection and packing stay
         plain PyTorch under autograd; binning reads the projected splats
-        detached.
+        detached. On CUDA tensors without a gradient
+        (`frame_graph_engages`) projection and binning, ~300 small
+        launches, replay as one CUDA graph (`FRAME_GRAPHS`, the same
+        kernels on the same data) once their key (`frame_key`) has come
+        twice; K1 is launched after it as ever.
       * "plain" — the plain pair on any device (`composite_plain_train`):
         the reference the kernels are checked against.
     """
     _check_frame_args(img_h, img_w, tile, max_per_tile, chunk)
     if impl not in ("cuda", "plain"):
         raise ValueError(f"unknown rasterizer impl {impl!r}")
-    with profiling.span("ga.render.project"):
-        sp = preprocess_splats(gaussians, cam_view, cam_view_proj,
-                               full_h or img_h, img_w)
-        tab = splat_table(sp, full_h or img_h, img_w)
-    with profiling.span("ga.render.bin"), torch.no_grad():
-        pairs, starts, counts = build_tile_pairs(sp, img_h, img_w, tile,
-                                                 max_per_tile, row0=row0)
+    frame = (img_h, img_w, tile, max_per_tile, full_h, row0)
+    inputs = (gaussians, cam_view, cam_view_proj)
+    if frame_graph_engages(*inputs, impl):
+        from gaussiananything_tpu_torch.ops import rasterize_cuda
+        with FRAME_GRAPHS.lock:
+            # K1 reads the graph's own outputs before the next replay can
+            (tab, pairs, starts, counts), _ = FRAME_GRAPHS.run(
+                frame_key(*inputs, frame), lambda *a: _frame(*a, *frame),
+                inputs, img_h=img_h, img_w=img_w, row0=row0)
+            buf = rasterize_cuda.composite(tab, pairs, starts, counts, bg,
+                                           img_h, img_w, tile=tile,
+                                           chunk=chunk, row0=row0)
+        return split_outputs(buf)
+    tab, pairs, starts, counts = _frame(*inputs, *frame)
     if impl == "plain":
         buf = composite_plain_train(tab, pairs, starts, counts, bg, img_h,
                                     img_w, tile=tile, chunk=chunk, row0=row0)

@@ -66,38 +66,47 @@ def render_multiview(gaussians: torch.Tensor, cam_view: torch.Tensor,
     loss on them, are those of the unsharded render.
     """
     B, V = cam_view.shape[:2]
-    views = []
+    outs = []
     for s in range(B * V):
         with profiling.span("ga.render.view", view=s):
             b, v = divmod(s, V)
-            cv = cam_view[b, v].float()
             if mesh is not None and mesh.tile > 1:
                 from gaussiananything_tpu_torch.render.sharded import \
                     render_view_sharded
                 out = render_view_sharded(
-                    mesh, gaussians[b], cv, cam_view_proj[b, v],
-                    bg[b, v].contiguous(), out_size, tile=tile,
-                    max_per_tile=max_per_tile, chunk=chunk, impl=impl)
+                    mesh, gaussians[b], cam_view[b, v].float(),
+                    cam_view_proj[b, v], bg[b, v].contiguous(), out_size,
+                    tile=tile, max_per_tile=max_per_tile, chunk=chunk,
+                    impl=impl)
             else:
                 out = rz.rasterize_tiled(
-                    gaussians[b], cv, cam_view_proj[b, v],
-                    bg[b, v].contiguous(), out_size, out_size, tile=tile,
-                    max_per_tile=max_per_tile, chunk=chunk, impl=impl)
-            # world normal: n_world = n_view @ cv[:3,:3].T, componentwise fp32
-            nv = out["normal_view"]
-            n_world = torch.stack([nv[0] * cv[j, 0] + nv[1] * cv[j, 1]
-                                   + nv[2] * cv[j, 2] for j in range(3)])
-            alpha = out["alpha"]
-            depth_exp = out["depth_expected"] / torch.clamp(alpha, min=1e-10)
-            depth_exp = torch.where(alpha > 1e-6, depth_exp,
-                                    torch.zeros_like(depth_exp))
-            views.append({
-                "image": torch.clamp(out["image"], 0.0, 1.0),
-                "alpha": alpha,
-                "depth": out["depth_median"],
-                "depth_expected": depth_exp,
-                "rend_normal": n_world,
-                "dist": out["dist"],
-            })
-    return {k: torch.stack([o[k] for o in views]).reshape(
-        (B, V) + views[0][k].shape) for k in views[0]}
+                    gaussians[b], cam_view[b, v].float(),
+                    cam_view_proj[b, v], bg[b, v].contiguous(), out_size,
+                    out_size, tile=tile, max_per_tile=max_per_tile,
+                    chunk=chunk, impl=impl)
+            outs.append(out)
+    return _finish(outs, cam_view.reshape(B * V, 4, 4).float(), (B, V))
+
+
+def _finish(outs, cv: torch.Tensor, lead) -> Dict[str, torch.Tensor]:
+    """The views' rasterizer maps → the renderer's maps, all views at once
+    with each view's elementwise expressions (the same bits as view by
+    view, in a fixed number of launches). cv (S,4,4) fp32 world-to-view."""
+    def stacked(k):
+        return torch.stack([o[k] for o in outs])
+    # world normal: n_world = n_view @ cv[:3,:3].T, componentwise fp32
+    nv = stacked("normal_view")
+    m = cv[:, :3, :3, None, None]
+    n_world = torch.stack([nv[:, 0] * m[:, j, 0] + nv[:, 1] * m[:, j, 1]
+                           + nv[:, 2] * m[:, j, 2] for j in range(3)], 1)
+    alpha = stacked("alpha")
+    depth_exp = stacked("depth_expected") / torch.clamp(alpha, min=1e-10)
+    depth_exp = torch.where(alpha > 1e-6, depth_exp,
+                            torch.zeros_like(depth_exp))
+    maps = {"image": torch.clamp(stacked("image"), 0.0, 1.0),
+            "alpha": alpha,
+            "depth": stacked("depth_median"),
+            "depth_expected": depth_exp,
+            "rend_normal": n_world,
+            "dist": stacked("dist")}
+    return {k: x.reshape(tuple(lead) + x.shape[1:]) for k, x in maps.items()}

@@ -40,8 +40,13 @@ The program's spans, where they are opened:
                            `ga.dit.replay` is the evaluations run eagerly)
   ga.render.view           each view of `render/renderer.render_multiview`
   ga.render.project        projection and splat table in
-                           `ops/rasterize.rasterize_tiled`
-  ga.render.bin            its binning (`build_tile_pairs`)
+                           `ops/rasterize._frame` (`rasterize_tiled`)
+  ga.render.bin            its binning (`build_tile_pairs`); both open on
+                           eager calls and captures, not on replays
+  ga.render.replay         each replay of a view's projection and binning
+  ga.render.capture        as a CUDA graph, and each capture
+                           (`ops/rasterize.FRAME_GRAPHS`; a capturing call
+                           replays too), with the view's frame
   ga.kernel.<id>           each launch of a hand-written kernel
                            (`ops/rasterize_cuda`, `ops/attention`: attn),
                            with its frame; a launch captured into a CUDA

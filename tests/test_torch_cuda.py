@@ -1131,6 +1131,88 @@ def test_dit_graph_under_the_profiler(card):
     assert n_eager <= n_replay <= n_eager + 8
 
 
+# ------------------------------- a view's projection and binning as a graph
+
+def _turntable(card, seed):
+    """The request's turntable shape: 73,728 splats, 8 views of 512² on
+    ring `seed` of `uni_mesh_path(8)` (another elevation each seed)."""
+    from gaussiananything_tpu_torch.data.synthetic import make_object
+    from gaussiananything_tpu_torch.render import cameras
+    g = make_object(seed, n=73728, device=card)[None]
+    cam = cameras.pose_to_gs_camera(
+        cameras.uni_mesh_path(8)[8 * seed:8 * seed + 8], device=card)
+    return (g, cam["cam_view"][None], cam["cam_view_proj"][None],
+            torch.ones((1, 8, 3), device=card))
+
+
+def _turntable_render(inputs, chunk=256):
+    from gaussiananything_tpu_torch.render.renderer import render_multiview
+    return render_multiview(*inputs, 512, tile=16, max_per_tile=2048,
+                            chunk=chunk)
+
+
+def _frame_graph_counts(rec):
+    names = [s.name for s in rec.spans()]
+    return (names.count("ga.render.capture"),
+            names.count("ga.render.replay"),
+            names.count("ga.render.project"))
+
+
+@pytest.mark.cuda
+def test_frame_graph_turntable_matches_eager(card, monkeypatch):
+    """Three turntables, each with other gaussians and cameras: the first
+    runs view 0 eagerly, captures at view 1 and replays after; the next
+    two replay all 8 views. Every map equals the eager body's on the same
+    inputs bit for bit (a graph input left stale would not), and each
+    turntable launches K1 exactly 8 times, outside the graph."""
+    from gaussiananything_tpu_torch.utils import profiling
+    rz.FRAME_GRAPHS.entries.clear()
+    counts, launches, got = [], [], []
+    with torch.no_grad():
+        for seed in range(3):
+            inputs = _turntable(card, seed)
+            log = []
+            rasterize_cuda.event_log = log
+            try:
+                with profiling.recording(card) as rec:
+                    got.append(_turntable_render(inputs))
+            finally:
+                rasterize_cuda.event_log = None
+            counts.append(_frame_graph_counts(rec))
+            launches.append([k for k, _, _ in log])
+        with monkeypatch.context() as m:
+            m.setattr(rz, "frame_graph_engages", lambda *a: False)
+            want = [_turntable_render(_turntable(card, seed))
+                    for seed in range(3)]
+    assert counts == [(1, 7, 2), (0, 8, 0), (0, 8, 0)]
+    assert launches == [["K1"] * 8] * 3
+    assert len(rz.FRAME_GRAPHS.entries) == 1
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert list(a) == list(b)
+        for k in b:
+            assert torch.equal(a[k], b[k]), (i, k)
+        assert float(b["alpha"].max()) > 0.5
+    for k in want[0]:
+        assert not torch.equal(want[0][k], want[1][k]), k
+
+
+@pytest.mark.cuda
+def test_frame_graph_stays_off_where_a_gradient_is_asked(card):
+    """Grad mode on and gaussians that require grad: the eager body (K2a
+    and K2b, which stage 128 splats a chunk), no capture or replay span,
+    every view's projection and binning spans open."""
+    from gaussiananything_tpu_torch.utils import profiling
+    g, cv, cvp, bg = _turntable(card, 0)
+    g = g.clone().requires_grad_(True)
+    before = len(rz.FRAME_GRAPHS.entries)
+    with profiling.recording(card) as rec:
+        out = _turntable_render((g, cv, cvp, bg), chunk=128)
+    out["image"].sum().backward()
+    assert _frame_graph_counts(rec) == (0, 0, 8)
+    assert len(rz.FRAME_GRAPHS.entries) == before
+    assert torch.isfinite(g.grad).all() and float(g.grad.abs().max()) > 0
+
+
 # ---------------------------------------------- the fused attention kernel
 
 # (queries, keys): the DiT-Ls' self- and cross-attention, DINOv2's

@@ -30,8 +30,17 @@ both recorded. It prints one JSON line and writes it to `--out`:
                        `ga.request` interval) / (median device seconds of
                        `ga.request` over the recorded requests), in %
   launches_request     device ops inside that interval
-  project_ms, bin_ms,  median device ms of `ga.render.project`,
-  k1_ms                `ga.render.bin` and `ga.kernel.K1`
+  project_ms, bin_ms,  median device ms of `ga.render.project` and
+  k1_ms                `ga.render.bin` in the views that ran them eagerly
+                       (a view that replays a graph opens neither; one
+                       that captures opens both, with no device time),
+                       and of `ga.kernel.K1`
+  replay_ms            median device ms of `ga.render.replay`: a view's
+                       projection and binning replayed as one CUDA graph,
+                       the copies of its inputs excluded
+  render_graphs        per recorded request, its `ga.render.replay` and
+                       `ga.render.capture` counts and the share of its
+                       `ga.render.view` spans that replayed a graph
   rownorm              the row-norm kernel (`ops/rownorm`): per recorded
                        request its `ga.kernel.rownorm` spans (eager
                        launches; a DiT graph's replays open none); in the
@@ -45,8 +54,9 @@ both recorded. It prints one JSON line and writes it to `--out`:
                        requests) and elsewhere
   accounts             per recorded request: `ga.condition` + `ga.step`
                        device seconds against the `timings` stage-1 +
-                       stage-2 seconds; 8 views' projection, binning and
-                       K1 against the turntable's `timings`
+                       stage-2 seconds; 8 views' projection, binning,
+                       graph replays and K1 against the turntable's
+                       `timings`
   clock                the profiled runs: the share of device-busy time
                        inside `ga.request`, the largest gap between a
                        span's host start and its profiler range, the
@@ -202,9 +212,17 @@ def main(argv=None):
             d[sp.name].append(sp)
         by_req.append((timings, d))
 
-    def med(name, f=lambda sp: sp.device_s * 1e3):
-        v = [f(sp) for _, d in by_req for sp in d[name]]
+    def med(name, f=lambda sp: sp.device_s * 1e3,
+            spans=lambda d, name: d[name]):
+        v = [f(sp) for _, d in by_req for sp in spans(d, name)]
         return statistics.median(v) if v else None
+
+    def eager(d, name):
+        # a view's own projection or binning span (a capture nests them in
+        # `ga.render.capture`; span ids are those of one recording)
+        views = {sp.id for sp in d["ga.render.view"]}
+        return [sp for sp in d[name]
+                if sp.parent in views and sp.device_s is not None]
 
     def dev_s(d, name):
         return sum(sp.device_s for sp in d[name])
@@ -214,17 +232,24 @@ def main(argv=None):
         sampler_s = timings["stage-1 sample"] + timings["stage-2 sample"]
         spans_s = dev_s(d, "ga.condition") + dev_s(d, "ga.step")
         render_s = timings["8-view turntable render"]
-        parts_s = (dev_s(d, "ga.render.project") + dev_s(d, "ga.render.bin")
-                   + dev_s(d, "ga.kernel.K1"))
+        parts_s = sum(sp.device_s for n in ("ga.render.project",
+                                            "ga.render.bin")
+                      for sp in eager(d, n)) \
+            + dev_s(d, "ga.render.replay") + dev_s(d, "ga.kernel.K1")
         accounts.append({"sampler_s": sampler_s,
                          "condition_plus_steps_s": spans_s,
                          "ratio": spans_s / sampler_s,
-                         "render_s": render_s, "project_bin_k1_s": parts_s})
+                         "render_s": render_s,
+                         "project_bin_replay_k1_s": parts_s})
     counts = dict(collections.Counter(sp.name for sp in runs[0][1]))
     dit_graphs = [{"replay": len(d["ga.dit.replay"]),
                    "capture": len(d["ga.dit.capture"]),
                    "replay_share": len(d["ga.dit.replay"])
                    / len(d["ga.velocity"])} for _, d in by_req]
+    render_graphs = [{"replay": len(d["ga.render.replay"]),
+                      "capture": len(d["ga.render.capture"]),
+                      "replay_share": len(d["ga.render.replay"])
+                      / len(d["ga.render.view"])} for _, d in by_req]
     request_s = statistics.median(dev_s(d, profiling.REQUEST)
                                   for _, d in by_req)
 
@@ -284,8 +309,10 @@ def main(argv=None):
         "idle_share_plain": (1 - busy_req / 1e9 / request_s) * 100,
         "launches_request": len(_inside(dev_ops, req.device_start_ns,
                                         req.device_end_ns)),
-        "project_ms": med("ga.render.project"),
-        "bin_ms": med("ga.render.bin"),
+        "project_ms": med("ga.render.project", spans=eager),
+        "bin_ms": med("ga.render.bin", spans=eager),
+        "replay_ms": med("ga.render.replay"),
+        "render_graphs": render_graphs,
         "k1_ms": med("ga.kernel.K1"),
         "view_ms": med("ga.render.view"),
         "step_ms": med("ga.step"),
