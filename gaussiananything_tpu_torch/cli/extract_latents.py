@@ -24,13 +24,68 @@ random draw of seed 0 unless `--ckpt` (a JAX-layout npz or this package's
 checkpoint directory). The conditioning view is the first supervision view
 resized with antialiased bilinear weights (`jax.image.resize(...,
 "bilinear")`). Runs on the card unless `--device cpu` is given (the JAX
-CLI's `--platform`).
+CLI's `--platform`). `extract_instance` is one instance's work, from its
+batch to the npz's arrays; `main`'s loop and the benchmark's extraction
+driver both call it. With `--data-dir` both draw the instances through
+`instances`: the next ones are read and decoded while one encodes.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import time
+from typing import Dict, Iterator, Tuple
+
+import torch
+
+from gaussiananything_tpu_torch.utils import profiling
+
+# the data set's loading: instances decoded ahead, and by how many threads
+PREFETCH = 3
+LOAD_WORKERS = 3
+
+
+def instances(ds) -> Iterator[Dict]:
+    """Batches of one out of `ds` (a `data.gbuffer.MultiViewDataset`),
+    in the order of `ds.batch(1)` calls, their maps decoded `PREFETCH`
+    ahead by `LOAD_WORKERS` threads; close it when done."""
+    return ds.iterator(1, prefetch=PREFETCH, workers=LOAD_WORKERS)
+
+
+@torch.no_grad()
+def extract_instance(model, batch: Dict, noise: torch.Tensor,
+                     cond_size: int) -> Tuple[Dict, Dict[str, float]]:
+    """One instance through `model` (a `PointVAE` with its encoder):
+    `batch` is a batch of one (`images_in` (1, V, 15, H, W), `pcd`
+    (1, P, 3), `images_sup` (1, V_sup, 3, H, W)); `noise` (1, K, z) is the
+    KL sample's. Returns the npz's arrays in host memory (the KL sample
+    `latent_normalized`, the FPS anchors `query_pcd_xyz`, the first
+    supervision view resized to `cond_size`² `cond`) and `timings`, the
+    host seconds of "encode" and "latent and cond", each ending in a
+    device synchronise. Opens the span `ga.extract`."""
+    from gaussiananything_tpu_torch.utils.image import resize
+    with profiling.span("ga.extract"):
+        dev = batch["images_in"].device
+        timings: Dict[str, float] = {}
+
+        def mark(label, t0):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            timings[label] = t1 - t0
+            return t1
+
+        t0 = time.perf_counter()
+        dist, anchors = model.encode(batch["images_in"], batch["pcd"])
+        t0 = mark("encode", t0)
+        z = dist.sample(noise=noise.to(dev, dist.mean.dtype))
+        cond = resize(batch["images_sup"][0, 0], (cond_size, cond_size),
+                      "linear")
+        arrays = {"latent_normalized": z[0].cpu().numpy(),
+                  "query_pcd_xyz": anchors[0].float().cpu().numpy(),
+                  "cond": cond.cpu().numpy()}
+        mark("latent and cond", t0)
+    return arrays, timings
 
 
 def main(argv=None, noise=None):
@@ -54,7 +109,6 @@ def main(argv=None, noise=None):
     args = p.parse_args(argv)
 
     import numpy as np
-    import torch
 
     from gaussiananything_tpu_torch.config import preset
     from gaussiananything_tpu_torch.data.synthetic import (describe_object,
@@ -63,7 +117,6 @@ def main(argv=None, noise=None):
     from gaussiananything_tpu_torch.train.state import \
         restore_inference_params
     from gaussiananything_tpu_torch.utils.device import resolve_device
-    from gaussiananything_tpu_torch.utils.image import resize
 
     dev = resolve_device(args.device)
     cfg = preset(args.preset)
@@ -75,19 +128,21 @@ def main(argv=None, noise=None):
     os.makedirs(args.out, exist_ok=True)
     S = cfg.dit.cond_img_size
 
-    ds = None
+    stream = None
     if args.data_dir:
         from gaussiananything_tpu_torch.data.gbuffer import MultiViewDataset
-        ds = MultiViewDataset(args.data_dir, n_views_in=cfg.data.n_views_in,
-                              n_views_sup=1, n_points=cfg.data.n_points,
-                              resolution=cfg.data.resolution, device=dev)
+        stream = instances(MultiViewDataset(
+            args.data_dir, n_views_in=cfg.data.n_views_in, n_views_sup=1,
+            n_points=cfg.data.n_points, resolution=cfg.data.resolution,
+            device=dev))
 
     files, seconds = [], []
+    K, zc = model.latent_shape
     for i in range(args.num):
         t0 = time.perf_counter()
         with torch.no_grad():
-            if ds is not None:
-                b = ds.batch(1)
+            if stream is not None:
+                b = next(stream)
                 caption = b["caption"][0]
             else:
                 b = make_batch(seed=1000 + i, batch=1,
@@ -96,17 +151,15 @@ def main(argv=None, noise=None):
                                n_pts=cfg.data.n_points, n_splats=512,
                                device=dev)
                 caption = describe_object((1000 + i) * 131)
-            dist, anchors = model.encode(b["images_in"], b["pcd"])
-            eps = noise[i] if noise is not None else torch.randn(
-                dist.mean.shape, generator=torch.Generator().manual_seed(i))
-            z = dist.sample(noise=eps.to(dev, dist.mean.dtype))
-            cond = resize(b["images_sup"][0, 0], (S, S), "linear")
+        eps = noise[i] if noise is not None else torch.randn(
+            (1, K, zc), generator=torch.Generator().manual_seed(i))
+        arrays, _ = extract_instance(model, b, eps, S)
         path = os.path.join(args.out, f"{i:05d}.npz")
-        np.savez(path, latent_normalized=z[0].cpu().numpy(),
-                 query_pcd_xyz=anchors[0].float().cpu().numpy(),
-                 cond=cond.cpu().numpy(), caption=np.str_(caption))
+        np.savez(path, **arrays, caption=np.str_(caption))
         files.append(path)
         seconds.append(time.perf_counter() - t0)
+    if stream is not None:
+        stream.close()
     print(f"wrote {args.num} latents to {args.out}", flush=True)
     return {"files": files, "seconds": seconds}
 

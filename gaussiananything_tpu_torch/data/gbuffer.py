@@ -6,7 +6,9 @@
 renders with rgb, normal, depth, 25-dim poses and a surface point cloud;
 each sample draws views of one instance, splits them into input and
 supervision views (`split_chunk_size=16 → 8+8`, `:109`) and assembles the
-15-channel encoder input with `data.postprocess`.
+15-channel encoder input with `data.postprocess`. A batch's drawn views
+are sent to its device as stored and converted there, to the values
+`load_instance` gives.
 
 On disk, one `{instance}.npz` per asset (`pack_instance`):
     rgb     (V, H, W, 3) uint8
@@ -24,10 +26,12 @@ supervise each view with its own field of view.
 """
 from __future__ import annotations
 
+import collections
 import glob
+import io
 import os
-import queue
-import threading
+import zipfile
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -60,6 +64,38 @@ def load_instance(path: str) -> Dict[str, np.ndarray]:
             "pose": z["pose"].astype(np.float32),
             "pcd": z["pcd"].astype(np.float32),
         }
+
+
+def _read_members(path: str, names) -> Dict[str, np.ndarray]:
+    """Arrays of an npz (read-only), each member inflated by one call:
+    zlib then lets go of the GIL for the whole member. `np.load` inflates
+    a member in 256 KiB pieces and takes the GIL back after each, so a
+    decoding thread waits on a busy main thread at every piece."""
+    header = {(1, 0): np.lib.format.read_array_header_1_0,
+              (2, 0): np.lib.format.read_array_header_2_0}
+    out = {}
+    with zipfile.ZipFile(path) as zf:
+        for n in names:
+            raw = zf.read(n + ".npy")
+            f = io.BytesIO(raw)
+            shape, fortran, dtype = header[np.lib.format.read_magic(f)](f)
+            out[n] = np.frombuffer(raw, dtype, offset=f.tell()).reshape(
+                shape, order="F" if fortran else "C")
+    return out
+
+
+# a sample's maps stored as 0..255, which `load_instance` takes over 255
+_OVER_255 = ("rgb_in", "alpha_in", "images_sup", "alpha_sup")
+
+
+def _as_float32(t: torch.Tensor, over_255: bool) -> torch.Tensor:
+    """A stored map as `load_instance` converts it, on `t`'s device."""
+    x = t.to(torch.float32)
+    if not over_255:
+        return x
+    # a tensor divisor: CUDA divides by a Python number through its
+    # reciprocal, which is not numpy's float32 division
+    return x / torch.full((), 255.0, device=x.device)
 
 
 def _assemble_batch(rgb_in, normal_in, depth_in, alpha_in, pose_in,
@@ -122,44 +158,55 @@ class MultiViewDataset:
                 return f.read().strip()
         return ""
 
-    def _sample(self) -> Dict[str, np.ndarray]:
+    def _plan(self) -> Dict:
+        """A sample's random draws, in their order: the instance, its
+        views, its points (read here: they are small). `_load` decodes
+        the maps."""
         path = self.files[self.rng.integers(len(self.files))]
-        inst = load_instance(path)
-        V = inst["rgb"].shape[0]
+        z = _read_members(path, ("pose", "pcd"))
+        V = z["pose"].shape[0]
         k = self.n_in + self.n_sup
         views = self.rng.choice(V, k, replace=V < k)
-        vin, vsup = views[: self.n_in], views[self.n_in:]
-        rgb = np.moveaxis(inst["rgb"], -1, -3)
-        normal = np.moveaxis(inst["normal"], -1, -3)
-        depth = inst["depth"][:, None]
-        alpha = inst["alpha"][:, None]
+        pose = z["pose"][views].astype(np.float32)
+        pcd = z["pcd"].astype(np.float32)
+        if len(pcd) >= self.n_points:
+            pcd = pcd[self.rng.choice(len(pcd), self.n_points, replace=False)]
+        else:
+            pcd = pcd[self.rng.choice(len(pcd), self.n_points)]
+        return {"path": path, "views": views, "pose": pose, "pcd": pcd}
+
+    def _load(self, plan: Dict) -> Dict[str, np.ndarray]:
+        """A planned sample with its maps: the drawn views alone, in the
+        order drawn and as stored (`_to_device` converts them)."""
+        views = plan["views"]
+        z = _read_members(plan["path"], ("rgb", "normal", "depth", "alpha"))
+        rgb, normal = (np.moveaxis(z[n][views], -1, -3)
+                       for n in ("rgb", "normal"))
+        depth, alpha = (z[n][views][:, None] for n in ("depth", "alpha"))
+        vin, vsup = slice(None, self.n_in), slice(self.n_in, None)
         if self.resolution and rgb.shape[-1] != self.resolution:
             yi = (np.arange(self.resolution) * rgb.shape[-1]) \
                 // self.resolution
             rgb, normal, depth, alpha = (
                 x[..., yi[:, None], yi[None, :]]
                 for x in (rgb, normal, depth, alpha))
-        pcd = inst["pcd"]
-        if len(pcd) >= self.n_points:
-            pcd = pcd[self.rng.choice(len(pcd), self.n_points, replace=False)]
-        else:
-            pcd = pcd[self.rng.choice(len(pcd), self.n_points)]
+        pose = plan["pose"]
         return {
             "rgb_in": rgb[vin], "normal_in": normal[vin],
             "depth_in": depth[vin], "alpha_in": alpha[vin],
-            "pose_in": inst["pose"][vin],
+            "pose_in": pose[vin],
             "images_sup": rgb[vsup], "alpha_sup": alpha[vsup],
-            "depth_sup": depth[vsup], "pose_sup": inst["pose"][vsup],
-            "pcd": pcd, "caption": self.caption_for(path),
+            "depth_sup": depth[vsup], "pose_sup": pose[vsup],
+            "pcd": plan["pcd"], "caption": self.caption_for(plan["path"]),
         }
 
-    def batch(self, batch_size: int) -> Dict[str, torch.Tensor]:
-        """The trainer's batch schema on `self.device`, plus `cam_pos`,
-        the per-view `tanfov` (B, V_sup) and `caption` (a list)."""
-        samples = [self._sample() for _ in range(batch_size)]
+    def _to_device(self, samples: List[Dict]) -> Dict[str, torch.Tensor]:
+        """Loaded samples stacked, converted and assembled on
+        `self.device` (`batch`'s schema)."""
         captions = [s.pop("caption") for s in samples]
-        t = {k: torch.from_numpy(np.stack([s[k] for s in samples])).to(
-            self.device) for k in samples[0]}
+        t = {k: _as_float32(torch.from_numpy(np.stack(
+            [s[k] for s in samples])).to(self.device), k in _OVER_255)
+            for k in samples[0]}
         imgs_in, cam, pcd = _assemble_batch(
             t["rgb_in"], t["normal_in"], t["depth_in"], t["alpha_in"],
             t["pose_in"], t["pose_sup"], t["pcd"], self.canonicalize)
@@ -176,39 +223,31 @@ class MultiViewDataset:
             "caption": captions,
         }
 
-    def iterator(self, batch_size: int, prefetch: int = 2
+    def batch(self, batch_size: int) -> Dict[str, torch.Tensor]:
+        """The trainer's batch schema on `self.device`, plus `cam_pos`,
+        the per-view `tanfov` (B, V_sup) and `caption` (a list)."""
+        return self._to_device([self._load(self._plan())
+                                for _ in range(batch_size)])
+
+    def iterator(self, batch_size: int, prefetch: int = 2, workers: int = 1
                  ) -> Iterator[Dict[str, torch.Tensor]]:
-        """Batches made by a background thread, `prefetch` ahead (decoding
-        overlaps the step). The sequence is that of calling `batch` in
-        turn; an error in the thread is raised here."""
-        q: "queue.Queue" = queue.Queue(maxsize=prefetch)
-        stop = threading.Event()
-
-        def worker():
-            while not stop.is_set():
-                try:
-                    item = self.batch(batch_size)
-                except Exception as e:    # handed to the consumer below
-                    item = e
-                while not stop.is_set():
-                    try:
-                        q.put(item, timeout=1.0)
-                        break
-                    except queue.Full:
-                        continue
-                if isinstance(item, Exception):
-                    return
-
-        t = threading.Thread(target=worker, daemon=True)
-        t.start()
+        """Batches whose maps `workers` background threads decode,
+        `prefetch` batches ahead, so that decoding overlaps the step (zlib
+        lets go of the GIL while it inflates). The random draws are made
+        here, in turn, and each batch is put on the device here, when it
+        is taken: the sequence is that of calling `batch` in turn, and
+        only the caller's thread launches device work. An error in a
+        thread is raised here."""
+        pool = ThreadPoolExecutor(workers)
+        ahead: collections.deque = collections.deque()
         try:
             while True:
-                item = q.get()
-                if isinstance(item, Exception):
-                    raise item
-                yield item
+                while len(ahead) < max(prefetch, 1):
+                    ahead.append([pool.submit(self._load, self._plan())
+                                  for _ in range(batch_size)])
+                yield self._to_device([f.result() for f in ahead.popleft()])
         finally:
-            stop.set()
+            pool.shutdown(wait=False, cancel_futures=True)
 
 
 def export_synthetic_dataset(out_dir: str, n_instances: int = 8,

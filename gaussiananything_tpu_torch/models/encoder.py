@@ -23,6 +23,7 @@ from gaussiananything_tpu_torch.models.layers import (
     exact_gelu)
 from gaussiananything_tpu_torch.models.sd_encoder import SDEncoderTrunk
 from gaussiananything_tpu_torch.ops.fps import sample_farthest_points
+from gaussiananything_tpu_torch.utils import profiling
 
 
 class MVConvEncoder(nn.Module):
@@ -123,8 +124,9 @@ class HybridPCDEncoder(nn.Module):
         if C != 15:
             raise ValueError("expected 15-channel rgb+normal+plucker+xyz, "
                              f"got {C}")
-        feat = self.sd_trunk(images) if self.release_parity \
-            else self.conv(images)
+        with profiling.span("ga.encode.trunk"):
+            feat = self.sd_trunk(images) if self.release_parity \
+                else self.conv(images)
         c = feat.shape[2]
         tokens = feat.flatten(3).permute(0, 1, 3, 2).reshape(B, -1, c)
         # token-centre xyz from the input xyz channels (stride f, offset f/2)
@@ -133,14 +135,15 @@ class HybridPCDEncoder(nn.Module):
         tok_xyz = tok_xyz.flatten(3).permute(0, 1, 3, 2).reshape(B, -1, 3)
 
         anchors, _ = sample_farthest_points(pcd, self.latent_num)
-        if self.release_parity:
-            tokens = tokens + self.xyz_pos_embed(tok_xyz)
-            q = self.agg_ca(self.xyz_pos_embed(anchors), tokens)
-        else:
-            tokens = self.token_proj(tokens) + self.token_embed(tok_xyz)
-            # the queries are the point cloud's embedding at the anchors
-            kv = torch.cat([tokens, self.anchor_embed(pcd)], dim=1)
-            q = self.agg_ca(self.anchor_embed(anchors), kv)
-        for block in self.srt:
-            q = block(q)
-        return self.mlp_out(self.norm_out(q)), anchors
+        with profiling.span("ga.encode.agg"):
+            if self.release_parity:
+                tokens = tokens + self.xyz_pos_embed(tok_xyz)
+                q = self.agg_ca(self.xyz_pos_embed(anchors), tokens)
+            else:
+                tokens = self.token_proj(tokens) + self.token_embed(tok_xyz)
+                # the queries are the point cloud's embedding at the anchors
+                kv = torch.cat([tokens, self.anchor_embed(pcd)], dim=1)
+                q = self.agg_ca(self.anchor_embed(anchors), kv)
+            for block in self.srt:
+                q = block(q)
+            return self.mlp_out(self.norm_out(q)), anchors

@@ -34,6 +34,7 @@ from gaussiananything_tpu_torch.models.upsampler import GaussianUpsampler
 from gaussiananything_tpu_torch.ops.gaussians import (POS_BOUND,
                                                       activate_gaussians,
                                                       activate_gaussians_at)
+from gaussiananything_tpu_torch.utils import profiling
 
 
 class DiagonalGaussian(NamedTuple):
@@ -160,10 +161,12 @@ class PointVAE(nn.Module):
         and the anchors (B, K, 3). The statistics are fp32."""
         if self.encoder is None:
             raise RuntimeError("this PointVAE was built without its encoder")
-        h, anchors = self.encoder(images, pcd)
-        moments = self.decoder["superresolution"]["quant_conv"](h).float()
-        mean, logvar = moments.chunk(2, dim=-1)
-        return DiagonalGaussian(mean, soft_clamp(logvar)), anchors
+        with profiling.span("ga.encode"):
+            h, anchors = self.encoder(images, pcd)
+            moments = self.decoder["superresolution"]["quant_conv"](h) \
+                .float()
+            mean, logvar = moments.chunk(2, dim=-1)
+            return DiagonalGaussian(mean, soft_clamp(logvar)), anchors
 
     def decode(self, z: torch.Tensor, anchors: torch.Tensor
                ) -> List[torch.Tensor]:

@@ -1,6 +1,7 @@
 """CUDA graphs of a function's no-grad calls, by key: the DiT forwards
-(`models/dit._ForwardGraphs`) and each view's projection and binning
-(`ops/rasterize.rasterize_tiled`).
+(`models/dit._ForwardGraphs`), each view's projection and binning
+(`ops/rasterize.rasterize_tiled`) and the farthest-point loop
+(`ops/fps.sample_farthest_points`).
 
 A graph holds the addresses of the tensors it was captured on and the
 kernels chosen then, so its caller's key is everything that fixes them:

@@ -52,6 +52,18 @@ The program's spans, where they are opened:
                            with its frame; a launch captured into a CUDA
                            graph opens its span at the capture only
   ga.train.<stage>         each lap of `train/vae_trainer.StageTimer`
+  ga.extract               `cli/extract_latents.extract_instance`, one
+                           instance: encode, KL sample, conditioning view
+  ga.encode                `models/vae.PointVAE.encode` (the encoder and
+                           the quant MLP)
+  ga.encode.trunk          the encoder's conv trunk with its multi-view
+                           mid attention (`models/encoder`)
+  ga.encode.fps            each `ops/fps.sample_farthest_points`, with B,
+                           N and K as attributes; `ga.encode.fps.replay`
+                           and `.capture` inside where its loop replays or
+                           captures as a CUDA graph (`ops/fps.FPS_GRAPHS`)
+  ga.encode.agg            the anchors' cross-attention to the tokens, the
+                           transformer blocks and the output MLP
 """
 from __future__ import annotations
 

@@ -173,6 +173,55 @@ def test_iterator_yields_the_batch_sequence(exported, tmp_path):
         next(bad)
 
 
+@pytest.mark.parametrize("batch_size", [1, 2])
+def test_iterator_with_decoding_workers_yields_the_batch_sequence(
+        exported, batch_size):
+    """With several threads decoding ahead, the iterator still gives what
+    `batch` gives in turn (the draws are made in one thread, in order), and
+    an error in a decoding thread reaches the consumer."""
+    _, pdir = exported
+    it = gb.MultiViewDataset(pdir, **KW).iterator(batch_size, prefetch=2,
+                                                  workers=3)
+    seq = gb.MultiViewDataset(pdir, **KW)
+    for _ in range(5):
+        a, b = next(it), seq.batch(batch_size)
+        assert a["caption"] == b["caption"]
+        for k in COMPUTED + LOADED + ("tanfov",):
+            assert torch.equal(a[k], b[k]), k
+    it.close()
+    bad = gb.MultiViewDataset(pdir, **KW)
+    plan, load, plans = bad._plan, bad._load, []
+
+    def planned():
+        plans.append(plan())
+        return plans[-1]
+
+    def failing(p):
+        if len(plans) > 2 and p is plans[2]:
+            raise OSError("unreadable map")
+        return load(p)
+    bad._plan, bad._load = planned, failing
+    it = bad.iterator(1, workers=2)
+    next(it), next(it)
+    with pytest.raises(OSError, match="unreadable map"):
+        next(it)
+
+
+def test_member_reader_equals_np_load(exported):
+    """The one-call member reader gives `np.load`'s arrays, bit for bit,
+    dtype and shape included."""
+    _, pdir = exported
+    names = ("rgb", "normal", "depth", "alpha", "pose", "pcd")
+    for path in sorted(os.listdir(pdir)):
+        if not path.endswith(".npz"):
+            continue
+        got = gb._read_members(os.path.join(pdir, path), names)
+        with np.load(os.path.join(pdir, path)) as want:
+            for n in names:
+                assert got[n].dtype == want[n].dtype, n
+                np.testing.assert_array_equal(got[n], want[n])
+
+
 def test_per_view_tanfov(tmp_path):
     """An instance whose views differ in field of view: each supervision
     view keeps its own tanfov, tan(fov / 2) of the pose it was drawn with
